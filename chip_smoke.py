@@ -1,0 +1,511 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``dynam3d_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py                # every phase, one card
+    python3 chip_smoke.py --phases build,matvec,ring
+
+Phases, each printed as it finishes:
+
+1. the card's name and power limit (``nvidia-smi``);
+2. ``build``: compile every CUDA kernel of the port at once (one ``nvcc``
+   per source, into ``build/dynam3d_torch/``);
+3. ``matvec``: kernel A (``csrc/int4_matvec.cu``) against its plain PyTorch
+   version at the main path's shapes (lm_head, qkv, o, gate_up + SwiGLU,
+   down at 1 and 8 rows), with its time, the plain version's time, the time
+   of a bf16 ``torch.matmul`` against the pre-dequantized weight (yardstick
+   only) and the bandwidth bound;
+4. ``ring``: kernel B (``csrc/decode_attn.cu``) and the whole decode layer
+   (five launches) against the plain versions at Phi-3-mini widths,
+   Tmax=1024 with ~900 valid rows, in the plain B=1, shared-cache k=8 and
+   grouped B=4/g=2 modes;
+5. ``parity``: a small config through the port on the card and on the CPU
+   (plain versions) with the same int4 weights: identical ids per step;
+6. ``episode``: the full-width serving slice — ``init_policy_params`` at the
+   default config with the ``depth_plane`` segmenter on the card from a
+   ``torch.Generator``, ``quantize_phi3(bits=4)``, then a 3-step
+   ``EpisodeRunner.run`` on ``SyntheticRoomFeed`` — with every launch
+   counter reset just before and read just after.
+
+Any failure exits non-zero.  The line before the last is the kernels' JSON
+record; the last line is ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import time
+
+PHASES = ("build", "matvec", "ring", "parity", "episode")
+
+# data-sheet device-memory rates, bytes/s, and the dense bf16 tensor-core peak
+_MEM_RATE = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
+             ("H100", 3.35e12))
+BF16_PEAK = 989e12
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def mem_rate(name: str) -> float:
+    for key, rate in _MEM_RATE:
+        if key in name:
+            return rate
+    raise RuntimeError(f"no memory rate on record for {name!r}")
+
+
+def bound(nbytes: float, ops: float, name: str):
+    """Least time in ms for the work, and what bounds it."""
+    tb, to = nbytes / mem_rate(name), ops / BF16_PEAK
+    return (tb * 1e3, "bytes") if tb >= to else (to * 1e3, "operations")
+
+
+class Timer:
+    """Mean device time of one call with the L2 cache flushed before it (the
+    decode loop finds its weights cold).
+
+    CUDA events span ``iters`` (flush, call) pairs, minus the same window
+    of flushes alone.  A GPU sleep enqueued ahead of each window holds the
+    card while the host enqueues the whole window, so the wrappers' host
+    time does not open gaps on the device that would count as kernel time."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.flush_buf = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")
+
+    def _window(self, fn, iters: int, sleep_cycles: int) -> float:
+        torch = self.torch
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(sleep_cycles)
+        a.record()
+        for _ in range(iters):
+            self.flush_buf.zero_()
+            if fn is not None:
+                fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b)
+
+    def __call__(self, fn, iters: int = 20, warmup: int = 3) -> float:
+        torch = self.torch
+        host_s = 0.0
+        for _ in range(warmup):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            host_s = time.perf_counter() - t0     # enqueue time of the last warm call
+        torch.cuda.synchronize()
+        # cycles at ~2 GHz covering twice the window's enqueue time
+        sleep_cycles = int(2 * iters * (host_s + 20e-6) * 2e9)
+        both = self._window(fn, iters, sleep_cycles)
+        flush = self._window(None, iters, sleep_cycles)
+        return max(0.0, (both - flush) / iters)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+def phase_build(ctx):
+    from dynam3d_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    kernels.build_all()
+    for name in kernels.SOURCES:
+        kernels.library(name)
+    log(f"[build] kernels {list(kernels.SOURCES)} built in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+
+def _dequant_bf16(torch, w):
+    from dynam3d_torch.ops.int4 import unpack_nibbles
+
+    lo, hi = unpack_nibbles(w.q4)
+    g = w.dp // w.dblk
+
+    def half(q, s):
+        return (q.to(torch.float32).view(g, w.dblk, w.n2) * s[:, None, :]).view(w.dp, w.n2)
+
+    return torch.cat([half(lo, w.s_lo), half(hi, w.s_hi)], 1)[: w.d, : w.n].to(torch.bfloat16)
+
+
+def phase_matvec(ctx):
+    """Kernel A vs its plain version at the main path's shapes."""
+    torch = ctx["torch"]
+    from dynam3d_torch.ops.int4 import int4_matvec_cuda, int4_matvec_plain, pack_int4
+
+    gen = ctx["gen"]
+    dev = "cuda"
+    timer = ctx["timer"]
+    shapes = [  # name, d, n, x dtype, ln prologue, epilogue, residual dtype, out dtype
+        ("lm_head", 3072, 32064, torch.bfloat16, False, "store", None, torch.float32),
+        ("qkv", 3072, 9216, torch.bfloat16, True, "store", None, torch.float32),
+        ("o", 3072, 3072, torch.bfloat16, False, "residual", torch.bfloat16, torch.float32),
+        ("gate_up", 3072, 16384, torch.float32, True, "swiglu", None, torch.bfloat16),
+        ("down", 8192, 3072, torch.bfloat16, False, "residual", torch.float32, torch.bfloat16),
+    ]
+    layer = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "bytes": 0}
+    max_err = 0.0
+    rows_out = []
+    for name, d, n, xdt, ln, epi, rdt, odt in shapes:
+        w = pack_int4(torch.randn(d, n, generator=gen, device=dev) * 0.02)
+        wd = _dequant_bf16(torch, w)
+        ln_w = (1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)) if ln else None
+        for rows in (1, 8):
+            x = torch.randn(rows, d, generator=gen, device=dev).to(xdt)
+            res = (torch.randn(rows, n, generator=gen, device=dev).to(rdt)
+                   if rdt is not None else None)
+            kw = dict(ln_w=ln_w, eps=1e-5, residual=res, epilogue=epi, out_dtype=odt)
+            yk = int4_matvec_cuda(x, w, **kw)
+            yp = int4_matvec_plain(x, w, **kw)
+            torch.cuda.synchronize()
+            ref = yp.float()
+            err = (yk.float() - ref).abs().max().item()
+            scale = max(1.0, ref.abs().max().item())
+            # f32 outputs: same exact products, another summation order;
+            # bf16 outputs: one bf16 rounding step apart at most
+            tol = (1e-3 if odt == torch.float32 else 1.6e-2) * scale
+            if not (err <= tol and torch.isfinite(yk.float()).all()):
+                raise AssertionError(f"int4_matvec {name} rows={rows}: err {err} > {tol}")
+            max_err = max(max_err, err)
+            ms = timer(lambda: int4_matvec_cuda(x, w, **kw))
+            plain_ms = timer(lambda: int4_matvec_plain(x, w, **kw), iters=3, warmup=1)
+            xb = x.to(torch.bfloat16)
+            lib_ms = timer(lambda: torch.matmul(xb, wd))
+            nout = w.n2 if epi == "swiglu" else w.n
+            nbytes = (w.q4.numel() + 8 * w.s_lo.numel() + x.numel() * x.element_size()
+                      + rows * nout * (4 if odt == torch.float32 else 2)
+                      + (res.numel() * res.element_size() if res is not None else 0))
+            b_ms, b_by = bound(nbytes, 2.0 * rows * d * n, ctx["card"])
+            row = dict(shape=name, rows=rows, d=d, n=n, max_abs_err=err, tol=tol, ms=ms,
+                       plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                       bound_by=b_by, bytes=nbytes)
+            rows_out.append(row)
+            log(f"[matvec] {json.dumps(row)}")
+            if rows == 8 and name != "lm_head":
+                for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+                    layer[key] += row[key]
+                layer["bytes"] += nbytes
+        del wd
+    ctx["matvec"] = dict(layer, max_abs_err=max_err, rows=rows_out)
+
+
+def _ring_case(torch, gen, weights, B, group, pos_rows, holes=(100, 120)):
+    """Inputs of one decode layer at Phi-3-mini widths."""
+    D, hd, tmax = 3072, 96, 1024
+    n_cache = B // group
+    ck = torch.randn(1, n_cache, tmax, D, generator=gen, device="cuda").to(torch.bfloat16)
+    cv = torch.randn(1, n_cache, tmax, D, generator=gen, device="cuda").to(torch.bfloat16)
+    x = torch.randn(B, 1, D, generator=gen, device="cuda").to(torch.bfloat16)
+    t = torch.arange(tmax, device="cuda")
+    mask = torch.stack([(t < p) & ~((t >= holes[0]) & (t < holes[1])) for p in pos_rows])
+    freqs = 10000.0 ** (-torch.arange(0, hd // 2, device="cuda", dtype=torch.float32) / (hd // 2))
+    rope_pos = torch.tensor([p - 20 + (i % group) for i, p in enumerate(pos_rows)],
+                            device="cuda", dtype=torch.float32)
+    ang = rope_pos[:, None] * freqs
+    return dict(x=x, cache_k=ck, cache_v=cv, mask=mask, cos=torch.cos(ang),
+                sin=torch.sin(ang), pos=list(pos_rows), **weights)
+
+
+def phase_ring(ctx):
+    """Kernel B and the five-launch decode layer vs the plain versions."""
+    torch = ctx["torch"]
+    from dynam3d_torch.ops.decode import (
+        decode_attn_cuda, decode_attn_plain, decode_layer_ring_cuda,
+        decode_layer_ring_plain, scan_length,
+    )
+    from dynam3d_torch.ops.int4 import int4_matvec_plain, pack_int4
+
+    gen, timer, dev = ctx["gen"], ctx["timer"], "cuda"
+    D, I, H, hd = 3072, 8192, 32, 96
+    weights = {
+        "qkv": pack_int4(torch.randn(D, 3 * D, generator=gen, device=dev) * 0.02),
+        "o": pack_int4(torch.randn(D, D, generator=gen, device=dev) * 0.02),
+        "gate_up": pack_int4(torch.randn(D, 2 * I, generator=gen, device=dev) * 0.02),
+        "down": pack_int4(torch.randn(I, D, generator=gen, device=dev) * 0.02),
+        "ln1_w": 1.0 + 0.1 * torch.randn(D, generator=gen, device=dev),
+        "ln2_w": 1.0 + 0.1 * torch.randn(D, generator=gen, device=dev),
+    }
+    modes = [("plain", 1, dict(), 1, [900]),
+             ("shared_cache", 8, dict(shared_cache=True), 8, [900] * 8),
+             ("group_size", 4, dict(group_size=2), 2, [900, 900, 905, 905])]
+    max_err, attn_entry, out = 0.0, None, []
+    for mode, B, kw, group, pos_rows in modes:
+        c = _ring_case(torch, gen, weights, B, group, pos_rows)
+        args = (c["x"], c["ln1_w"], c["qkv"], c["o"], c["ln2_w"], c["gate_up"],
+                c["down"], c["cache_k"], c["cache_v"], 0, c["pos"], c["mask"],
+                c["cos"], c["sin"])
+        lk = decode_layer_ring_cuda(*args, eps=1e-5, heads=H, hd=hd, **kw)
+        lp = decode_layer_ring_plain(*args, eps=1e-5, heads=H, hd=hd, **kw)
+        torch.cuda.synchronize()
+        errs = [(a.float() - b.float()).abs().max().item() for a, b in zip(lk, lp)]
+        # bf16 outputs of a chain of f32 sums in another order: at most a
+        # couple of bf16 rounding steps apart
+        tols = [3e-2 * max(1.0, b.float().abs().max().item()) for b in lp]
+        for e, tol, nm in zip(errs, tols, ("x_out", "k_new", "v_new")):
+            if not e <= tol:
+                raise AssertionError(f"decode_layer_ring {mode} {nm}: err {e} > {tol}")
+        layer_ms = timer(lambda: decode_layer_ring_cuda(*args, eps=1e-5, heads=H, hd=hd, **kw))
+        layer_plain_ms = timer(
+            lambda: decode_layer_ring_plain(*args, eps=1e-5, heads=H, hd=hd, **kw),
+            iters=3, warmup=1)
+        # kernel B alone, on the qkv matvec's output
+        y = int4_matvec_plain(c["x"].view(B, D), c["qkv"], ln_w=c["ln1_w"], eps=1e-5)
+        t_scan = scan_length(c["pos"], 1024)
+        aargs = (y, c["cos"], c["sin"], c["cache_k"], c["cache_v"], 0, c["mask"], t_scan, group)
+        ak = decode_attn_cuda(*aargs, heads=H, hd=hd)
+        ap = decode_attn_plain(*aargs, heads=H, hd=hd)
+        torch.cuda.synchronize()
+        a_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(ak, ap))
+        # bf16 outputs of f32 softmax sums in another order: one bf16 step
+        a_tol = 1.6e-2 * max(max(1.0, b.float().abs().max().item()) for b in ap)
+        if not a_err <= a_tol:
+            raise AssertionError(f"decode_attn {mode}: err {a_err} > {a_tol}")
+        a_ms = timer(lambda: decode_attn_cuda(*aargs, heads=H, hd=hd))
+        a_plain_ms = timer(lambda: decode_attn_plain(*aargs, heads=H, hd=hd), iters=3, warmup=1)
+        # yardstick: SDPA over the same cache rows and mask (no RoPE, no fold)
+        q = y[:, :D].view(B, H, 1, hd).to(torch.bfloat16)
+        kc = c["cache_k"][0, :, :t_scan].view(B // group, t_scan, H, hd).transpose(1, 2)
+        vc = c["cache_v"][0, :, :t_scan].view(B // group, t_scan, H, hd).transpose(1, 2)
+        kc = kc.repeat_interleave(group, 0)
+        vc = vc.repeat_interleave(group, 0)
+        am = c["mask"][:, None, None, :t_scan]
+        lib_ms = timer(lambda: torch.nn.functional.scaled_dot_product_attention(q, kc, vc, attn_mask=am))
+        valid_rows = int(c["mask"][::group, :t_scan].sum().item())
+        a_bytes = (valid_rows * D * 2 * 2 + y.numel() * 4 + 3 * B * D * 2
+                   + c["mask"].numel() + 2 * c["cos"].numel() * 4)
+        a_ops = 4.0 * B * (valid_rows // max(1, B // group)) * D
+        a_b_ms, a_b_by = bound(a_bytes, a_ops, ctx["card"])
+        w_bytes = sum(weights[k].q4.numel() + 8 * weights[k].s_lo.numel()
+                      for k in ("qkv", "o", "gate_up", "down"))
+        l_b_ms, l_b_by = bound(w_bytes + a_bytes, a_ops + 2.0 * B * (D * 3 * D + D * D + D * 2 * I + I * D),
+                               ctx["card"])
+        row = dict(mode=mode, B=B, group=group, t_scan=t_scan, valid_rows=valid_rows,
+                   layer_err=max(errs), layer_tol=min(tols), layer_ms=layer_ms,
+                   layer_plain_ms=layer_plain_ms,
+                   layer_bound_ms=l_b_ms, attn_err=a_err, attn_tol=a_tol, attn_ms=a_ms,
+                   attn_plain_ms=a_plain_ms, attn_library_ms=lib_ms, attn_bound_ms=a_b_ms,
+                   attn_bound_by=a_b_by)
+        out.append(row)
+        log(f"[ring] {json.dumps(row)}")
+        max_err = max(max_err, a_err)
+        if mode == "shared_cache":
+            attn_entry = dict(ms=a_ms, plain_ms=a_plain_ms, library_ms=lib_ms,
+                              bound_ms=a_b_ms, bound_by=a_b_by)
+    ctx["ring"] = dict(attn_entry, max_abs_err=max_err, rows=out)
+
+
+def _tiny_config():
+    """A few-layer, narrow config (the CPU tests' slice config)."""
+    from dynam3d_torch.config import (
+        CLIPConfig, Dynam3DConfig, FieldsConfig, LLaVAConfig, Phi3Config, SegmenterConfig,
+    )
+
+    return Dynam3DConfig(
+        fields=FieldsConfig(input_height=4, input_width=4, fts_dim=64, patch_capacity=256,
+                            instance_capacity=64, zone_capacity=32, max_segments=8,
+                            max_members=32, max_zone_members=16, encoder_dtype="f32"),
+        clip=CLIPConfig(image_size=56, patch_size=14, vision_width=64, vision_layers=2,
+                        vision_heads=2, embed_dim=64, compute_dtype="f32"),
+        llava=LLaVAConfig(
+            phi3=Phi3Config(vocab_size=512, hidden_size=64, intermediate_size=128,
+                            num_layers=2, num_heads=2, num_kv_heads=2, head_dim=32,
+                            pad_token_id=260, end_token_id=257),
+            projector_hidden=64, prefill_bucket=64, max_new_tokens=8),
+        segmenter=SegmenterConfig(provider="depth_plane"),
+    )
+
+
+def phase_parity(ctx):
+    """A small input through the port twice — on the card (kernels) and on
+    the CPU (plain versions, which the CPU tests hold against the JAX
+    package) — with the same int4 weights: the generated ids of a 3-step
+    episode must be identical."""
+    torch = ctx["torch"]
+    from dynam3d_torch.models import policy
+    from dynam3d_torch.models.vlm.phi3 import quantize_phi3
+    from dynam3d_torch.ops.int4 import pack_int4
+    from dynam3d_torch.runtime.episode import EpisodeRunner
+    from dynam3d_torch.runtime.feed import SyntheticRoomFeed
+
+    cfg = _tiny_config()
+    params = policy.init_policy_params(7, cfg, device="cpu")      # bf16 LLM, as served
+    dense = params["llava"]["phi3"]
+    q = quantize_phi3(dense, bits=4)
+    for lq, ld in zip(q["layers"], dense["layers"]):
+        for name in ("qkv", "o", "gate_up", "down"):
+            lq[name]["q4"] = pack_int4(ld[name], dblk=64, nblk=32)   # no packing padding
+    params["llava"]["phi3"] = q
+    gens = {}
+    for dev in ("cpu", "cuda"):
+        p = _to_device(torch, params, dev)
+        runner = EpisodeRunner(p, cfg, device=dev)
+        runner.run([SyntheticRoomFeed(rgb_size=56, depth_size=32, seed=3)], max_steps=3,
+                   ignore_stop=True)
+        gens[dev] = [s["gen"] for s in runner.step_log]
+    log(f"[parity] ids per step cpu={gens['cpu']} cuda={gens['cuda']}")
+    if gens["cpu"] != gens["cuda"]:
+        raise AssertionError("generated ids differ between the card and the plain versions")
+
+
+def _to_device(torch, tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_device(torch, v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(torch, v, dev) for v in tree]
+    return tree.to(dev)          # tensors and Int4Weight
+
+
+def phase_episode(ctx):
+    """The full-width serving slice, with the launch counters reset just
+    before the episode and read just after."""
+    torch = ctx["torch"]
+    from dynam3d_torch.config import Dynam3DConfig, SegmenterConfig
+    from dynam3d_torch.models import policy
+    from dynam3d_torch.models.vlm.phi3 import quantize_phi3
+    from dynam3d_torch.ops import kernels
+    from dynam3d_torch.runtime.episode import EpisodeRunner
+    from dynam3d_torch.runtime.feed import SyntheticRoomFeed
+
+    cfg = Dynam3DConfig(segmenter=SegmenterConfig(provider="depth_plane"))
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = policy.init_policy_params(gen, cfg, device="cuda")
+    params["llava"]["phi3"] = quantize_phi3(params["llava"]["phi3"], bits=4, consume=True)
+    torch.cuda.synchronize()
+    log(f"[episode] params built and quantized in {time.perf_counter() - t0:.1f} s")
+    runner = EpisodeRunner(params, cfg, device="cuda")
+    feed = SyntheticRoomFeed(rgb_size=336, depth_size=256, views=1, seed=0)
+    # one warm-up episode step outside the counted window is not needed:
+    # the counters below cover exactly this run
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    res = runner.run([feed], max_steps=3, ignore_stop=True)
+    torch.cuda.synchronize()
+    counts, plain = dict(kernels.launches), dict(kernels.plain_calls)
+    log(f"[episode] launches {json.dumps(counts)} plain calls {json.dumps(plain)}")
+    for name, n in counts.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the main path")
+    if any(plain.values()):
+        raise AssertionError(f"plain kernel versions ran on the main path: {plain}")
+    if res[0]["steps"] != 3 or not math.isfinite(res[0]["distance_to_goal"]):
+        raise AssertionError(f"episode result {res}")
+    for st in runner.step_log:
+        gen_ids = st["gen"]
+        if len(gen_ids) != cfg.llava.max_new_tokens:
+            raise AssertionError(f"generated ids of wrong length: {gen_ids}")
+        log(f"[episode] step {json.dumps({k: v for k, v in st.items() if k != 'gen'})}")
+    if not runner.step_log[-1]["mm_finite"]:
+        raise AssertionError("non-finite multimodal tokens")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[episode] steps={res[0]['steps']} peak_mem_gib={peak:.2f}")
+    ctx["launches"] = counts
+    steady = [st["ms"] for st in runner.step_log[1:]]
+    _profile_step(torch, runner, sum(steady) / len(steady))
+
+
+def _profile_step(torch, runner, steady_ms):
+    """One more 1-step episode under ``torch.profiler`` (outside the counted
+    window): device time by kernel, and the device's busy and idle share of
+    ``steady_ms``, the un-profiled step time (the profiler's own overhead
+    inflates the profiled wall time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dynam3d_torch.runtime.feed import SyntheticRoomFeed
+
+    feed = SyntheticRoomFeed(rgb_size=336, depth_size=256, views=1, seed=1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        runner.run([feed], max_steps=1, ignore_stop=True)
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    kernels_ = sorted(((e.key, dev_us(e), e.count) for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
+                      key=lambda r: -r[1])
+    if not kernels_:
+        log("[profile] device time not measured (the profiler saw no kernels)")
+        return
+    busy_ms = sum(r[1] for r in kernels_) / 1e3
+    log(f"[profile] device_busy_ms={busy_ms:.1f} steady_step_ms={steady_ms:.1f} "
+        f"idle_share={max(0.0, 1 - busy_ms / steady_ms):.3f} kernels={len(kernels_)}")
+    groups = {"int4_matvec": 0.0, "decode_attn": 0.0, "int8_gemm": 0.0, "other": 0.0}
+    for key, us, _ in kernels_:
+        g = next((k for k in ("int4_matvec", "decode_attn") if k in key),
+                 "int8_gemm" if "gemm_s8" in key else "other")
+        groups[g] += us / 1e3
+    log(f"[profile] device_ms_by_group {json.dumps(groups)}")
+    for key, us, n in kernels_[:15]:
+        log(f"[profile] {us / 1e3:9.3f} ms  x{n:<6d} {key[:100]}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES))
+    args = ap.parse_args(argv)
+    phases = [p for p in args.phases.split(",") if p]
+    unknown = set(phases) - set(PHASES)
+    if unknown:
+        raise SystemExit(f"unknown phases {sorted(unknown)}")
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    import dynam3d_torch  # noqa: F401  (fails outside a checkout of the repo)
+    from dynam3d_torch.device import pin_full_fp32
+
+    pin_full_fp32()
+    card = card_line()
+    log(card)
+    ctx = {"torch": torch, "card": card, "launches": {},
+           "gen": torch.Generator(device="cuda").manual_seed(1234),
+           "timer": Timer(torch)}
+    for name in phases:
+        t0 = time.perf_counter()
+        globals()[f"phase_{name}"](ctx)
+        log(f"[{name}] phase done in {time.perf_counter() - t0:.1f} s")
+
+    kernels_rec = []
+    if "matvec" in ctx:
+        m = ctx["matvec"]
+        kernels_rec.append(dict(
+            name="int4_matvec", route="cuda", source="dynam3d_torch/csrc/int4_matvec.cu",
+            replaces="dynam3d_tpu/ops/pallas_int4.py:212",
+            launches=ctx["launches"].get("int4_matvec", 0),
+            max_abs_err=m["max_abs_err"], ms=m["ms"], plain_ms=m["plain_ms"],
+            bound_ms=m["bound_ms"], bound_by="bytes", library_ms=m["library_ms"],
+            work="qkv+o+gate_up+down of one decode layer at 8 rows"))
+    if "ring" in ctx:
+        r = ctx["ring"]
+        kernels_rec.append(dict(
+            name="decode_attn", route="cuda", source="dynam3d_torch/csrc/decode_attn.cu",
+            replaces="dynam3d_tpu/ops/pallas_decode.py:927",
+            launches=ctx["launches"].get("decode_attn", 0),
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+            work="shared-cache verify, 8 rows, Tmax 1024"))
+    print(json.dumps({"kernels": kernels_rec}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

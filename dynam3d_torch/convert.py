@@ -1,0 +1,51 @@
+"""Parameters of the reference package -> parameters of the port.
+
+``params_from_jax(tree)`` takes the reference's parameter tree with numpy
+leaves (``jax.tree_util.tree_map(np.asarray, params)`` on the caller's
+side) — nested dicts and lists of arrays, packed int4 weights as objects
+with ``q4``/``s_lo``/``s_hi``/``d``/``n``/``dblk``/``nblk`` attributes —
+and returns the same tree of torch tensors on ``device``, so that both
+packages compute the same function on the same weights.  Nothing of JAX is
+imported: the tree is read by duck typing.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from dynam3d_torch.device import DeviceLike, resolve_device
+from dynam3d_torch.ops.int4 import Int4Weight
+
+
+def _tensor(a, device: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":        # ml_dtypes bf16: exact through f32
+        return torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _int4(w, device: torch.device) -> Int4Weight:
+    if getattr(w, "blocked", False):
+        raise ValueError("block-major int4 packs are not supported; pack flat")
+    return Int4Weight(_tensor(w.q4, device), _tensor(w.s_lo, device),
+                      _tensor(w.s_hi, device), int(w.d), int(w.n), int(w.dblk),
+                      int(w.nblk))
+
+
+def params_from_jax(tree: Any, device: DeviceLike = None) -> Any:
+    """Convert a reference parameter tree (numpy leaves) to torch."""
+    device = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(conv(v) for v in node)
+        if all(hasattr(node, a) for a in ("q4", "s_lo", "s_hi", "dblk", "nblk")):
+            return _int4(node, device)
+        return _tensor(node, device)
+
+    return conv(tree)

@@ -1,0 +1,143 @@
+"""CLIP ViT-L/14@336px vision tower; port of ``models/encoders/clip.py``
+(``preprocess_rgb``, ``encode_image`` with ``hidden_layer``).
+
+The tower returns the projected CLS feature and ALL projected patch tokens
+(the reference's modified forward), or the raw hidden states after
+``n_blocks + hidden_layer + 1`` blocks when ``hidden_layer`` is given (the
+LLaVA tower's ``vision_feature_layer=-2``).  Products accumulate in f32;
+activations keep the pixels' dtype between ops, as in the reference.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import torch
+
+from dynam3d_torch.config import CLIPConfig
+from dynam3d_torch.ops.transformer import (
+    dot_f32, init_dense, init_ln, layer_norm, weight_like,
+)
+
+Params = Dict[str, Any]
+CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+
+
+def _quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(1.702 * x)
+
+
+def _attn(p: Params, x: torch.Tensor, heads: int) -> torch.Tensor:
+    D = x.shape[-1]
+    hd = D // heads
+    qkv = (dot_f32(x, weight_like(x, p["qkv"]["w"])) + p["qkv"]["b"]).to(x.dtype)
+    q, k, v = (t.reshape(*t.shape[:-1], heads, hd) for t in qkv.split(D, dim=-1))
+    logits = torch.einsum("...qhd,...khd->...hqk", q.float(), k.float()) / math.sqrt(hd)
+    a = torch.softmax(logits, dim=-1).to(x.dtype)
+    o = torch.einsum("...hqk,...khd->...qhd", a.float(), v.float())
+    o = o.reshape(*o.shape[:-2], D).to(x.dtype)
+    return (dot_f32(o, weight_like(x, p["out"]["w"])) + p["out"]["b"]).to(x.dtype)
+
+
+def _block(p: Params, x: torch.Tensor, heads: int) -> torch.Tensor:
+    """Pre-norm residual attention block with QuickGELU."""
+    x = x + _attn(p["attn"], layer_norm(p["ln1"], x), heads)
+    h = layer_norm(p["ln2"], x)
+    h = dot_f32(h, weight_like(h, p["fc1"]["w"])) + p["fc1"]["b"]
+    h = _quick_gelu(h.to(x.dtype))
+    h = dot_f32(h, weight_like(h, p["fc2"]["w"])) + p["fc2"]["b"]
+    return x + h.to(x.dtype)
+
+
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    x = x.abs()
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(out), out)
+
+
+def _resize_weights(n_in: int, n_out: int, device) -> torch.Tensor:
+    """``[n_in, n_out]`` weights of ``jax.image.resize(method="cubic")``:
+    Keys a=-0.5, kernel widened by the downscale factor (antialias)."""
+    inv_scale = n_in / n_out
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) * inv_scale - 0.5
+    x = (sample[None, :] - torch.arange(n_in, dtype=torch.float32, device=device)[:, None]).abs()
+    w = _keys_cubic(x / kernel_scale)
+    tot = w.sum(dim=0, keepdim=True)
+    w = torch.where(tot.abs() > 1000.0 * float(torch.finfo(torch.float32).eps),
+                    w / torch.where(tot != 0, tot, torch.ones_like(tot)), torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
+def preprocess_rgb(rgb: torch.Tensor, size: int = 336) -> torch.Tensor:
+    """uint8 ``[B, H, W, 3]`` -> CLIP-normalized float ``[B, size, size, 3]``."""
+    x = rgb.to(torch.float32) / 255.0
+    if rgb.shape[1] != size or rgb.shape[2] != size:
+        wh = _resize_weights(rgb.shape[1], size, rgb.device)
+        ww = _resize_weights(rgb.shape[2], size, rgb.device)
+        x = torch.einsum("bhwc,hy,wx->byxc", x, wh, ww)
+    mean = torch.tensor(CLIP_MEAN, device=rgb.device)
+    std = torch.tensor(CLIP_STD, device=rgb.device)
+    return (x - mean) / std
+
+
+def encode_image(params: Params, cfg: CLIPConfig, pixels: torch.Tensor,
+                 hidden_layer: Optional[int] = None):
+    """Vision tower over normalized ``pixels [B, H, W, 3]``.
+
+    Returns ``(cls [B, E], patches [B, G*G, E])`` or, with ``hidden_layer``,
+    the hidden states ``[B, 1 + G*G, width]`` after that many blocks."""
+    v = params["visual"]
+    B = pixels.shape[0]
+    g, ps = cfg.grid, cfg.patch_size
+    x = pixels.reshape(B, g, ps, g, ps, 3).permute(0, 1, 3, 2, 4, 5).reshape(B, g * g, ps * ps * 3)
+    x = dot_f32(x, weight_like(x, v["conv1_w"])).to(pixels.dtype)
+    cls = v["class_embedding"].expand(B, 1, cfg.vision_width).to(x.dtype)
+    x = torch.cat([cls, x], dim=1)
+    x = x + v["positional_embedding"].to(x.dtype)
+    x = layer_norm(v["ln_pre"], x)
+    blocks = v["transformer"]["blocks"]
+    stop = len(blocks) if hidden_layer is None else len(blocks) + hidden_layer + 1
+    for bp in blocks[:stop]:
+        x = _block(bp, x, cfg.vision_heads)
+    if hidden_layer is not None:
+        return x
+    patches = layer_norm(v["ln_post"], x[:, 1:, :])
+    cls_out = layer_norm(v["ln_post"], x[:, 0, :])
+    proj = weight_like(x, v["proj"])
+    return dot_f32(cls_out, proj).to(x.dtype), dot_f32(patches, proj).to(x.dtype)
+
+
+def init_clip_params(gen: torch.Generator, cfg: CLIPConfig, device) -> Params:
+    """Random vision-tower parameters (the text tower is not on the path)."""
+    vw = cfg.vision_width
+    scale = vw ** -0.5
+
+    def block():
+        return {
+            "attn": {"qkv": init_dense(gen, vw, 3 * vw, device),
+                     "out": init_dense(gen, vw, vw, device)},
+            "ln1": init_ln(vw, device),
+            "ln2": init_ln(vw, device),
+            "fc1": init_dense(gen, vw, 4 * vw, device),
+            "fc2": init_dense(gen, 4 * vw, vw, device),
+        }
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=device)
+
+    return {
+        "visual": {
+            "conv1_w": randn(cfg.patch_size ** 2 * 3, vw) * scale,
+            "class_embedding": scale * randn(vw),
+            "positional_embedding": scale * randn(cfg.grid ** 2 + 1, vw),
+            "ln_pre": init_ln(vw, device),
+            "transformer": {"blocks": [block() for _ in range(cfg.vision_layers)]},
+            "ln_post": init_ln(vw, device),
+            "proj": scale * randn(vw, cfg.embed_dim),
+        }
+    }

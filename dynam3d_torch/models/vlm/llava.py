@@ -1,0 +1,67 @@
+"""LLaVA-Phi-3-mini: vision tower + projector + prompt splice + generation;
+port of ``models/vlm/llava.py`` (``image_features``, ``splice_embeds``,
+``generate``)."""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from dynam3d_torch import flags
+from dynam3d_torch.config import CLIPConfig, LLaVAConfig
+from dynam3d_torch.models.encoders import clip as clip_mod
+from dynam3d_torch.models.vlm import phi3
+from dynam3d_torch.ops.transformer import dot_f32, gelu, init_dense, weight_like
+
+Params = Dict[str, Any]
+
+
+def image_features(params: Params, llava_cfg: LLaVAConfig, clip_cfg: CLIPConfig,
+                   pixels: torch.Tensor) -> torch.Tensor:
+    """CLIP tower hidden states at ``vision_feature_layer`` (CLS dropped)
+    through the 2-layer GELU projector."""
+    hidden = clip_mod.encode_image(params["clip"], clip_cfg, pixels,
+                                   hidden_layer=llava_cfg.vision_feature_layer)
+    patches = hidden[:, 1:, :]
+    p = params["projector"]
+    h = dot_f32(patches, weight_like(patches, p["fc1"]["w"])) + p["fc1"]["b"]
+    h = gelu(h.to(patches.dtype))
+    h = dot_f32(h, weight_like(h, p["fc2"]["w"])) + p["fc2"]["b"]
+    return h.to(patches.dtype)
+
+
+def splice_embeds(params: Params, cfg: LLaVAConfig, input_ids: torch.Tensor,
+                  mm_tokens: torch.Tensor, splice_start: int = 2) -> torch.Tensor:
+    """Token embeddings with ``mm_tokens [B, N, D]`` written over the
+    ``<image>`` span starting at ``splice_start``."""
+    emb = phi3.embed(params["phi3"], input_ids).to(mm_tokens.dtype)
+    emb[:, splice_start: splice_start + mm_tokens.shape[1]] = mm_tokens
+    return emb
+
+
+def generate(params: Params, cfg: LLaVAConfig, embeds: torch.Tensor,
+             attn_valid: torch.Tensor, max_new_tokens: Optional[int] = None,
+             lookup_ids: Optional[torch.Tensor] = None,
+             stats: Optional[dict] = None) -> torch.Tensor:
+    """Greedy generation: speculative at B=1 (with ``flags.SPEC_DECODE``),
+    plain greedy otherwise.  The batched speculative decoder of the
+    reference is not ported; speculation is greedy-exact, so the ids are
+    the same."""
+    n = max_new_tokens or cfg.max_new_tokens
+    if flags.SPEC_DECODE and embeds.shape[0] == 1:
+        return phi3.greedy_decode_spec(params["phi3"], cfg.phi3, embeds, attn_valid, n,
+                                       lookup_ids=lookup_ids, stats=stats)
+    return phi3.greedy_decode(params["phi3"], cfg.phi3, embeds, attn_valid, n)
+
+
+def init_llava_params(gen: torch.Generator, cfg: LLaVAConfig, clip_cfg: CLIPConfig,
+                      dtype=torch.bfloat16, device=None) -> Params:
+    return {
+        "clip": clip_mod.init_clip_params(gen, clip_cfg, device),
+        "projector": {
+            "fc1": init_dense(gen, clip_cfg.vision_width, cfg.projector_hidden, device),
+            "fc2": init_dense(gen, cfg.projector_hidden, cfg.phi3.hidden_size, device),
+        },
+        "phi3": phi3.init_phi3_params(gen, cfg.phi3, dtype=dtype, device=device),
+    }

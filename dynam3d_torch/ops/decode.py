@@ -1,0 +1,250 @@
+"""Whole Phi-3 decode layer over packed int4 weights (kernels A and B).
+
+Port of ``ops/pallas_decode.py::decode_layer_ring``.  The TPU kernel is one
+program per layer with a hand-scheduled DMA ring; on the card the layer is
+five launches and no glue in between:
+
+  1. int4_matvec  (rmsnorm prologue, qkv)              -> y f32 [B, 3D]
+  2. decode_attn  (RoPE, cache + in-flight rows)        -> ctx, k_new, v_new
+  3. int4_matvec  (o, residual epilogue)                -> o1 f32 [B, D]
+  4. int4_matvec  (rmsnorm prologue, gate_up, SwiGLU)   -> h bf16 [B, I]
+  5. int4_matvec  (down, residual epilogue)             -> x_out bf16 [B, D]
+
+The three modes of the TPU kernel are one ``group`` parameter of kernel B:
+plain (``group=1``: row b attends its own cache row and folds its own new
+k/v), ``shared_cache`` (``group=B``: every row attends cache row 0, row r
+folds draft rows 0..r) and ``group_size=g`` (row b attends cache row b//g and
+folds the rows of its group up to itself).
+
+Numerics: all attention arithmetic is f32 (the TPU kernel's bf16 roundings
+of ``k*q`` products and of the rescale lanes are not reproduced); q/k/v and
+the context are rounded to bf16 as the cache stores them, the residual
+between the attention and MLP halves stays f32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Sequence, Tuple, Union
+
+import torch
+
+from dynam3d_torch.ops import kernels
+from dynam3d_torch.ops.int4 import (
+    Int4Weight, int4_matvec, int4_matvec_cuda, int4_matvec_plain,
+)
+
+ROWS = 512        # cache rows per scan block (Tmax must be a multiple)
+MAX_ROWS = 8      # batch rows per decode layer
+
+
+def scan_length(pos: Union[int, Sequence[int]], tmax: int) -> int:
+    """Cache rows a layer reads: up to the 512-row block holding the last
+    write slot (the TPU kernel streams ``ceil(pos/512)`` blocks); the mask
+    must be False beyond the write slots."""
+    p = max(pos) if isinstance(pos, (list, tuple)) else int(pos)
+    return min(tmax, -(-p // ROWS) * ROWS)
+
+
+def _rows2d(t: torch.Tensor, rows: int) -> Tuple[torch.Tensor, int]:
+    """A [rows, n] view of a per-row table given as [n], [1, n] or
+    [rows, n]; the second value is the row stride (0 broadcasts)."""
+    t2 = t.reshape(-1, t.shape[-1])
+    if t2.shape[0] == 1 and rows > 1:
+        return t2.expand(rows, -1), 0
+    kernels.require(t2.shape[0] == rows, "decode_attn: per-row table has wrong rows")
+    return t2, t2.shape[1]
+
+
+def _check_attn(qkv, cache_k, cache_v, group, heads, hd):
+    rows, w3 = qkv.shape
+    D = heads * hd
+    kernels.require(w3 == 3 * D, "decode_attn: qkv must be [rows, 3*heads*hd]")
+    kernels.require(1 <= rows <= MAX_ROWS, f"decode_attn: rows must be 1..{MAX_ROWS}")
+    kernels.require(group >= 1 and rows % group == 0, "decode_attn: rows % group != 0")
+    kernels.require(cache_k.shape == cache_v.shape and cache_k.shape[-1] == D,
+                    "decode_attn: caches must be [L, Bc, Tmax, D]")
+    kernels.require(cache_k.shape[1] >= rows // group,
+                    "decode_attn: too few cache rows for the groups")
+
+
+def decode_attn_plain(
+    qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+    cache_k: torch.Tensor, cache_v: torch.Tensor, li: int,
+    mask: torch.Tensor, t_scan: int, group: int, *, heads: int, hd: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """PyTorch version of kernel B (any device): returns bf16
+    ``(ctx [B, D], k_new [B, D], v_new [B, D])``."""
+    _check_attn(qkv, cache_k, cache_v, group, heads, hd)
+    if qkv.is_cuda:
+        kernels.plain_calls["decode_attn"] += 1
+    B = qkv.shape[0]
+    D = heads * hd
+    half = hd // 2
+    cos2, _ = _rows2d(cos.to(torch.float32), B)
+    sin2, _ = _rows2d(sin.to(torch.float32), B)
+    mask2, _ = _rows2d(mask.to(torch.bool), B)
+    y = qkv.to(torch.float32).view(B, 3, heads, hd)
+
+    def rope(t):                                     # [B, H, hd] f32
+        c, s = cos2[:, None, :], sin2[:, None, :]
+        t1, t2 = t[..., :half], t[..., half:]
+        return torch.cat([t1 * c - t2 * s, t2 * c + t1 * s], dim=-1)
+
+    q = rope(y[:, 0]).to(torch.bfloat16).to(torch.float32)
+    k_r = rope(y[:, 1]).to(torch.bfloat16)
+    v_r = y[:, 2].to(torch.bfloat16)
+    kf, vf = k_r.to(torch.float32), v_r.to(torch.float32)
+    scale = 1.0 / math.sqrt(hd)
+    ctx = torch.empty((B, heads, hd), dtype=torch.float32, device=qkv.device)
+    for r in range(B):
+        g0 = (r // group) * group
+        c = r // group
+        kc = cache_k[li, c, :t_scan].to(torch.float32).view(t_scan, heads, hd)
+        vc = cache_v[li, c, :t_scan].to(torch.float32).view(t_scan, heads, hd)
+        keys = torch.cat([kc, kf[g0 : r + 1]], dim=0)             # [T', H, hd]
+        vals = torch.cat([vc, vf[g0 : r + 1]], dim=0)
+        live = torch.cat([mask2[r, :t_scan],
+                          torch.ones(r + 1 - g0, dtype=torch.bool, device=qkv.device)])
+        logits = torch.einsum("hd,thd->ht", q[r], keys) * scale
+        logits = logits.masked_fill(~live[None, :], float("-inf"))
+        p = torch.softmax(logits, dim=-1)
+        ctx[r] = torch.einsum("ht,thd->hd", p, vals)
+    return (ctx.reshape(B, D).to(torch.bfloat16), k_r.reshape(B, D).contiguous(),
+            v_r.reshape(B, D).contiguous())
+
+
+def _bind(lib) -> None:
+    if getattr(lib, "_d3_bound", False):
+        return
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.decode_attn.argtypes = [
+        P, I, I, I, I, P, P, I, P, P, I, I, I, P, I, I, I, F, P, P, P, P,
+    ]
+    lib.decode_attn.restype = I
+    lib._d3_bound = True
+
+
+def decode_attn_cuda(
+    qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+    cache_k: torch.Tensor, cache_v: torch.Tensor, li: int,
+    mask: torch.Tensor, t_scan: int, group: int, *, heads: int, hd: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch kernel B (``csrc/decode_attn.cu``) on CUDA tensors."""
+    _check_attn(qkv, cache_k, cache_v, group, heads, hd)
+    B = qkv.shape[0]
+    D = heads * hd
+    kernels.require(qkv.dtype == torch.float32, "decode_attn: qkv must be f32")
+    kernels.require(cache_k.dtype == torch.bfloat16 and cache_v.dtype == torch.bfloat16,
+                    "decode_attn: caches must be bf16")
+    kernels.require(cos.dtype == torch.float32 and sin.dtype == torch.float32,
+                    "decode_attn: cos/sin must be f32")
+    kernels.require(mask.dtype == torch.bool, "decode_attn: mask must be bool")
+    kernels.require(hd in (32, 64, 96, 128), f"decode_attn: head dim {hd} unsupported")
+    tmax = cache_k.shape[2]
+    kernels.require(0 <= t_scan <= tmax and t_scan <= mask.shape[-1],
+                    "decode_attn: scan length out of range")
+    cos2, cs_stride = _rows2d(cos, B)
+    sin2, _ = _rows2d(sin, B)
+    mask2, m_stride = _rows2d(mask, B)
+    kernels.require(cos2.shape[1] == hd // 2, "decode_attn: cos/sin must be [B, hd/2]")
+    kernels.require_cuda([qkv, cache_k, cache_v, cos, sin, mask], "decode_attn")
+    lib = kernels.library("decode_attn")
+    _bind(lib)
+    ctx = torch.empty((B, D), dtype=torch.bfloat16, device=qkv.device)
+    k_new = torch.empty_like(ctx)
+    v_new = torch.empty_like(ctx)
+    rc = lib.decode_attn(
+        qkv.data_ptr(), B, D, heads, hd, cos2.data_ptr(), sin2.data_ptr(),
+        cs_stride, cache_k.data_ptr(), cache_v.data_ptr(), cache_k.shape[1],
+        tmax, int(li), mask2.data_ptr(), m_stride, int(t_scan), int(group),
+        1.0 / math.sqrt(hd), ctx.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+        kernels.stream_ptr(qkv),
+    )
+    kernels.check(rc, "decode_attn")
+    kernels.launches["decode_attn"] += 1
+    return ctx, k_new, v_new
+
+
+def decode_attn(qkv, cos, sin, cache_k, cache_v, li, mask, t_scan, group, *,
+                heads: int, hd: int):
+    """Kernel B on CUDA tensors, its plain version on CPU tensors."""
+    fn = decode_attn_cuda if qkv.is_cuda else decode_attn_plain
+    return fn(qkv, cos, sin, cache_k, cache_v, li, mask, t_scan, group,
+              heads=heads, hd=hd)
+
+
+def _layer(matvec, attn, x, ln1_w, qkv, o, ln2_w, gate_up, down, cache_k,
+           cache_v, li, pos, mask, cos, sin, eps, heads, hd, shared_cache,
+           group_size):
+    B = x.shape[0]
+    D = x.shape[-1]
+    kernels.require(1 <= B <= MAX_ROWS, f"decode_layer_ring: B must be 1..{MAX_ROWS}")
+    kernels.require(not (shared_cache and group_size),
+                    "decode_layer_ring: modes are mutually exclusive")
+    kernels.require(cache_k.shape[2] % ROWS == 0,
+                    f"decode_layer_ring: Tmax must be a multiple of {ROWS}")
+    kernels.require(qkv.n == 3 * D and qkv.d == D and o.d == D and o.n == D,
+                    "decode_layer_ring: qkv/o shapes")
+    kernels.require(gate_up.d == D and down.n == D and gate_up.n == 2 * gate_up.n2,
+                    "decode_layer_ring: gate_up/down shapes")
+    group = B if shared_cache else (group_size or 1)
+    x2 = x.reshape(B, D)
+    t_scan = scan_length(pos, cache_k.shape[2])
+    y = matvec(x2, qkv, ln_w=ln1_w, eps=eps, out_dtype=torch.float32)
+    ctx, k_new, v_new = attn(y, cos, sin, cache_k, cache_v, li, mask, t_scan,
+                             group, heads=heads, hd=hd)
+    o1 = matvec(ctx, o, residual=x2, epilogue="residual", out_dtype=torch.float32)
+    h = matvec(o1, gate_up, ln_w=ln2_w, eps=eps, epilogue="swiglu",
+               out_dtype=torch.bfloat16)
+    out = matvec(h, down, residual=o1, epilogue="residual", out_dtype=torch.bfloat16)
+    return out.view(B, 1, D), k_new, v_new
+
+
+def decode_layer_ring(
+    x: torch.Tensor,            # [B, 1, D] bf16, B <= 8
+    ln1_w: torch.Tensor,        # [D] f32
+    qkv: Int4Weight,
+    o: Int4Weight,
+    ln2_w: torch.Tensor,
+    gate_up: Int4Weight,
+    down: Int4Weight,
+    cache_k: torch.Tensor,      # [L, Bc, Tmax, D] bf16
+    cache_v: torch.Tensor,
+    li: int,
+    pos,                        # int or per-row ints: the write slot(s)
+    mask: torch.Tensor,         # [Tmax] or [B, Tmax] bool, current slot excluded
+    cos: torch.Tensor,          # [hd/2] or [B, hd/2] f32
+    sin: torch.Tensor,
+    *,
+    eps: float,
+    heads: int,
+    hd: int,
+    shared_cache: bool = False,
+    group_size: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One decode layer; returns ``(x_out [B,1,D], k_new [B,D], v_new [B,D])``
+    in bf16 for the caller's cache write.  Five kernel launches on CUDA
+    tensors, the plain versions on CPU tensors."""
+    return _layer(int4_matvec, decode_attn, x, ln1_w, qkv, o, ln2_w, gate_up,
+                  down, cache_k, cache_v, li, pos, mask, cos, sin, eps, heads,
+                  hd, shared_cache, group_size)
+
+
+def decode_layer_ring_plain(x, ln1_w, qkv, o, ln2_w, gate_up, down, cache_k,
+                            cache_v, li, pos, mask, cos, sin, *, eps, heads,
+                            hd, shared_cache=False, group_size=0):
+    """The layer through the plain versions only, on any device."""
+    return _layer(int4_matvec_plain, decode_attn_plain, x, ln1_w, qkv, o,
+                  ln2_w, gate_up, down, cache_k, cache_v, li, pos, mask, cos,
+                  sin, eps, heads, hd, shared_cache, group_size)
+
+
+def decode_layer_ring_cuda(x, ln1_w, qkv, o, ln2_w, gate_up, down, cache_k,
+                           cache_v, li, pos, mask, cos, sin, *, eps, heads,
+                           hd, shared_cache=False, group_size=0):
+    """The layer through the kernels only (CUDA tensors)."""
+    return _layer(int4_matvec_cuda, decode_attn_cuda, x, ln1_w, qkv, o,
+                  ln2_w, gate_up, down, cache_k, cache_v, li, pos, mask, cos,
+                  sin, eps, heads, hd, shared_cache, group_size)

@@ -1,0 +1,128 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface.  At first use it is
+compiled by ``nvcc`` for ``sm_90a`` into ``build/dynam3d_torch/`` beside the
+package (the file name carries a hash of the source, so an edited source is
+rebuilt) and loaded with ``ctypes``.  :func:`build_all` compiles every
+source at once, one ``nvcc`` process each.
+
+``launches`` counts, per kernel, the launches made through its wrapper;
+``plain_calls`` counts calls of the plain PyTorch versions on CUDA tensors.
+A run resets both with :func:`reset_counts` and reads them afterwards to
+show which path it went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, List
+
+import torch
+
+SOURCES = ("int4_matvec", "decode_attn")
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD = Path(__file__).resolve().parents[2] / "build" / "dynam3d_torch"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+]
+
+launches: Dict[str, int] = {name: 0 for name in SOURCES}
+plain_calls: Dict[str, int] = {name: 0 for name in SOURCES}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def reset_counts() -> None:
+    for d in (launches, plain_calls):
+        for k in d:
+            d[k] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return found
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD / f"lib{name}-{digest}.so"
+
+
+def _start_build(name: str):
+    """Start nvcc for one source; returns (process, tmp, target) or None
+    when the library is already built."""
+    target = _lib_path(name)
+    if target.exists():
+        return None
+    BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+    )
+    return proc, tmp, target
+
+
+def _finish_build(name: str, started) -> None:
+    proc, tmp, target = started
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+    os.replace(tmp, target)
+
+
+def build_all() -> None:
+    """Compile every kernel source in parallel (no-op for built ones)."""
+    with _lock:
+        started = [(n, _start_build(n)) for n in SOURCES]
+        for n, s in started:
+            if s is not None:
+                _finish_build(n, s)
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _lock:
+        if name not in _libs:
+            s = _start_build(name)
+            if s is not None:
+                _finish_build(name, s)
+            _libs[name] = ctypes.CDLL(str(_lib_path(name)))
+        return _libs[name]
+
+
+def check(rc: int, name: str) -> None:
+    """Raise on a non-zero ``cudaGetLastError`` from a launch."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error code {rc}")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def require_cuda(tensors: List[torch.Tensor], name: str) -> None:
+    dev = tensors[0].device
+    for t in tensors:
+        require(t.is_cuda and t.device == dev,
+                f"{name}: every tensor must be on the same CUDA device")
+        require(t.is_contiguous(), f"{name}: tensors must be contiguous")
