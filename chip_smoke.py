@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                # every phase, one card
     python3 chip_smoke.py --phases build,matvec,ring
+    python3 chip_smoke.py --phases build,nerf,knn,render,pretrain
 
 Phases, each printed as it finishes:
 
@@ -24,7 +25,26 @@ Phases, each printed as it finishes:
    default config with the ``depth_plane`` segmenter on the card from a
    ``torch.Generator``, ``quantize_phi3(bits=4)``, then a 3-step
    ``EpisodeRunner.run`` on ``SyntheticRoomFeed`` — with every launch
-   counter reset just before and read just after.
+   counter reset just before and read just after;
+7. ``nerf``: kernel C (``csrc/nerf_mlp.cu``) against its plain version at
+   N = 1152 (one novel view) and 16 x 1152 rows, D = 768, on the weights of
+   ``init_render_params``, with the time of the same chain as six bf16
+   ``torch.matmul`` calls as its yardstick, and the clusters the launch
+   needs beside those the card runs at once;
+8. ``knn``: kernel D (``csrc/knn_topk.cu``) against its plain version at
+   the renderer's stage-1 shape (72,144 ray samples, a 32,768-slot table of
+   35 walk frames x 576 patches, k = 4), with a chunked ``torch.matmul``
+   + ``torch.topk`` as its yardstick;
+9. ``render``: one full-width ``render_view`` on that table under the
+   default flags (banded k-NN, kernel C) and under
+   ``DYNAM3D_DISABLE_BANDED_KNN=1 DYNAM3D_ENABLE_PALLAS_KNN=1`` (kernel D,
+   kernel C): the same view within the stated tolerance, ms per view each;
+10. ``pretrain``: the full-width 3DFF pretraining slice — ``fields``,
+   ``render`` and CLIP-L/14-336 parameters from a ``torch.Generator`` (no
+   LLaVA), ``PretrainRunner.run`` for 2 iterations on 16 unposed frames
+   (default flags) and 2 on 4 posed frames (the k-NN flag configuration),
+   with every launch counter reset just before and read just after, then
+   one profiled iteration.
 
 Any failure exits non-zero.  The line before the last is the kernels' JSON
 record; the last line is ``{"ok": true, "device": {...}}``.
@@ -33,18 +53,24 @@ record; the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import ctypes
 import json
 import math
+import os
 import subprocess
 import sys
 import time
 
-PHASES = ("build", "matvec", "ring", "parity", "episode")
+PHASES = ("build", "matvec", "ring", "parity", "episode", "nerf", "knn", "render", "pretrain")
 
-# data-sheet device-memory rates, bytes/s, and the dense bf16 tensor-core peak
+# data-sheet device-memory rates, bytes/s, the dense bf16 tensor-core peak and
+# the float32 peak outside the tensor cores (H100 SXM)
 _MEM_RATE = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
              ("H100", 3.35e12))
 BF16_PEAK = 989e12
+FP32_PEAK = 67e12
+KNN_FLAG_ENV = {"DYNAM3D_DISABLE_BANDED_KNN": "1", "DYNAM3D_ENABLE_PALLAS_KNN": "1"}
 
 
 def log(msg: str) -> None:
@@ -58,9 +84,9 @@ def mem_rate(name: str) -> float:
     raise RuntimeError(f"no memory rate on record for {name!r}")
 
 
-def bound(nbytes: float, ops: float, name: str):
+def bound(nbytes: float, ops: float, name: str, peak: float = BF16_PEAK):
     """Least time in ms for the work, and what bounds it."""
-    tb, to = nbytes / mem_rate(name), ops / BF16_PEAK
+    tb, to = nbytes / mem_rate(name), ops / peak
     return (tb * 1e3, "bytes") if tb >= to else (to * 1e3, "operations")
 
 
@@ -394,8 +420,8 @@ def phase_episode(ctx):
     torch.cuda.synchronize()
     counts, plain = dict(kernels.launches), dict(kernels.plain_calls)
     log(f"[episode] launches {json.dumps(counts)} plain calls {json.dumps(plain)}")
-    for name, n in counts.items():
-        if n <= 0:
+    for name in ("int4_matvec", "decode_attn"):
+        if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
     if any(plain.values()):
         raise AssertionError(f"plain kernel versions ran on the main path: {plain}")
@@ -453,6 +479,385 @@ def _profile_step(torch, runner, steady_ms):
         log(f"[profile] {us / 1e3:9.3f} ms  x{n:<6d} {key[:100]}")
 
 
+@contextlib.contextmanager
+def _flags(env):
+    """Set environment gates for a block and restore them after it."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _bf16_tol(ref) -> float:
+    """bf16 outputs of the same bf16-rounded chain summed in another order:
+    a few bf16 steps at the output's scale."""
+    return 1.6e-2 * max(1.0, ref.float().abs().max().item())
+
+
+def phase_nerf(ctx):
+    """Kernel C vs its plain version at the renderer's shapes."""
+    torch = ctx["torch"]
+    from dynam3d_torch.config import FieldsConfig
+    from dynam3d_torch.models.render.nerf import init_render_params
+    from dynam3d_torch.ops import kernels
+    from dynam3d_torch.ops.nerf_mlp import nerf_mlp_cuda, nerf_mlp_plain
+
+    gen, timer = ctx["gen"], ctx["timer"]
+    cfg = FieldsConfig()
+    D = cfg.fts_dim
+    mlp = init_render_params(gen, cfg, "cuda")["mlp"]
+    w = [mlp["enc_hidden"][0], mlp["enc_hidden"][1], mlp["enc_out"], mlp["dec_hidden"][0],
+         mlp["dec_hidden"][1], mlp["dec_out"]]
+    wb = [t.to(torch.bfloat16) for t in w]
+
+    def library(x):
+        """The same chain as six bf16 torch.matmul calls (yardstick only)."""
+        h = x.to(torch.bfloat16)
+        for t in wb[:2]:
+            h = torch.nn.functional.leaky_relu(h @ t, 0.01)
+        eo = torch.nn.functional.leaky_relu(h @ wb[2], 0.01)
+        h = eo[:, :D] + x.to(torch.bfloat16)
+        for t in wb[3:5]:
+            h = torch.nn.functional.leaky_relu(h @ t, 0.01)
+        return h @ wb[5], eo[:, D]
+
+    lib = kernels.library("nerf_mlp")
+    max_clusters = ctypes.c_int(0)
+    kernels.check(lib.nerf_mlp_max_clusters(D, ctypes.byref(max_clusters)), "nerf_mlp")
+    rows_per_cluster = lib.nerf_mlp_rows()
+    rows, entry = [], None
+    for N in (1152, 16 * 1152):
+        x = torch.randn(N, D, generator=gen, device="cuda")
+        ok, dk = nerf_mlp_cuda(x, *w)
+        op, dp = nerf_mlp_plain(x, *w)
+        torch.cuda.synchronize()
+        err = max((ok.float() - op.float()).abs().max().item(),
+                  (dk.float() - dp.float()).abs().max().item())
+        tol = max(_bf16_tol(op), _bf16_tol(dp))
+        if not (err <= tol and torch.isfinite(ok.float()).all() and torch.isfinite(dk.float()).all()):
+            raise AssertionError(f"nerf_mlp N={N}: err {err} > {tol}")
+        ms = timer(lambda: nerf_mlp_cuda(x, *w))
+        # the wrapper on weights already in bf16, as the library chain gets them
+        ms_bf16_w = timer(lambda: nerf_mlp_cuda(x, *wb))
+        plain_ms = timer(lambda: nerf_mlp_plain(x, *w), iters=3, warmup=1)
+        lib_ms = timer(lambda: library(x))
+        # inputs as the renderer hands them over: f32 x and f32 weights
+        nbytes = x.numel() * 4 + sum(t.numel() * 4 for t in w) + N * D * 2 + N * 2
+        b_ms, b_by = bound(nbytes, 2.0 * N * D * (6 * D + 1), ctx["card"])
+        clusters = -(-N // rows_per_cluster)
+        row = dict(N=N, D=D, clusters=clusters, max_active_clusters=max_clusters.value,
+                   max_abs_err=err, tol=tol, ms=ms, ms_bf16_weights=ms_bf16_w,
+                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                   bytes=nbytes)
+        rows.append(row)
+        log(f"[nerf] {json.dumps(row)}")
+        if N == 1152:
+            entry = dict(row)
+    ctx["nerf"] = dict(entry, max_abs_err=max(r["max_abs_err"] for r in rows), rows=rows)
+
+
+def _walk_table(torch, cfg, seed=0, frames=35):
+    """A patch table filled the way a walk fills it: 576 frustum-clustered
+    patches per frame around a drifting position."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pts, pos = [], np.array([0.0, 0.0, 1.3])
+    for _ in range(frames):
+        heading = rng.uniform(0, 2 * np.pi)
+        depth = rng.uniform(0.5, 6.0, 576)
+        ang = rng.uniform(-0.7, 0.7, 576)
+        pts.append(np.stack([pos[0] + depth * np.cos(heading + ang),
+                             pos[1] + depth * np.sin(heading + ang),
+                             rng.uniform(0, 2.5, 576)], 1))
+        pos[:2] += rng.uniform(-0.5, 0.5, 2)
+    walk = np.concatenate(pts).astype(np.float32)
+    n, P = walk.shape[0], cfg.patch_capacity
+    table = np.full((P, 3), -10000.0, np.float32)
+    table[:n] = walk
+    valid = np.zeros(P, bool)
+    valid[:n] = True
+    return (torch.from_numpy(table).cuda(), torch.from_numpy(valid).cuda(),
+            torch.from_numpy(rng.normal(size=(n, cfg.fts_dim)).astype(np.float32)).cuda(),
+            torch.from_numpy(rng.uniform(0, 2 * np.pi, n).astype(np.float32)).cuda(),
+            torch.from_numpy(rng.uniform(0.01, 0.1, n).astype(np.float32)).cuda())
+
+
+def _ray_samples(torch, cfg, position=(0.3, -0.2, 1.25), heading=0.7):
+    """World ray samples [R, NS, 3] of one habitat-camera novel view."""
+    import math
+
+    from dynam3d_torch.geom.projection import ray_grid_habitat
+
+    (rx, ry, rz), _, _ = ray_grid_habitat(
+        height=cfg.view_height, width=cfg.view_width, hfov_deg=cfg.view_hfov,
+        vfov_deg=cfg.view_vfov, near=cfg.near, far=cfg.far, n_samples=cfg.n_samples)
+    ch, sh = math.cos(heading), math.sin(heading)
+    xyz = [rx * ch - ry * sh + position[0], rx * sh + ry * ch + position[1], rz + position[2]]
+    return torch.stack([torch.from_numpy(a) for a in xyz], -1).cuda()
+
+
+def phase_knn(ctx):
+    """Kernel D vs its plain version at the render stage-1 shape."""
+    torch = ctx["torch"]
+    from dynam3d_torch.config import FieldsConfig
+    from dynam3d_torch.ops.knn import knn_topk_cuda, knn_topk_plain
+
+    timer = ctx["timer"]
+    cfg = FieldsConfig()
+    K = cfg.search_num
+    pts, valid = _walk_table(torch, cfg)[:2]
+    q = _ray_samples(torch, cfg).reshape(-1, 3).contiguous()
+    dk, ik = knn_topk_cuda(q, pts, valid, K)
+    dp, ip = knn_topk_plain(q, pts, valid, K)
+    # one neighbour more, only to know how far the k-th stands from the next
+    d_next = knn_topk_plain(q, pts, valid, K + 1)[0][:, K]
+    torch.cuda.synchronize()
+    live = dp < 1e10
+    if not torch.equal(live, dk < 1e10) or not torch.equal(ik[~live], ip[~live]):
+        raise AssertionError("knn_topk: the (1e10, -1) tails differ")
+    # f32 expansion, products rounded one by one vs the fused multiply-adds of
+    # the matmul: a few float32 steps of |q|^2 + |p|^2 (coordinates ~10 m)
+    err = (dk[live] - dp[live]).abs().max().item()
+    tol = 1e-4
+    if not err <= tol:
+        raise AssertionError(f"knn_topk: distance err {err} > {tol}")
+    # the kernel's ids name live points, once each per row, at the distances
+    # it reports: recompute them in float64 from the table
+    lid = ik[live]
+    if not (bool((lid >= 0).all()) and bool((lid < pts.shape[0]).all())
+            and bool(valid[lid.clamp(0, pts.shape[0] - 1)].all())):
+        raise AssertionError("knn_topk: a live entry names a dead or out-of-range point")
+    srt = ik.sort(dim=1).values
+    if bool(((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)).any()):
+        raise AssertionError("knn_topk: a point appears twice in one row")
+    # (the f32 expansion is good to a few float32 steps of |q|^2 + |p|^2; a
+    # wrong id lands metres away)
+    q64, p64 = q.double()[:, None, :], pts.double()[ik.clamp(min=0)]
+    d_at_ids = ((q64 - p64) ** 2).sum(-1)
+    id_tol = 2e-6 * ((q64 ** 2).sum(-1) + (p64 ** 2).sum(-1)) + 1e-6
+    off = torch.maximum((d_at_ids - dk.double()).abs(), (d_at_ids - dp.double()).abs())
+    if bool((off > id_tol)[live].any()):
+        raise AssertionError("knn_topk: the distance at a kernel id is not the one reported")
+    id_err = off[live].max().item()
+    # where a distance stands more than 2 tol from its neighbours in the list
+    # (and from the next point beyond it), its rank is fixed: the ids agree
+    ext = torch.cat([torch.full_like(dp[:, :1], -float("inf")), dp, d_next[:, None]], 1)
+    separated = live & (ext[:, 1:-1] - ext[:, :-2] > 2 * tol) & (ext[:, 2:] - ext[:, 1:-1] > 2 * tol)
+    if not torch.equal(ik[separated], ip[separated]):
+        raise AssertionError("knn_topk: ids differ where the distances are separated")
+    n_diff = int((ik != ip).sum().item())
+    n_diff_limit = max(8, ik.numel() // 10_000)
+    if n_diff > n_diff_limit:
+        raise AssertionError(f"knn_topk: {n_diff} ids differ (limit {n_diff_limit})")
+
+    def library():
+        outs = []
+        for qc in q.split(4096):
+            d = (qc * qc).sum(-1, keepdim=True) + (pts * pts).sum(-1)[None] - 2.0 * (qc @ pts.T)
+            d = torch.where(valid[None], d.clamp(min=0.0), torch.full_like(d, 1e10))
+            outs.append(torch.topk(d, K, dim=1, largest=False))
+        return outs
+
+    ms = timer(lambda: knn_topk_cuda(q, pts, valid, K))
+    plain_ms = timer(lambda: knn_topk_plain(q, pts, valid, K), iters=3, warmup=1)
+    lib_ms = timer(library, iters=5, warmup=1)
+    Q, P = q.shape[0], pts.shape[0]
+    nbytes = Q * 12 + P * 12 + P + Q * K * (4 + 8)
+    b_ms, b_by = bound(nbytes, 8.0 * Q * P, ctx["card"], FP32_PEAK)
+    row = dict(Q=Q, P=P, k=K, live_points=int(valid.sum().item()), max_abs_err=err, tol=tol,
+               max_dist_err_at_ids=id_err, ids_separated=int(separated.sum().item()),
+               ids_differing=n_diff, ids_differing_limit=n_diff_limit, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=b_ms, bound_by=b_by, bytes=nbytes)
+    log(f"[knn] {json.dumps(row)}")
+    ctx["knn"] = row
+
+
+def _render_state(torch, cfg):
+    from dynam3d_torch.models.memory3d.state import init_state
+
+    pts, valid, fts, pdir, pscale = _walk_table(torch, cfg)
+    n = fts.shape[0]
+    st = init_state(cfg, "cuda")
+    patch_fts = st.patch_fts.clone()
+    patch_fts[:n] = fts.to(patch_fts.dtype)
+    patch_dir, patch_scale = st.patch_dir.clone(), st.patch_scale.clone()
+    patch_dir[:n], patch_scale[:n] = pdir, pscale
+    return st._replace(patch_pos=pts, patch_valid=valid, patch_fts=patch_fts,
+                       patch_dir=patch_dir, patch_scale=patch_scale)
+
+
+def phase_render(ctx):
+    """One full-width novel view under both stage-1 k-NN configurations."""
+    torch = ctx["torch"]
+    from dynam3d_torch.config import FieldsConfig
+    from dynam3d_torch.models.render import nerf
+    from dynam3d_torch.ops import kernels
+
+    cfg = FieldsConfig()
+    params = nerf.init_render_params(ctx["gen"], cfg, "cuda")
+    state = _render_state(torch, cfg)
+    pos = torch.tensor([0.3, -0.2, 1.25], device="cuda")
+
+    def view(k=0):
+        return nerf.render_view(params, cfg, state, pos,
+                                torch.tensor(0.7 + 0.05 * k, device="cuda"))
+
+    def recorded_view(seen):
+        """One view, with the stage-1 importance samples it composited."""
+        real = nerf.raw2feature
+
+        def recording(feat, dens, rel_dist, topk_inds):
+            seen.append(topk_inds)
+            return real(feat, dens, rel_dist, topk_inds)
+
+        nerf.raw2feature = recording
+        try:
+            return view()
+        finally:
+            nerf.raw2feature = real
+
+    outs, inds, ms = {}, {}, {}
+    for name, env in (("banded", {}), ("kernel_d", KNN_FLAG_ENV)):
+        with _flags(env):
+            kernels.reset_counts()
+            seen = []
+            with torch.no_grad():
+                outs[name] = recorded_view(seen)
+            inds[name] = seen[0]
+            torch.cuda.synchronize()
+            counts, plain = dict(kernels.launches), dict(kernels.plain_calls)
+            log(f"[render] {name}: launches {json.dumps(counts)} plain calls {json.dumps(plain)}")
+            want = ["nerf_mlp"] + (["knn_topk"] if env else [])
+            if any(counts[k] < 1 for k in want) or any(plain.values()):
+                raise AssertionError(f"render {name}: kernels {want} not all launched")
+            with torch.no_grad():
+                for k in range(2):
+                    view(k)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for k in range(5):
+                    view(k)
+                torch.cuda.synchronize()
+            ms[name] = (time.perf_counter() - t0) * 1e3 / 5
+    a, b = outs["banded"], outs["kernel_d"]
+    for o in (a, b):
+        if not all(torch.isfinite(t.float()).all() for t in o):
+            raise AssertionError("render: non-finite output")
+    # stage 1 only reads distances within the radius, where the banded scan
+    # is exact; the two agree up to float rounding of the distances, which
+    # can move an importance sample of a near-tie ray.  A ray with the same
+    # importance samples runs the same stage 2 and kernel C rows: it agrees
+    # to float rounding.  Only rays whose samples moved may differ.
+    fa, fb = a.features.reshape(-1, cfg.fts_dim), b.features.reshape(-1, cfg.fts_dim)
+    ray_err = (fa - fb).abs().amax(-1)
+    depth_err = (a.depth - b.depth).abs().reshape(-1)
+    same_samples = (inds["banded"] == inds["kernel_d"]).all(-1)
+    n_rays, n_moved = same_samples.numel(), int((~same_samples).sum())
+    if n_moved > max(2, n_rays // 32):
+        raise AssertionError(f"render: {n_moved}/{n_rays} rays took other importance samples")
+    err_same = max(ray_err[same_samples].max().item(), depth_err[same_samples].max().item())
+    if not err_same <= 1e-5:
+        raise AssertionError(f"render: rays with the same samples differ by {err_same}")
+    hit = fa.norm(dim=-1) > 0.5
+    row = dict(rays=n_rays, rays_with_other_samples=n_moved, max_err_same_samples=err_same,
+               rays_hit=int(hit.sum()), max_feature_err=ray_err.max().item(),
+               max_depth_err=depth_err.max().item(),
+               ms_per_view_banded=ms["banded"], ms_per_view_kernel_d=ms["kernel_d"])
+    log(f"[render] {json.dumps(row)}")
+    if not bool(hit.any()):
+        raise AssertionError("render: no ray hit the table")
+    ctx["render"] = row
+
+
+def phase_pretrain(ctx):
+    """The full-width pretraining slice, launch counters reset just before
+    the four counted iterations and read just after."""
+    torch = ctx["torch"]
+    from dynam3d_torch.config import Dynam3DConfig, SegmenterConfig
+    from dynam3d_torch.models.encoders.clip import init_clip_params
+    from dynam3d_torch.models.memory3d import init_field_params
+    from dynam3d_torch.models.render.nerf import init_render_params
+    from dynam3d_torch.ops import kernels
+    from dynam3d_torch.runtime.pretrain_loop import PretrainRunner, SyntheticFramesDataset
+    from dynam3d_torch.runtime.trainer_3dff import tree_leaves
+
+    cfg = Dynam3DConfig(segmenter=SegmenterConfig(provider="depth_plane"))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    t0 = time.perf_counter()
+    params = {"fields": init_field_params(gen, cfg.fields, "cuda"),
+              "render": init_render_params(gen, cfg.fields, "cuda"),
+              "clip": init_clip_params(gen, cfg.clip, "cuda")}
+    before = [t.clone() for t in tree_leaves({k: params[k] for k in ("fields", "render")})]
+    torch.cuda.synchronize()
+    log(f"[pretrain] params built in {time.perf_counter() - t0:.1f} s")
+    runner = PretrainRunner(params, cfg, device="cuda")
+    unposed = SyntheticFramesDataset(rgb_size=336, depth_size=256, frames=16, seed=0)
+    posed = SyntheticFramesDataset(rgb_size=336, depth_size=256, frames=4, seed=1, posed=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    hist = runner.run([unposed], iters=2)
+    with _flags(KNN_FLAG_ENV):
+        hist += runner.run([posed], iters=2)
+    torch.cuda.synchronize()
+    counts, plain = dict(kernels.launches), dict(kernels.plain_calls)
+    log(f"[pretrain] launches {json.dumps(counts)} plain calls {json.dumps(plain)}")
+    for name in ("nerf_mlp", "knn_topk"):
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the pretraining path")
+    if plain["nerf_mlp"] or plain["knn_topk"]:
+        raise AssertionError(f"plain kernel versions ran on the pretraining path: {plain}")
+    for i, (m, t) in enumerate(zip(hist, runner.timings)):
+        log(f"[pretrain] iter {i} {'posed' if i >= 2 else 'unposed'} "
+            f"{json.dumps(dict(m, build_ms=t['build_s'] * 1e3, step_ms=t['step_s'] * 1e3))}")
+        if m["skipped"] or not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"pretraining iteration {i}: {m}")
+    after = tree_leaves({k: runner.params[k] for k in ("fields", "render")})
+    moved = sum((a.float() - b.float()).abs().sum().item() for a, b in zip(after, before))
+    if not moved > 0:
+        raise AssertionError("pretraining left the parameters where they were")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[pretrain] params_moved_l1={moved:.6g} peak_mem_gib={peak:.2f}")
+    ctx["pretrain_launches"] = counts
+    steady = runner.timings[1]["build_s"] + runner.timings[1]["step_s"]
+    _profile_pretrain(torch, runner, unposed, steady * 1e3)
+
+
+def _profile_pretrain(torch, runner, dataset, steady_ms):
+    """One more unposed iteration under ``torch.profiler`` (outside the
+    counted window): device time by kernel, and the device's busy and idle
+    share of ``steady_ms``, the un-profiled iteration's time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        runner.run([dataset], iters=1)
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    rows = sorted(((e.key, dev_us(e), e.count) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0), key=lambda r: -r[1])
+    if not rows:
+        log("[profile] device time not measured (the profiler saw no kernels)")
+        return
+    busy_ms = sum(r[1] for r in rows) / 1e3
+    log(f"[profile] pretrain device_busy_ms={busy_ms:.1f} steady_iter_ms={steady_ms:.1f} "
+        f"idle_share={max(0.0, 1 - busy_ms / steady_ms):.3f} kernels={len(rows)} "
+        f"launches={sum(r[2] for r in rows)}")
+    for key, us, n in rows[:15]:
+        log(f"[profile] {us / 1e3:9.3f} ms  x{n:<6d} {key[:100]}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -500,6 +905,23 @@ def main(argv=None) -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             work="shared-cache verify, 8 rows, Tmax 1024"))
+    pre = ctx.get("pretrain_launches", {})
+    if "nerf" in ctx:
+        r = ctx["nerf"]
+        kernels_rec.append(dict(
+            name="nerf_mlp", route="cuda", source="dynam3d_torch/csrc/nerf_mlp.cu",
+            replaces="dynam3d_tpu/ops/pallas_mlp.py:50", launches=pre.get("nerf_mlp", 0),
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+            work="one novel view: N=1152 rows, D=768"))
+    if "knn" in ctx:
+        r = ctx["knn"]
+        kernels_rec.append(dict(
+            name="knn_topk", route="cuda", source="dynam3d_torch/csrc/knn_topk.cu",
+            replaces="dynam3d_tpu/ops/pallas_knn.py:92", launches=pre.get("knn_topk", 0),
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+            work="render stage 1: Q=72144, P=32768, k=4"))
     print(json.dumps({"kernels": kernels_rec}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

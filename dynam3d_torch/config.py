@@ -1,7 +1,8 @@
-"""Configuration of the PyTorch port: the dataclasses the serving slice reads.
+"""Configuration of the PyTorch port: the dataclasses its paths read.
 
 An own copy of the reference package's config tree (same field names and
-defaults), restricted to the sections the RGB-D -> action step uses.  The
+defaults), restricted to the sections the RGB-D -> action step and the 3DFF
+pretraining path use.  The
 port never imports the JAX package, so these classes are kept here.
 """
 
@@ -42,7 +43,7 @@ class FieldsConfig:
     #: encoders ("bf16" serving, "f32" for bit-close comparisons)
     encoder_dtype: str = "bf16"
 
-    # renderer fields (pretrain path; carried so configs round-trip)
+    # renderer fields (3DFF pretraining path)
     near: float = 0.0
     far: float = 10.0
     view_hfov: float = 90.0
@@ -139,8 +140,12 @@ class ActionConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Only ``max_traj_len`` is read by the serving slice (episode cap)."""
+    """``max_traj_len`` caps a serving episode; ``pretrain_lr`` and
+    ``grad_clip_value`` set the 3DFF pretraining optimizer (AdamW after a
+    per-value gradient clip)."""
 
+    pretrain_lr: float = 1e-5
+    grad_clip_value: float = 10.0
     max_traj_len: int = 50
     seed: int = 0
 

@@ -5,8 +5,9 @@ leaves (``jax.tree_util.tree_map(np.asarray, params)`` on the caller's
 side) — nested dicts and lists of arrays, packed int4 weights as objects
 with ``q4``/``s_lo``/``s_hi``/``d``/``n``/``dblk``/``nblk`` attributes —
 and returns the same tree of torch tensors on ``device``, so that both
-packages compute the same function on the same weights.  Nothing of JAX is
-imported: the tree is read by duck typing.
+packages compute the same function on the same weights.  ``state_from_jax``
+does the same for a memory state, so both packages can start from one
+memory.  Nothing of JAX is imported: the trees are read by duck typing.
 """
 
 from __future__ import annotations
@@ -49,3 +50,17 @@ def params_from_jax(tree: Any, device: DeviceLike = None) -> Any:
         return _tensor(node, device)
 
     return conv(tree)
+
+
+def state_from_jax(state: Any, device: DeviceLike = None):
+    """A reference ``FieldState`` (numpy leaves or arrays) -> the port's,
+    with integer tables widened to int64 (the port's index type)."""
+    from dynam3d_torch.models.memory3d.state import FieldState
+
+    device = resolve_device(device)
+
+    def conv(a):
+        t = _tensor(a, device)
+        return t.to(torch.int64) if t.dtype == torch.int32 else t
+
+    return FieldState(*(conv(a) for a in state))

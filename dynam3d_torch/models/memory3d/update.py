@@ -18,12 +18,14 @@ Two PyTorch-specific points:
   the softmax and only the [AGG] token's output is read, so the kept
   values are the same as over the full padded ``[max_segments,
   1 + max_members]`` block (whose attention logits alone would take
-  ~50 GB at full width).
+  ~50 GB at full width).  Their gradients are the same too: a dropped row
+  or column reaches no kept value, and every write is an index write into
+  a fresh tensor, which autograd follows.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -91,10 +93,17 @@ def _enc_dtype(cfg: FieldsConfig) -> torch.dtype:
 def update_view(
     params: Params, state: FieldState, cfg: FieldsConfig, depth: torch.Tensor,
     grid_fts: torch.Tensor, segm: torch.Tensor, position: torch.Tensor,
-    heading: torch.Tensor,
+    heading: torch.Tensor, seg_gt_id: Optional[torch.Tensor] = None,
+    geometry: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[FieldState, ViewAux]:
     """Fold one view (``depth [HW]``, ``grid_fts [HW, D]``, ``segm [HW]``,
-    world ``position [3]``, scalar ``heading``) into one episode's memory."""
+    world ``position [3]``, scalar ``heading``) into one episode's memory.
+
+    ``seg_gt_id [S]`` (pretraining) is recorded on new instances;
+    ``geometry = (ppos [HW, 3], pdir [HW], pscale [HW])`` replaces the
+    habitat unprojection (posed frames).  The stored instance and zone
+    features enter detached, so a gradient reaches ``params`` only through
+    this view's writes."""
     H, W, D = cfg.input_height, cfg.input_width, cfg.fts_dim
     HW = H * W
     S = cfg.max_segments
@@ -103,13 +112,17 @@ def update_view(
     dev = depth.device
     enc_dt = _enc_dtype(cfg)
     segm = segm.to(torch.int64)
+    state = state._replace(inst_fts=state.inst_fts.detach(), zone_fts=state.zone_fts.detach())
 
     # ---- 1. unproject ----
-    rel_x, rel_y, rel_z, pdir, pscale = unproject_depth_habitat(
-        depth, heading, height=H, width=W,
-        hfov_deg=cfg.input_hfov, vfov_deg=cfg.input_vfov,
-    )
-    ppos = torch.stack([rel_x, rel_y, rel_z], -1) + position[None, :]
+    if geometry is None:
+        rel_x, rel_y, rel_z, pdir, pscale = unproject_depth_habitat(
+            depth, heading, height=H, width=W,
+            hfov_deg=cfg.input_hfov, vfov_deg=cfg.input_vfov,
+        )
+        ppos = torch.stack([rel_x, rel_y, rel_z], -1) + position[None, :]
+    else:
+        ppos, pdir, pscale = geometry
 
     # ---- 2. write patches into free slots, oldest evicted first ----
     P_cap = cfg.patch_capacity
@@ -172,6 +185,8 @@ def update_view(
     inst_fts = scatter_drop(state.inst_fts, new_write, seg_fts.to(state.inst_fts.dtype))
     inst_valid = scatter_drop(state.inst_valid, new_write, True)
     inst_gt_id = state.inst_gt_id
+    if seg_gt_id is not None:
+        inst_gt_id = scatter_drop(inst_gt_id, new_write, seg_gt_id.to(inst_gt_id.dtype))
     patch_owner[slots] = owner[segm]
 
     # ---- 6. re-aggregate merged instances with their final membership ----

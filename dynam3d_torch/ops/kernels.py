@@ -25,7 +25,7 @@ from typing import Dict, List
 
 import torch
 
-SOURCES = ("int4_matvec", "decode_attn")
+SOURCES = ("int4_matvec", "decode_attn", "nerf_mlp", "knn_topk")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parents[2] / "build" / "dynam3d_torch"
 NVCC_FLAGS = [

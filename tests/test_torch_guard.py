@@ -25,7 +25,10 @@ def _all_modules():
 
 def test_port_imports_no_jax_in_a_fresh_process():
     mods = _all_modules()
-    assert "dynam3d_torch.models.policy" in mods and "dynam3d_torch.ops.decode" in mods
+    for m in ("models.policy", "ops.decode", "ops.knn", "ops.nerf_mlp", "models.render.nerf",
+              "models.memory3d.pretrain", "runtime.losses_3dff", "runtime.trainer_3dff",
+              "runtime.pretrain_loop"):
+        assert f"dynam3d_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -62,12 +65,16 @@ def test_entry_points_raise_without_a_device(monkeypatch):
     from dynam3d_torch.models.policy import init_policy_params
     from dynam3d_torch.runtime.episode import EpisodeRunner
 
+    from dynam3d_torch.runtime.pretrain_loop import PretrainRunner
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = Dynam3DConfig(segmenter=SegmenterConfig(provider="depth_plane"))
     with pytest.raises(RuntimeError, match="CUDA"):
         init_policy_params(0, cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         EpisodeRunner({}, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PretrainRunner({}, cfg, device=None)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -82,6 +89,17 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         decode_attn_cuda(qkv, torch.ones(16), torch.zeros(16), cache, cache, 0,
                          torch.ones(512, dtype=torch.bool), 512, 1, heads=2, hd=32)
+
+
+def test_pretrain_kernel_wrappers_refuse_cpu_tensors():
+    from dynam3d_torch.ops.knn import knn_topk_cuda
+    from dynam3d_torch.ops.nerf_mlp import nerf_mlp_cuda
+
+    with pytest.raises(ValueError, match="CUDA"):
+        knn_topk_cuda(torch.zeros(4, 3), torch.zeros(8, 3), torch.ones(8, dtype=torch.bool), 2)
+    w = [torch.zeros(128, 128)] * 2 + [torch.zeros(128, 129)] + [torch.zeros(128, 128)] * 3
+    with pytest.raises(ValueError, match="CUDA"):
+        nerf_mlp_cuda(torch.zeros(4, 128), *w)
 
 
 def test_yolov8_provider_is_refused_not_replaced():

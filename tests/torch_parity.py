@@ -23,7 +23,8 @@ def port_config(jcfg) -> tcfg.Dynam3DConfig:
     """The port's config with the same values as a reference config."""
     d = dataclasses.asdict(jcfg)
     sub = {k: d[k] for k in _SECTIONS}
-    sub["train"] = {"max_traj_len": d["train"]["max_traj_len"], "seed": d["train"]["seed"]}
+    sub["train"] = {k: d["train"][k]
+                    for k in ("pretrain_lr", "grad_clip_value", "max_traj_len", "seed")}
     return tcfg.from_dict(sub)
 
 
