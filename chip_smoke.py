@@ -4,6 +4,7 @@
     python3 chip_smoke.py                # every phase, one card
     python3 chip_smoke.py --phases build,matvec,ring
     python3 chip_smoke.py --phases build,nerf,knn,render,pretrain
+    python3 chip_smoke.py --phases build,mlp,attn,matvec2d,routes,batched
 
 Phases, each printed as it finishes:
 
@@ -18,7 +19,8 @@ Phases, each printed as it finishes:
 4. ``ring``: kernel B (``csrc/decode_attn.cu``) and the whole decode layer
    (five launches) against the plain versions at Phi-3-mini widths,
    Tmax=1024 with ~900 valid rows, in the plain B=1, shared-cache k=8 and
-   grouped B=4/g=2 modes;
+   grouped B=4/g=2 modes, with SDPA (kernel B) and the layer as library
+   calls on dequantized weights as yardsticks;
 5. ``parity``: a small config through the port on the card and on the CPU
    (plain versions) with the same int4 weights: identical ids per step;
 6. ``episode``: the full-width serving slice — ``init_policy_params`` at the
@@ -44,7 +46,28 @@ Phases, each printed as it finishes:
    LLaVA), ``PretrainRunner.run`` for 2 iterations on 16 unposed frames
    (default flags) and 2 on 4 posed frames (the k-NN flag configuration),
    with every launch counter reset just before and read just after, then
-   one profiled iteration.
+   one profiled iteration;
+11. ``matvec2d``: kernel E (``csrc/int4_matvec2d.cu``) against its plain
+   version and against kernel A at the lm_head and qkv shapes, 1, 8, 12 and
+   16 rows;
+12. ``mlp``: kernels F and G (``csrc/int4_mlp.cu``) against their plain
+   versions at Phi-3-mini widths (D=3072, I=8192), 1, 8, 12 and 16 rows,
+   with two bf16 ``torch.matmul`` on pre-dequantized weights plus ``silu``
+   as the yardstick;
+13. ``attn``: kernel H (``csrc/decode_attn_layer.cu``) against its plain
+   version at Phi-3-mini widths, Tmax=1024, ~870 valid rows with holes, with
+   dequantized bf16 matmuls plus ``scaled_dot_product_attention`` as the
+   yardstick;
+14. ``routes``: the small config on the card and on the CPU through every
+   decode route of this slice (B=1 split, B=1 unfused speculation with and
+   without ``DYNAM3D_INT4_GRID2D``, B=3 grouped speculation, B=12 unfused):
+   identical ids per step and row;
+15. ``batched``: full-width 2-step episodes on one set of quantized
+   parameters: 12 feeds at the default flags (kernels F and A), 1 feed on
+   the split route (H and G), 1 feed unfused under ``DYNAM3D_INT4_GRID2D``
+   (E and F), 4 feeds (grouped speculation, kernel B), each with the launch
+   counters reset just before and read just after and no plain version on
+   the path, then one profiled 12-feed step.
 
 Any failure exits non-zero.  The line before the last is the kernels' JSON
 record; the last line is ``{"ok": true, "device": {...}}``.
@@ -62,7 +85,8 @@ import subprocess
 import sys
 import time
 
-PHASES = ("build", "matvec", "ring", "parity", "episode", "nerf", "knn", "render", "pretrain")
+PHASES = ("build", "matvec", "ring", "parity", "episode", "nerf", "knn", "render", "pretrain",
+          "matvec2d", "mlp", "attn", "routes", "batched")
 
 # data-sheet device-memory rates, bytes/s, the dense bf16 tensor-core peak and
 # the float32 peak outside the tensor cores (H100 SXM)
@@ -265,6 +289,7 @@ def phase_ring(ctx):
     modes = [("plain", 1, dict(), 1, [900]),
              ("shared_cache", 8, dict(shared_cache=True), 8, [900] * 8),
              ("group_size", 4, dict(group_size=2), 2, [900, 900, 905, 905])]
+    dense = {k: _dequant_bf16(torch, weights[k]) for k in ("qkv", "o", "gate_up", "down")}
     max_err, attn_entry, out = 0.0, None, []
     for mode, B, kw, group, pos_rows in modes:
         c = _ring_case(torch, gen, weights, B, group, pos_rows)
@@ -307,6 +332,7 @@ def phase_ring(ctx):
         vc = vc.repeat_interleave(group, 0)
         am = c["mask"][:, None, None, :t_scan]
         lib_ms = timer(lambda: torch.nn.functional.scaled_dot_product_attention(q, kc, vc, attn_mask=am))
+        layer_lib_ms = timer(lambda: _library_layer(torch, ctx, c, dense, q, kc, vc, am))
         valid_rows = int(c["mask"][::group, :t_scan].sum().item())
         a_bytes = (valid_rows * D * 2 * 2 + y.numel() * 4 + 3 * B * D * 2
                    + c["mask"].numel() + 2 * c["cos"].numel() * 4)
@@ -318,7 +344,7 @@ def phase_ring(ctx):
                                ctx["card"])
         row = dict(mode=mode, B=B, group=group, t_scan=t_scan, valid_rows=valid_rows,
                    layer_err=max(errs), layer_tol=min(tols), layer_ms=layer_ms,
-                   layer_plain_ms=layer_plain_ms,
+                   layer_plain_ms=layer_plain_ms, layer_library_ms=layer_lib_ms,
                    layer_bound_ms=l_b_ms, attn_err=a_err, attn_tol=a_tol, attn_ms=a_ms,
                    attn_plain_ms=a_plain_ms, attn_library_ms=lib_ms, attn_bound_ms=a_b_ms,
                    attn_bound_by=a_b_by)
@@ -329,6 +355,26 @@ def phase_ring(ctx):
             attn_entry = dict(ms=a_ms, plain_ms=a_plain_ms, library_ms=lib_ms,
                               bound_ms=a_b_ms, bound_by=a_b_by)
     ctx["ring"] = dict(attn_entry, max_abs_err=max_err, rows=out)
+
+
+def _rms_bf16(torch, x, w):
+    xf = x.float()
+    return (xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + 1e-5) * w).to(torch.bfloat16)
+
+
+def _library_layer(torch, ctx, c, dense, q, kc, vc, am):
+    """A decode layer as library calls on pre-dequantized bf16 weights
+    (yardstick only): rmsnorm, qkv matmul, SDPA over the cache rows, o
+    matmul + residual, rmsnorm, gate_up matmul, SwiGLU, down matmul +
+    residual.  RoPE and the in-flight rows are left out."""
+    B, D = c["x"].shape[0], c["x"].shape[-1]
+    x = c["x"].view(B, D)
+    y = _rms_bf16(torch, x, c["ln1_w"]) @ dense["qkv"]
+    a = torch.nn.functional.scaled_dot_product_attention(q, kc, vc, attn_mask=am)
+    x1 = x + a.reshape(B, D).to(torch.bfloat16) @ dense["o"]
+    gu = _rms_bf16(torch, x1, c["ln2_w"]) @ dense["gate_up"]
+    g, u = gu.chunk(2, dim=-1)
+    return x1 + (torch.nn.functional.silu(g) * u) @ dense["down"], y
 
 
 def _tiny_config():
@@ -358,20 +404,10 @@ def phase_parity(ctx):
     package) — with the same int4 weights: the generated ids of a 3-step
     episode must be identical."""
     torch = ctx["torch"]
-    from dynam3d_torch.models import policy
-    from dynam3d_torch.models.vlm.phi3 import quantize_phi3
-    from dynam3d_torch.ops.int4 import pack_int4
     from dynam3d_torch.runtime.episode import EpisodeRunner
     from dynam3d_torch.runtime.feed import SyntheticRoomFeed
 
-    cfg = _tiny_config()
-    params = policy.init_policy_params(7, cfg, device="cpu")      # bf16 LLM, as served
-    dense = params["llava"]["phi3"]
-    q = quantize_phi3(dense, bits=4)
-    for lq, ld in zip(q["layers"], dense["layers"]):
-        for name in ("qkv", "o", "gate_up", "down"):
-            lq[name]["q4"] = pack_int4(ld[name], dblk=64, nblk=32)   # no packing padding
-    params["llava"]["phi3"] = q
+    cfg, params = _tiny_int4_params(torch)
     gens = {}
     for dev in ("cpu", "cuda"):
         p = _to_device(torch, params, dev)
@@ -396,20 +432,11 @@ def phase_episode(ctx):
     """The full-width serving slice, with the launch counters reset just
     before the episode and read just after."""
     torch = ctx["torch"]
-    from dynam3d_torch.config import Dynam3DConfig, SegmenterConfig
-    from dynam3d_torch.models import policy
-    from dynam3d_torch.models.vlm.phi3 import quantize_phi3
     from dynam3d_torch.ops import kernels
     from dynam3d_torch.runtime.episode import EpisodeRunner
     from dynam3d_torch.runtime.feed import SyntheticRoomFeed
 
-    cfg = Dynam3DConfig(segmenter=SegmenterConfig(provider="depth_plane"))
-    t0 = time.perf_counter()
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    params = policy.init_policy_params(gen, cfg, device="cuda")
-    params["llava"]["phi3"] = quantize_phi3(params["llava"]["phi3"], bits=4, consume=True)
-    torch.cuda.synchronize()
-    log(f"[episode] params built and quantized in {time.perf_counter() - t0:.1f} s")
+    cfg, params = _serving_params(ctx)
     runner = EpisodeRunner(params, cfg, device="cuda")
     feed = SyntheticRoomFeed(rgb_size=336, depth_size=256, views=1, seed=0)
     # one warm-up episode step outside the counted window is not needed:
@@ -438,23 +465,23 @@ def phase_episode(ctx):
     log(f"[episode] steps={res[0]['steps']} peak_mem_gib={peak:.2f}")
     ctx["launches"] = counts
     steady = [st["ms"] for st in runner.step_log[1:]]
-    _profile_step(torch, runner, sum(steady) / len(steady))
+    _profile_step(torch, runner, sum(steady) / len(steady),
+                  [SyntheticRoomFeed(rgb_size=336, depth_size=256, views=1, seed=1)], "b1")
 
 
-def _profile_step(torch, runner, steady_ms):
-    """One more 1-step episode under ``torch.profiler`` (outside the counted
-    window): device time by kernel, and the device's busy and idle share of
-    ``steady_ms``, the un-profiled step time (the profiler's own overhead
-    inflates the profiled wall time)."""
+def _profile_step(torch, runner, steady_ms, feeds, label):
+    """One more 1-step episode on ``feeds`` under ``torch.profiler`` (outside
+    the counted window): device time by kernel, and the device's busy and
+    idle share of ``steady_ms``, the un-profiled step time (the profiler's
+    own overhead inflates the profiled wall time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from dynam3d_torch.runtime.feed import SyntheticRoomFeed
+    from dynam3d_torch.ops.kernels import KERNELS
 
-    feed = SyntheticRoomFeed(rgb_size=336, depth_size=256, views=1, seed=1)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        runner.run([feed], max_steps=1, ignore_stop=True)
+        runner.run(feeds, max_steps=1, ignore_stop=True)
         torch.cuda.synchronize()
 
     def dev_us(e):
@@ -467,16 +494,328 @@ def _profile_step(torch, runner, steady_ms):
         log("[profile] device time not measured (the profiler saw no kernels)")
         return
     busy_ms = sum(r[1] for r in kernels_) / 1e3
-    log(f"[profile] device_busy_ms={busy_ms:.1f} steady_step_ms={steady_ms:.1f} "
+    log(f"[profile] {label} device_busy_ms={busy_ms:.1f} steady_step_ms={steady_ms:.1f} "
         f"idle_share={max(0.0, 1 - busy_ms / steady_ms):.3f} kernels={len(kernels_)}")
-    groups = {"int4_matvec": 0.0, "decode_attn": 0.0, "int8_gemm": 0.0, "other": 0.0}
+    # kernel symbols: <name>_kernel (kernels F and G share int4_mlp_kernel)
+    names = [k for k in KERNELS if k != "int4_mlp_block"]
+    groups = dict({k: 0.0 for k in names}, int8_gemm=0.0, other=0.0)
     for key, us, _ in kernels_:
-        g = next((k for k in ("int4_matvec", "decode_attn") if k in key),
+        g = next((k for k in names if f"{k}_kernel" in key),
                  "int8_gemm" if "gemm_s8" in key else "other")
         groups[g] += us / 1e3
     log(f"[profile] device_ms_by_group {json.dumps(groups)}")
     for key, us, n in kernels_[:15]:
         log(f"[profile] {us / 1e3:9.3f} ms  x{n:<6d} {key[:100]}")
+
+
+def _check(name, got, ref, tol):
+    """Max abs difference of a kernel's output from its plain version's;
+    raises above ``tol`` or on a non-finite output."""
+    err = (got.float() - ref.float()).abs().max().item()
+    if not (err <= tol and bool(got.float().isfinite().all())):
+        raise AssertionError(f"{name}: err {err} > {tol}")
+    return err
+
+
+def _weight_bytes(*ws) -> int:
+    return sum(w.q4.numel() + 4 * (w.s_lo.numel() + w.s_hi.numel()) for w in ws)
+
+
+def phase_matvec2d(ctx):
+    """Kernel E vs its plain version and vs kernel A at the lm_head and qkv
+    shapes, at 1, 8, 12 and 16 rows."""
+    torch = ctx["torch"]
+    from dynam3d_torch.ops.int4 import (
+        int4_matvec2d_cuda, int4_matvec2d_plain, int4_matvec_cuda, pack_int4,
+    )
+
+    gen, timer = ctx["gen"], ctx["timer"]
+    rows_out, entry = [], None
+    for name, d, n in (("lm_head", 3072, 32064), ("qkv", 3072, 9216)):
+        w = pack_int4(torch.randn(d, n, generator=gen, device="cuda") * 0.02)
+        wd = _dequant_bf16(torch, w)
+        for rows in (1, 8, 12, 16):
+            x = torch.randn(rows, d, generator=gen, device="cuda").to(torch.bfloat16)
+            yk = int4_matvec2d_cuda(x, w)
+            yp = int4_matvec2d_plain(x, w)
+            ya = int4_matvec_cuda(x, w)
+            torch.cuda.synchronize()
+            # f32 outputs of the same exact products summed in another order
+            tol = 1e-3 * max(1.0, yp.abs().max().item())
+            err = _check(f"int4_matvec2d {name} rows={rows}", yk, yp, tol)
+            err_a = _check(f"int4_matvec2d vs kernel A {name} rows={rows}", yk, ya, tol)
+            ms = timer(lambda: int4_matvec2d_cuda(x, w))
+            a_ms = timer(lambda: int4_matvec_cuda(x, w))
+            plain_ms = timer(lambda: int4_matvec2d_plain(x, w), iters=3, warmup=1)
+            lib_ms = timer(lambda: torch.matmul(x, wd))
+            nbytes = _weight_bytes(w) + x.numel() * 2 + rows * n * 4
+            b_ms, b_by = bound(nbytes, 2.0 * rows * d * n, ctx["card"])
+            row = dict(shape=name, rows=rows, d=d, n=n, max_abs_err=err, err_vs_kernel_a=err_a,
+                       tol=tol, ms=ms, kernel_a_ms=a_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=b_ms, bound_by=b_by, bytes=nbytes)
+            rows_out.append(row)
+            log(f"[matvec2d] {json.dumps(row)}")
+            if name == "qkv" and rows == 8:
+                entry = dict(row)
+        del wd
+    ctx["matvec2d"] = dict(entry, max_abs_err=max(r["max_abs_err"] for r in rows_out),
+                           rows=rows_out)
+
+
+def phase_mlp(ctx):
+    """Kernels F and G vs their plain versions at Phi-3-mini widths, at 1, 8,
+    12 and 16 rows, with two bf16 matmuls on pre-dequantized weights plus
+    silu as the yardstick."""
+    torch = ctx["torch"]
+    from dynam3d_torch.ops.int4 import (
+        int4_mlp_block_cuda, int4_mlp_block_plain, int4_mlp_cuda, int4_mlp_plain, pack_int4,
+    )
+
+    gen, timer = ctx["gen"], ctx["timer"]
+    D, I = 3072, 8192
+    gu = pack_int4(torch.randn(D, 2 * I, generator=gen, device="cuda") * 0.02)
+    dn = pack_int4(torch.randn(I, D, generator=gen, device="cuda") * 0.02)
+    ln_w = 1.0 + 0.1 * torch.randn(D, generator=gen, device="cuda")
+    gud, dnd = _dequant_bf16(torch, gu), _dequant_bf16(torch, dn)
+
+    def library(x, block):
+        h = _rms_bf16(torch, x, ln_w) if block else x
+        g, u = (h @ gud).chunk(2, dim=-1)
+        y = (torch.nn.functional.silu(g) * u) @ dnd
+        return x + y if block else y
+
+    rows_out, entries = [], {}
+    for rows in (1, 8, 12, 16):
+        x = torch.randn(rows, D, generator=gen, device="cuda").to(torch.bfloat16)
+        for name, block in (("int4_mlp", False), ("int4_mlp_block", True)):
+            args = (x, ln_w, gu, dn, 1e-5) if block else (x, gu, dn)
+            cuda_fn, plain_fn = ((int4_mlp_block_cuda, int4_mlp_block_plain) if block
+                                 else (int4_mlp_cuda, int4_mlp_plain))
+
+            def kern():
+                return cuda_fn(*args, out_dtype=torch.bfloat16)
+
+            def plain():
+                return plain_fn(*args, out_dtype=torch.bfloat16)
+            yk, yp = kern(), plain()
+            torch.cuda.synchronize()
+            err = _check(f"{name} rows={rows}", yk, yp, _bf16_tol(yp))
+            ms = timer(kern)
+            plain_ms = timer(plain, iters=3, warmup=1)
+            lib_ms = timer(lambda: library(x, block))
+            nbytes = (_weight_bytes(gu, dn) + x.numel() * 2 + rows * D * 2
+                      + (ln_w.numel() * 4 if block else 0))
+            b_ms, b_by = bound(nbytes, 2.0 * rows * (D * 2 * I + I * D), ctx["card"])
+            row = dict(kernel=name, rows=rows, D=D, I=I, max_abs_err=err, tol=_bf16_tol(yp),
+                       ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                       bound_by=b_by, bytes=nbytes)
+            rows_out.append(row)
+            log(f"[mlp] {json.dumps(row)}")
+            # the rows each kernel takes on the main path: F at the B=12
+            # batch, G at B=1 on the split route
+            if (name, rows) in (("int4_mlp", 12), ("int4_mlp_block", 1)):
+                entries[name] = dict(row)
+    for name in entries:
+        entries[name]["max_abs_err"] = max(r["max_abs_err"] for r in rows_out
+                                           if r["kernel"] == name)
+    ctx["mlp"] = entries
+
+
+def phase_attn(ctx):
+    """Kernel H vs its plain version at Phi-3-mini widths, Tmax=1024, write
+    slot 900 with holes, with dequantized bf16 matmuls plus SDPA as the
+    yardstick."""
+    torch = ctx["torch"]
+    from dynam3d_torch.ops.decode import (
+        decode_attn_layer_cuda, decode_attn_layer_plain, scan_length,
+    )
+    from dynam3d_torch.ops.int4 import pack_int4
+
+    gen, timer = ctx["gen"], ctx["timer"]
+    D, H, hd, tmax, pos, li = 3072, 32, 96, 1024, 900, 1
+    qkv = pack_int4(torch.randn(D, 3 * D, generator=gen, device="cuda") * 0.02)
+    o = pack_int4(torch.randn(D, D, generator=gen, device="cuda") * 0.02)
+    ln_w = 1.0 + 0.1 * torch.randn(D, generator=gen, device="cuda")
+    x = torch.randn(1, 1, D, generator=gen, device="cuda").to(torch.bfloat16)
+    ck = torch.randn(2, 1, tmax, D, generator=gen, device="cuda").to(torch.bfloat16)
+    cv = torch.randn(2, 1, tmax, D, generator=gen, device="cuda").to(torch.bfloat16)
+    t = torch.arange(tmax, device="cuda")
+    mask = (t < pos) & ~((t >= 100) & (t < 120)) & ~((t >= 600) & (t < 611))
+    freqs = 10000.0 ** (-torch.arange(0, hd // 2, device="cuda", dtype=torch.float32) / (hd // 2))
+    ang = (pos - 31) * freqs
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    args = (x, ln_w, qkv, o, ck, cv, li, pos, mask, cos, sin)
+    kw = dict(eps=1e-5, heads=H, hd=hd)
+    hk = decode_attn_layer_cuda(*args, **kw)
+    hp = decode_attn_layer_plain(*args, **kw)
+    torch.cuda.synchronize()
+    # bf16 outputs of a chain of f32 sums in another order: at most a couple
+    # of bf16 rounding steps apart
+    err = max(_check(f"decode_attn_layer {nm}", a, b, 3e-2 * max(1.0, b.float().abs().max().item()))
+              for nm, a, b in zip(("x_out", "k_new", "v_new"), hk, hp))
+    ms = timer(lambda: decode_attn_layer_cuda(*args, **kw))
+    plain_ms = timer(lambda: decode_attn_layer_plain(*args, **kw), iters=3, warmup=1)
+    qd, od = _dequant_bf16(torch, qkv), _dequant_bf16(torch, o)
+    t_scan = scan_length(pos, tmax)
+    kc = ck[li, :, :t_scan].view(1, t_scan, H, hd).transpose(1, 2)
+    vc = cv[li, :, :t_scan].view(1, t_scan, H, hd).transpose(1, 2)
+    am = mask[None, None, None, :t_scan]
+
+    def library():
+        y = _rms_bf16(torch, x.view(1, D), ln_w) @ qd
+        q = y[:, :D].view(1, H, 1, hd)
+        a = torch.nn.functional.scaled_dot_product_attention(q, kc, vc, attn_mask=am)
+        return x.view(1, D) + a.reshape(1, D) @ od
+
+    lib_ms = timer(library)
+    valid_rows = int(mask.sum().item())
+    nbytes = (_weight_bytes(qkv, o) + 2 * valid_rows * D * 2 + ln_w.numel() * 4
+              + x.numel() * 2 + mask.numel() + 2 * cos.numel() * 4 + 3 * D * 2)
+    ops = 2.0 * (D * 3 * D + D * D) + 4.0 * valid_rows * D
+    b_ms, b_by = bound(nbytes, ops, ctx["card"])
+    row = dict(D=D, heads=H, hd=hd, tmax=tmax, pos=pos, valid_rows=valid_rows, max_abs_err=err,
+               ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+               bytes=nbytes)
+    log(f"[attn] {json.dumps(row)}")
+    ctx["attn"] = row
+
+
+# route name, feeds, decode flags, kernels that must launch on the card
+ROUTES = [
+    ("split", 1, {"DYNAM3D_FUSED_RING": "0", "DYNAM3D_SPEC_DECODE": "0"},
+     ("decode_attn_layer", "int4_mlp_block")),
+    ("unfused_spec", 1, {"DYNAM3D_FUSED_RING": "0"}, ("int4_mlp", "int4_matvec")),
+    ("unfused_spec_grid2d", 1, {"DYNAM3D_FUSED_RING": "0", "DYNAM3D_INT4_GRID2D": "1"},
+     ("int4_mlp", "int4_matvec2d")),
+    ("grouped_spec", 3, {}, ("decode_attn", "int4_matvec")),
+    ("unfused_b12", 12, {}, ("int4_mlp", "int4_matvec")),
+]
+
+
+def _tiny_int4_params(torch):
+    from dynam3d_torch.models import policy
+    from dynam3d_torch.models.vlm.phi3 import quantize_phi3
+    from dynam3d_torch.ops.int4 import pack_int4
+
+    cfg = _tiny_config()
+    params = policy.init_policy_params(7, cfg, device="cpu")      # bf16 LLM, as served
+    dense = params["llava"]["phi3"]
+    q = quantize_phi3(dense, bits=4)
+    for lq, ld in zip(q["layers"], dense["layers"]):
+        for name in ("qkv", "o", "gate_up", "down"):
+            lq[name]["q4"] = pack_int4(ld[name], dblk=64, nblk=32)   # no packing padding
+    params["llava"]["phi3"] = q
+    return cfg, params
+
+
+def phase_routes(ctx):
+    """The small config through every decode route the flags and the batch
+    select, on the card and on the CPU with the same int4 weights: every
+    row's ids identical at every step, and the route's kernels launched."""
+    torch = ctx["torch"]
+    from dynam3d_torch.ops import kernels
+    from dynam3d_torch.runtime.episode import EpisodeRunner
+    from dynam3d_torch.runtime.feed import SyntheticRoomFeed
+
+    cfg, params = _tiny_int4_params(torch)
+    on = {dev: _to_device(torch, params, dev) for dev in ("cpu", "cuda")}
+    for route, B, env, want in ROUTES:
+        gens = {}
+        with _flags(env):
+            for dev in ("cpu", "cuda"):
+                runner = EpisodeRunner(on[dev], cfg, device=dev)
+                feeds = [SyntheticRoomFeed(rgb_size=56, depth_size=32, seed=3 + i)
+                         for i in range(B)]
+                kernels.reset_counts()
+                runner.run(feeds, max_steps=2, ignore_stop=True)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    counts, plain = dict(kernels.launches), dict(kernels.plain_calls)
+                gens[dev] = [s["gens"] for s in runner.step_log]
+        log(f"[routes] {route} B={B} launches {json.dumps(counts)} ids equal "
+            f"{gens['cpu'] == gens['cuda']}")
+        if gens["cpu"] != gens["cuda"]:
+            raise AssertionError(f"route {route}: ids differ, cpu={gens['cpu']} cuda={gens['cuda']}")
+        if any(counts[k] < 1 for k in want) or any(plain.values()):
+            raise AssertionError(f"route {route}: kernels {want} not all launched ({counts}, "
+                                 f"plain {plain})")
+
+
+BATCHED = [
+    ("b12_default", 12, {}, ("int4_mlp", "int4_matvec")),
+    ("b1_split", 1, {"DYNAM3D_FUSED_RING": "0", "DYNAM3D_SPEC_DECODE": "0"},
+     ("decode_attn_layer", "int4_mlp_block")),
+    ("b1_unfused_grid2d", 1, {"DYNAM3D_FUSED_RING": "0", "DYNAM3D_INT4_GRID2D": "1"},
+     ("int4_matvec2d", "int4_mlp")),
+    ("b4_grouped", 4, {}, ("decode_attn", "int4_matvec")),
+]
+
+
+def _serving_params(ctx):
+    """Full-width serving parameters on the card (shared by the episode
+    and batched phases)."""
+    torch = ctx["torch"]
+    if "serve" not in ctx:
+        from dynam3d_torch.config import Dynam3DConfig, SegmenterConfig
+        from dynam3d_torch.models import policy
+        from dynam3d_torch.models.vlm.phi3 import quantize_phi3
+
+        cfg = Dynam3DConfig(segmenter=SegmenterConfig(provider="depth_plane"))
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = policy.init_policy_params(gen, cfg, device="cuda")
+        params["llava"]["phi3"] = quantize_phi3(params["llava"]["phi3"], bits=4, consume=True)
+        torch.cuda.synchronize()
+        log(f"[serve] params built and quantized in {time.perf_counter() - t0:.1f} s")
+        ctx["serve"] = (cfg, params)
+    return ctx["serve"]
+
+
+def phase_batched(ctx):
+    """Full-width episodes of 2 steps on each decode route of this slice,
+    every launch counter reset just before each run and read just after."""
+    torch = ctx["torch"]
+    from dynam3d_torch.ops import kernels
+    from dynam3d_torch.runtime.episode import EpisodeRunner
+    from dynam3d_torch.runtime.feed import SyntheticRoomFeed
+
+    cfg, params = _serving_params(ctx)
+    total = {k: 0 for k in kernels.KERNELS}
+    for name, B, env, want in BATCHED:
+        runner = EpisodeRunner(params, cfg, device="cuda")
+        feeds = [SyntheticRoomFeed(rgb_size=336, depth_size=256, views=1, seed=10 + i)
+                 for i in range(B)]
+        with _flags(env):
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_counts()
+            res = runner.run(feeds, max_steps=2, ignore_stop=True)
+            torch.cuda.synchronize()
+            counts, plain = dict(kernels.launches), dict(kernels.plain_calls)
+        log(f"[batched] {name}: launches {json.dumps(counts)} plain calls {json.dumps(plain)}")
+        if any(counts[k] < 1 for k in want):
+            raise AssertionError(f"batched {name}: kernels {want} not all launched")
+        if any(plain.values()):
+            raise AssertionError(f"batched {name}: plain kernel versions ran: {plain}")
+        if len(res) != B or any(r["steps"] != 2 or not math.isfinite(r["distance_to_goal"])
+                                for r in res):
+            raise AssertionError(f"batched {name}: results {res}")
+        for st in runner.step_log:
+            if (len(st["gens"]) != B or any(len(g) != cfg.llava.max_new_tokens for g in st["gens"])
+                    or not st["mm_finite"]):
+                raise AssertionError(f"batched {name}: step {st['step']} output malformed")
+        if name == "b4_grouped" and not isinstance(runner.step_log[0]["tokens"], list):
+            raise AssertionError("batched b4_grouped: the grouped speculative decoder did not run")
+        for k in total:
+            total[k] += counts[k]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ms = [st["ms"] for st in runner.step_log]
+        log(f"[batched] {name} {json.dumps(dict(B=B, ms_per_step=ms, peak_mem_gib=peak, passes=[st['passes'] for st in runner.step_log], tokens=[st['tokens'] for st in runner.step_log]))}")
+        if name == "b12_default":
+            b12_ms = ms[-1]
+    ctx["batched_launches"] = total
+    feeds = [SyntheticRoomFeed(rgb_size=336, depth_size=256, views=1, seed=40 + i)
+             for i in range(12)]
+    _profile_step(torch, EpisodeRunner(params, cfg, device="cuda"), b12_ms, feeds, "b12")
 
 
 @contextlib.contextmanager
@@ -922,6 +1261,23 @@ def main(argv=None) -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             work="render stage 1: Q=72144, P=32768, k=4"))
+    bat = ctx.get("batched_launches", {})
+    new = [("int4_matvec2d", ctx.get("matvec2d"), "int4_matvec2d.cu", "pallas_int4.py:283",
+            "qkv 3072x9216 at 8 rows"),
+           ("int4_mlp", ctx.get("mlp", {}).get("int4_mlp"), "int4_mlp.cu", "pallas_int4.py:387",
+            "Phi-3-mini MLP (3072, 8192) at 12 rows"),
+           ("int4_mlp_block", ctx.get("mlp", {}).get("int4_mlp_block"), "int4_mlp.cu",
+            "pallas_int4.py:559", "Phi-3-mini MLP block at 1 row"),
+           ("decode_attn_layer", ctx.get("attn"), "decode_attn_layer.cu", "pallas_decode.py:368",
+            "Phi-3-mini attention half, Tmax 1024, write slot 900")]
+    for name, r, src, rep_, work in new:
+        if r is not None:
+            kernels_rec.append(dict(
+                name=name, route="cuda", source=f"dynam3d_torch/csrc/{src}",
+                replaces=f"dynam3d_tpu/ops/{rep_}", launches=bat.get(name, 0),
+                max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+                work=work))
     print(json.dumps({"kernels": kernels_rec}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

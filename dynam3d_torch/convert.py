@@ -3,7 +3,8 @@
 ``params_from_jax(tree)`` takes the reference's parameter tree with numpy
 leaves (``jax.tree_util.tree_map(np.asarray, params)`` on the caller's
 side) — nested dicts and lists of arrays, packed int4 weights as objects
-with ``q4``/``s_lo``/``s_hi``/``d``/``n``/``dblk``/``nblk`` attributes —
+with ``q4``/``s_lo``/``s_hi``/``d``/``n``/``dblk``/``nblk`` attributes, flat
+or block-major —
 and returns the same tree of torch tensors on ``device``, so that both
 packages compute the same function on the same weights.  ``state_from_jax``
 does the same for a memory state, so both packages can start from one
@@ -29,9 +30,13 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
 
 
 def _int4(w, device: torch.device) -> Int4Weight:
+    """A packed int4 weight in the port's flat layout: a block-major pack
+    (``blocked``, ``q4 [nb, Dp, nblk]``) is laid out flat, byte for byte."""
+    q4 = np.asarray(w.q4)
     if getattr(w, "blocked", False):
-        raise ValueError("block-major int4 packs are not supported; pack flat")
-    return Int4Weight(_tensor(w.q4, device), _tensor(w.s_lo, device),
+        nb, dp, nblk = q4.shape
+        q4 = q4.transpose(1, 0, 2).reshape(dp, nb * nblk)
+    return Int4Weight(_tensor(q4, device), _tensor(w.s_lo, device),
                       _tensor(w.s_hi, device), int(w.d), int(w.n), int(w.dblk),
                       int(w.nblk))
 

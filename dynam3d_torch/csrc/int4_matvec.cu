@@ -1,8 +1,9 @@
 // int4 weight-only matvec for Hopper (sm_90a): y[R<=16, N] = x @ dequant(W).
 //
 // Replaces the TPU kernel dynam3d_tpu/ops/pallas_int4.py::_pallas_int4_matmul
-// (body nibble_matvec_acc) and, through the same contract, its 2-D-grid twin
-// _pallas_int4_matmul2d and the fused SwiGLU _pallas_int4_mlp.
+// (body nibble_matvec_acc); its prologue and epilogues also carry the four
+// matvecs of the decode-layer ring (decode_attn.cu).  The 2-D-grid twin and
+// the fused MLP kernels are int4_matvec2d.cu and int4_mlp.cu.
 //
 // Weight layout (flat, biased-lo): byte q4[k][c] of a [Dp, N2] int8 array
 // holds column c of the first output half in its low nibble, stored +8

@@ -44,14 +44,19 @@ def generate(params: Params, cfg: LLaVAConfig, embeds: torch.Tensor,
              attn_valid: torch.Tensor, max_new_tokens: Optional[int] = None,
              lookup_ids: Optional[torch.Tensor] = None,
              stats: Optional[dict] = None) -> torch.Tensor:
-    """Greedy generation: speculative at B=1 (with ``flags.SPEC_DECODE``),
-    plain greedy otherwise.  The batched speculative decoder of the
-    reference is not ported; speculation is greedy-exact, so the ids are
-    the same."""
+    """Greedy generation.  With ``DYNAM3D_SPEC_DECODE`` (on by default):
+    speculative at B=1, grouped speculation at B=2..4 (B episodes x 8//B
+    drafts share one weight stream per verify pass); plain greedy
+    otherwise.  Speculation is greedy-exact, so every route gives the same
+    ids."""
     n = max_new_tokens or cfg.max_new_tokens
-    if flags.SPEC_DECODE and embeds.shape[0] == 1:
+    B = embeds.shape[0]
+    if flags.spec_decode() and B == 1:
         return phi3.greedy_decode_spec(params["phi3"], cfg.phi3, embeds, attn_valid, n,
                                        lookup_ids=lookup_ids, stats=stats)
+    if flags.spec_decode() and 2 <= B <= 4 and n >= 2:
+        return phi3.greedy_decode_spec_batched(params["phi3"], cfg.phi3, embeds, attn_valid,
+                                               n, lookup_ids=lookup_ids, stats=stats)
     return phi3.greedy_decode(params["phi3"], cfg.phi3, embeds, attn_valid, n)
 
 

@@ -1,17 +1,28 @@
 """Phi-3-mini decoder with KV-cache prefill and (speculative) greedy decode.
 
-Port of ``models/vlm/phi3.py`` for the serving slice: ``rms_norm``,
-``_rope``, ``init_cache``, ``forward`` (with ``lm_at``), the weight-format
-dispatch ``_mm`` (dense, int8 W8A8 prefill, int4 matvec), ``_lm_head``,
-``decode_forward``, ``_decode_forward_fused``, ``_verify_forward_fused``,
-``_last_valid_idx``, ``_ngram_draft``, ``greedy_decode``,
-``greedy_decode_spec``, ``init_phi3_params`` and ``quantize_phi3``.
+Port of ``models/vlm/phi3.py`` for serving: ``rms_norm``, ``_rope``,
+``init_cache``, ``forward`` (with ``lm_at``), the weight-format dispatch
+``_mm`` (dense, int8 W8A8 prefill, int4 matvec) and ``_mlp`` (fused int4
+MLP), ``_lm_head``, ``decode_forward``, the route checks
+``_fused_decode_eligible`` / ``_ring_eligible`` / ``_fused_layer_eligible``,
+``_decode_forward_fused`` (ring and split), ``_verify_forward_fused``,
+``_verify_forward_grouped``, ``_last_valid_idx``, ``_ngram_draft``,
+``greedy_decode``, ``greedy_decode_spec``, ``greedy_decode_spec_batched``,
+``init_phi3_params`` and ``quantize_phi3``.
 
-Decode over packed int4 weights always goes through
-``ops.decode.decode_layer_ring`` — the Hopper kernels on CUDA tensors, their
-plain versions on CPU tensors.  Dense and int8 weights decode through
-``decode_forward``.  The decode loops run on the host (Python control
-flow), reading one argmax per pass back from the device.
+Int4 decode takes the reference's routes, chosen by batch, packing and the
+decode flags (read at call time), the same on either device:
+
+* the ring (``ops.decode.decode_layer_ring``, kernels B + 4 x A) for B <= 8
+  rows, B=1 speculative verify and the grouped B=2..4 verify;
+* the split route at B=1 with ``DYNAM3D_FUSED_RING=0``: kernel H
+  (``decode_attn_layer``) then kernel G (``int4_mlp_block``) per layer;
+* otherwise the unfused ``decode_forward``: ``int4_matmul`` (kernel A, or
+  E under ``DYNAM3D_INT4_GRID2D``) and ``int4_mlp`` (kernel F).
+
+Kernels run on CUDA tensors, their plain versions on CPU tensors.  The
+decode loops run on the host (Python control flow), reading the argmax of
+each pass back from the device.
 """
 
 from __future__ import annotations
@@ -24,8 +35,8 @@ import torch
 
 from dynam3d_torch import flags
 from dynam3d_torch.config import Phi3Config
-from dynam3d_torch.ops.decode import ROWS, decode_layer_ring
-from dynam3d_torch.ops.int4 import int4_matmul, pack_int4
+from dynam3d_torch.ops.decode import MAX_ROWS, ROWS, decode_attn_layer, decode_layer_ring
+from dynam3d_torch.ops.int4 import int4_matmul, int4_mlp, int4_mlp_block, pack_int4
 from dynam3d_torch.ops.transformer import dot_f32
 
 Params = Dict[str, Any]
@@ -102,9 +113,15 @@ def _int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _mlp(p: Params, h: torch.Tensor) -> torch.Tensor:
-    gate_up = _mm(p["gate_up"], h)
+    """SwiGLU MLP; decode-regime int4 weights go through :func:`int4_mlp`
+    (gate and up in f32, h rounded once), others through two ``_mm``."""
+    gu, dn = p["gate_up"], p["down"]
+    if (isinstance(gu, dict) and "q4" in gu and isinstance(dn, dict) and "q4" in dn
+            and _rows(h) <= 16 and flags.int4_fused_mlp()):
+        return int4_mlp(h, gu["q4"], dn["q4"], out_dtype=h.dtype)
+    gate_up = _mm(gu, h)
     gate, up = gate_up.chunk(2, dim=-1)
-    return _mm(p["down"], torch.nn.functional.silu(gate) * up)
+    return _mm(dn, torch.nn.functional.silu(gate) * up)
 
 
 def _qkv(p: Params, cfg: Phi3Config, x: torch.Tensor, positions: torch.Tensor):
@@ -184,28 +201,55 @@ def prefill_mask(attn_valid: torch.Tensor, cache_len: int) -> torch.Tensor:
     return m
 
 
-def ring_eligible(params: Params, cfg: Phi3Config) -> bool:
-    """True when the layers carry packed int4 weights the decode-layer
-    kernels take: MHA at unpadded widths with matching block sizes."""
-    p0 = params["layers"][0]
-    parts = [p0.get(n) for n in ("qkv", "o", "gate_up", "down")]
-    if not all(isinstance(w, dict) and "q4" in w for w in parts):
+def _q4(w):
+    return w["q4"] if isinstance(w, dict) and "q4" in w else None
+
+
+def _fused_decode_eligible(params: Params, cfg: Phi3Config, batch: int) -> bool:
+    """The fused decode kernels take low-batch decode over packed int4
+    qkv/o at unpadded widths and MHA: B = 1 on either fused route, B <= 8
+    on the ring.  (The reference also requires a TPU backend; the port
+    takes the same route on either device.)"""
+    max_b = MAX_ROWS if flags.fused_ring() else 1
+    if not (flags.fused_attn() and 1 <= batch <= max_b
+            and cfg.num_heads == cfg.num_kv_heads
+            and cfg.num_heads * cfg.head_dim == cfg.hidden_size):
         return False
-    qkv, o, gu, dn = (w["q4"] for w in parts)
+    p0 = params["layers"][0]
+    qkv, o = _q4(p0.get("qkv")), _q4(p0.get("o"))
     D = cfg.hidden_size
-    return (
-        cfg.num_heads == cfg.num_kv_heads and cfg.num_heads * cfg.head_dim == D
-        and qkv.d == D and qkv.n == 3 * D == 2 * qkv.n2
-        and o.d == D and o.n == D == 2 * o.n2
-        and gu.d == D and gu.n == 2 * gu.n2 and gu.n2 == dn.dp
-        and dn.n == D == 2 * dn.n2
-        and qkv.dblk == o.dblk == gu.dblk == dn.dblk
-    )
+    base = (qkv is not None and o is not None
+            and qkv.d == D and qkv.n == 3 * D == 2 * qkv.n2
+            and o.d == D and o.n == D == 2 * o.n2
+            and qkv.dblk == o.dblk)
+    if base and batch > 1:
+        return _ring_eligible(params, cfg)
+    return base
 
 
-def _is_int4(params: Params) -> bool:
-    w = params["layers"][0].get("qkv")
-    return isinstance(w, dict) and "q4" in w
+def _ring_eligible(params: Params, cfg: Phi3Config) -> bool:
+    """The ring flag, the structural check, and the reference ring's
+    prime points (>= 3 gate_up and >= 2 qkv column blocks)."""
+    if not (flags.fused_ring() and _fused_layer_eligible(params, cfg)):
+        return False
+    p0 = params["layers"][0]
+    qkv, gu = p0["qkv"]["q4"], p0["gate_up"]["q4"]
+    return gu.n2 >= 3 * gu.nblk and qkv.n2 >= 2 * qkv.nblk
+
+
+def _fused_layer_eligible(params: Params, cfg: Phi3Config) -> bool:
+    """Structural eligibility of the whole-layer ring: the MLP weights are
+    packed int4 with the attention weights' block sizes."""
+    p0 = params["layers"][0]
+    qkv, o = _q4(p0.get("qkv")), _q4(p0.get("o"))
+    gu, dn = _q4(p0.get("gate_up")), _q4(p0.get("down"))
+    D = cfg.hidden_size
+    return (qkv is not None and o is not None and gu is not None and dn is not None
+            and gu.d == D and gu.n == 2 * gu.n2
+            and dn.n == D == 2 * dn.n2
+            and gu.n2 == dn.dp
+            and gu.dblk == qkv.dblk == dn.dblk
+            and qkv.nblk == o.nblk == gu.nblk == dn.nblk)
 
 
 def _flat(cache: KVCache, cfg: Phi3Config) -> KVCache:
@@ -213,28 +257,48 @@ def _flat(cache: KVCache, cfg: Phi3Config) -> KVCache:
     return KVCache(cache.k.view(L, B, T, cfg.hidden_size), cache.v.view(L, B, T, cfg.hidden_size))
 
 
+def _rope_table(cfg: Phi3Config, pos: torch.Tensor):
+    ang = pos.to(torch.float32)[:, None] * _freqs(cfg, pos.device)
+    return torch.cos(ang), torch.sin(ang)
+
+
 def _decode_forward_fused(params: Params, cfg: Phi3Config, embeds: torch.Tensor,
                           positions: torch.Tensor, cache: KVCache, write_at: int,
                           valid: torch.Tensor):
-    """One token per row (``embeds [B, 1, D]``, B <= 8) through
-    ``decode_layer_ring`` in plain mode over the flat ``[L, B, Tmax, D]``
-    cache; ``valid [B, Tmax]`` includes the current slot."""
+    """One token per row (``embeds [B, 1, D]``) over the flat
+    ``[L, B, Tmax, D]`` cache; ``valid [B, Tmax]`` includes the current slot.
+
+    Ring-eligible weights run ``decode_layer_ring`` in plain mode (B <= 8).
+    Otherwise (B = 1) the split route: ``decode_attn_layer`` then
+    ``int4_mlp_block``, with the residual between the halves in bf16."""
     B = embeds.shape[0]
     D = cfg.hidden_size
-    ang = positions[:, 0, None].to(torch.float32) * _freqs(cfg, embeds.device)
-    cos, sin = torch.cos(ang), torch.sin(ang)
+    cos, sin = _rope_table(cfg, positions[:, 0])
     mask_rows = valid.clone()
-    mask_rows[:, write_at] = False          # the kernel folds the current token itself
+    mask_rows[:, write_at] = False          # the kernels fold the current token themselves
+    use_ring = _ring_eligible(params, cfg)
+    if not use_ring and B != 1:
+        raise ValueError("B > 1 fused decode requires the ring")
     x = embeds
     for li in range(cfg.num_layers):
         p = params["layers"][li]
-        x, k_new, v_new = decode_layer_ring(
-            x, p["input_ln"], p["qkv"]["q4"], p["o"]["q4"], p["post_ln"],
-            p["gate_up"]["q4"], p["down"]["q4"], cache.k, cache.v, li, write_at,
-            mask_rows, cos, sin, eps=cfg.rms_eps, heads=cfg.num_heads, hd=cfg.head_dim,
-        )
+        if use_ring:
+            x, k_new, v_new = decode_layer_ring(
+                x, p["input_ln"], p["qkv"]["q4"], p["o"]["q4"], p["post_ln"],
+                p["gate_up"]["q4"], p["down"]["q4"], cache.k, cache.v, li, write_at,
+                mask_rows, cos, sin, eps=cfg.rms_eps, heads=cfg.num_heads, hd=cfg.head_dim,
+            )
+        else:
+            x, k_new, v_new = decode_attn_layer(
+                x, p["input_ln"], p["qkv"]["q4"], p["o"]["q4"], cache.k, cache.v, li,
+                write_at, mask_rows[0], cos[0], sin[0], eps=cfg.rms_eps,
+                heads=cfg.num_heads, hd=cfg.head_dim,
+            )
         cache.k[li, :, write_at] = k_new.view(B, D)
         cache.v[li, :, write_at] = v_new.view(B, D)
+        if not use_ring:
+            x = int4_mlp_block(x, p["post_ln"], p["gate_up"]["q4"], p["down"]["q4"],
+                               cfg.rms_eps)
     x = rms_norm(params["final_ln"], x, cfg.rms_eps)
     return _lm_head(params, x), cache
 
@@ -246,9 +310,7 @@ def _verify_forward_fused(params: Params, cfg: Phi3Config, embeds: torch.Tensor,
     rows 0..r.  ``valid [1, Tmax]`` holds the ACCEPTED slots only.  Writes
     the drafts' k/v at ``wslot..wslot+k-1`` and returns logits ``[1, k, V]``."""
     _, k, D = embeds.shape
-    pos = pos0 + torch.arange(k, device=embeds.device, dtype=torch.float32)
-    ang = pos[:, None] * _freqs(cfg, embeds.device)
-    cos, sin = torch.cos(ang), torch.sin(ang)
+    cos, sin = _rope_table(cfg, pos0 + torch.arange(k, device=embeds.device))
     x = embeds[0][:, None, :]
     for li in range(cfg.num_layers):
         p = params["layers"][li]
@@ -286,9 +348,7 @@ def greedy_decode(params: Params, cfg: Phi3Config, embeds: torch.Tensor,
     """Greedy generation over right-padded prompts; returns ``[B, max_new]``
     ids (stop token included, pad after it)."""
     B, T, D = embeds.shape
-    fused = _is_int4(params)
-    if fused and not ring_eligible(params, cfg):
-        raise ValueError("int4 weights must be packed so the decode-layer kernels take them")
+    fused = _fused_decode_eligible(params, cfg, B)
     total = T + max_new_tokens
     if fused:
         total = -(-total // ROWS) * ROWS
@@ -365,9 +425,7 @@ def greedy_decode_spec(params: Params, cfg: Phi3Config, embeds: torch.Tensor,
         raise ValueError("speculative decode is a B=1 serving path")
     k = int(draft_len or flags.SPEC_DRAFT_LEN)
     k = max(2, min(k, max_new_tokens, 8))
-    fused = _is_int4(params)
-    if fused and not ring_eligible(params, cfg):
-        raise ValueError("int4 weights must be packed so the decode-layer kernels take them")
+    fused = _fused_decode_eligible(params, cfg, 1) and _ring_eligible(params, cfg)
     total = T + max_new_tokens + k
     if fused:
         total = -(-total // ROWS) * ROWS
@@ -437,6 +495,136 @@ def greedy_decode_spec(params: Params, cfg: Phi3Config, embeds: torch.Tensor,
     if stats is not None:
         stats.update(tokens=n_em, passes=npass)
     return torch.as_tensor(out, device=dev)[None]
+
+
+def _verify_forward_grouped(params: Params, cfg: Phi3Config, e: torch.Tensor,
+                            pos0: torch.Tensor, cache: KVCache, wslot: torch.Tensor,
+                            valid: torch.Tensor, use_fused: bool):
+    """Grouped verify pass: ``e [B, g, D]`` = B episodes x g draft rows.
+
+    ``use_fused``: the ``B*g`` rows share one weight stream per layer
+    (``decode_layer_ring(group_size=g)``, each episode's cache row streamed
+    once, per-row ``pos``) over the flat cache; otherwise ``decode_forward``'s
+    layers.  Either way each episode's k/v are scattered at its own slots
+    ``wslot[b]..wslot[b]+g-1``.  Returns logits ``[B, g, V]``."""
+    B, g, D = e.shape
+    dev = e.device
+    gg = torch.arange(g, device=dev)
+    bidx = torch.arange(B, device=dev)[:, None]
+    slots = wslot[:, None] + gg[None, :]                  # [B, g]
+    if use_fused:
+        cos, sin = _rope_table(cfg, (pos0[:, None] + gg[None]).reshape(-1))
+        x = e.reshape(B * g, 1, D)
+        mask_rows = valid.repeat_interleave(g, dim=0)     # [B*g, Tmax]
+        posr = wslot.repeat_interleave(g).tolist()
+        for li in range(cfg.num_layers):
+            p = params["layers"][li]
+            x, k_new, v_new = decode_layer_ring(
+                x, p["input_ln"], p["qkv"]["q4"], p["o"]["q4"], p["post_ln"],
+                p["gate_up"]["q4"], p["down"]["q4"], cache.k, cache.v, li, posr,
+                mask_rows, cos, sin, eps=cfg.rms_eps, heads=cfg.num_heads, hd=cfg.head_dim,
+                group_size=g,
+            )
+            cache.k[li, bidx, slots] = k_new.view(B, g, D).to(cache.k.dtype)
+            cache.v[li, bidx, slots] = v_new.view(B, g, D).to(cache.v.dtype)
+        x = rms_norm(params["final_ln"], x.reshape(B, g, D), cfg.rms_eps)
+        return _lm_head(params, x), cache
+    t_iota = torch.arange(valid.shape[1], device=dev)
+    row_extra = ((t_iota[None, None] >= wslot[:, None, None])
+                 & (t_iota[None, None] <= wslot[:, None, None] + gg[None, :, None]))
+    m = valid[:, None, :] | row_extra
+    pos = pos0[:, None] + gg[None, :]
+    x = e
+    for li in range(cfg.num_layers):
+        p = params["layers"][li]
+        q, k, v = _qkv(p, cfg, x, pos)
+        cache.k[li][bidx, slots] = k.to(cache.k.dtype)
+        cache.v[li][bidx, slots] = v.to(cache.v.dtype)
+        x = _attn_mlp(p, cfg, x, q, cache.k[li], cache.v[li], m)
+    x = rms_norm(params["final_ln"], x, cfg.rms_eps)
+    return _lm_head(params, x), cache
+
+
+def greedy_decode_spec_batched(params: Params, cfg: Phi3Config, embeds: torch.Tensor,
+                               attn_valid: torch.Tensor, max_new_tokens: int,
+                               stop_token: Optional[int] = None,
+                               lookup_ids: Optional[torch.Tensor] = None,
+                               draft_len: Optional[int] = None,
+                               stats: Optional[dict] = None) -> torch.Tensor:
+    """Batched speculative greedy decode: B >= 2 episodes each verify ``g``
+    draft tokens per pass (``B*g <= 8`` ring rows), so one weight stream
+    verifies up to ``g`` tokens for every episode.  Row-wise greedy-exact:
+    each row's ids equal :func:`greedy_decode`'s; rows accept independently
+    and finished rows coast.  ``lookup_ids [B, S]`` (-1 never matches) seed
+    the drafts.  ``stats`` (if given) receives ``tokens`` (per row) and
+    ``passes``."""
+    B, T, D = embeds.shape
+    if B < 2:
+        raise ValueError("use greedy_decode_spec at B == 1")
+    g = int(draft_len or min(MAX_ROWS // B, flags.SPEC_DRAFT_LEN))
+    g = max(2, min(g, max_new_tokens, MAX_ROWS // B))
+    fused = _fused_decode_eligible(params, cfg, B * g) and _ring_eligible(params, cfg)
+    total = T + max_new_tokens + g
+    if fused:
+        total = -(-total // ROWS) * ROWS
+    first, cache = _prefill(params, cfg, embeds, attn_valid, total)
+    if fused:
+        cache = _flat(cache, cfg)
+    stop = cfg.end_token_id if stop_token is None else stop_token
+    dev = embeds.device
+    first = first.cpu().numpy().astype(np.int64)
+
+    S = 0 if lookup_ids is None else int(lookup_ids.shape[-1])
+    hist = np.full((B, S + max_new_tokens + g + 2), -1, np.int64)
+    if lookup_ids is not None:
+        hist[:, :S] = lookup_ids.reshape(B, S).to("cpu", torch.int64).numpy()
+    hist[:, S] = first
+    n_pos0 = attn_valid.sum(1).cpu().numpy().astype(np.int64)
+    out = np.full((B, max_new_tokens), cfg.pad_token_id, np.int64)
+    out[:, 0] = first
+    done = first == stop
+    valid = torch.cat([attn_valid, torch.zeros(B, total - T, dtype=torch.bool, device=dev)], 1)
+    rows, gg = np.arange(B), np.arange(g)
+    n_em = np.ones(B, np.int64)
+    last, prev, prev2 = first.copy(), np.full(B, -1, np.int64), np.full(B, -1, np.int64)
+    npass = 0
+    while bool(np.any(~done & (n_em < max_new_tokens))):
+        b3 = S + n_em - 4
+        prev3 = np.where(b3 >= 0, hist[rows, np.maximum(b3, 0)], -1)
+        drf = np.stack([_ngram_draft(hist[b], int(S + n_em[b]), int(prev3[b]), int(prev2[b]),
+                                     int(prev[b]), int(last[b]), g) for b in range(B)])
+        d = np.concatenate([last[:, None], drf], axis=1)             # [B, g]
+        e = embed(params, torch.as_tensor(np.clip(d, 0, None), device=dev)).to(embeds.dtype)
+        wslot = T + n_em - 1
+        lg, cache = _verify_forward_grouped(
+            params, cfg, e, torch.as_tensor(n_pos0 + n_em - 1, device=dev), cache,
+            torch.as_tensor(wslot, device=dev), valid, fused)
+        a = lg.argmax(-1).cpu().numpy().astype(np.int64)            # [B, g]
+        match = (d[:, 1:] == a[:, :-1]).astype(np.int64)
+        acc = 1 + np.cumprod(match, axis=1).sum(axis=1)
+        stop_pos = np.where((a == stop) & (gg[None] < acc[:, None]), gg[None], g).min(axis=1)
+        acc = np.minimum(np.minimum(acc, stop_pos + 1), max_new_tokens - n_em)
+        acc = np.where(done, 0, acc)
+        for b in range(B):
+            n, w, c = int(n_em[b]), int(wslot[b]), int(acc[b])
+            out[b, n: n + c] = a[b, :c]
+            hist[b, S + n: S + n + c] = a[b, :c]
+            valid[b, w: w + c] = True
+
+        def a_at(off):
+            return a[rows, np.clip(acc - off, 0, g - 1)]
+
+        new_last = np.where(acc > 0, a_at(1), last)
+        new_prev = np.where(acc >= 2, a_at(2), np.where(acc == 1, last, prev))
+        new_prev2 = np.where(acc >= 3, a_at(3),
+                             np.where(acc == 2, last, np.where(acc == 1, prev, prev2)))
+        done = done | (stop_pos < acc)
+        last, prev, prev2 = new_last, new_prev, new_prev2
+        n_em = n_em + acc
+        npass += 1
+    if stats is not None:
+        stats.update(tokens=n_em.tolist(), passes=npass)
+    return torch.as_tensor(out, device=dev)
 
 
 def init_phi3_params(gen: torch.Generator, cfg: Phi3Config, dtype=torch.bfloat16,

@@ -1,8 +1,10 @@
-"""Whole Phi-3 decode layer over packed int4 weights (kernels A and B).
+"""Phi-3 decode layers over packed int4 weights (kernels A, B and H).
 
-Port of ``ops/pallas_decode.py::decode_layer_ring``.  The TPU kernel is one
-program per layer with a hand-scheduled DMA ring; on the card the layer is
-five launches and no glue in between:
+Port of ``ops/pallas_decode.py::decode_layer_ring`` and, at the end of this
+module, ``decode_attn_layer`` (kernel H, the attention half of the split
+route).  The TPU ring kernel is one program per layer with a hand-scheduled
+DMA ring; on the card the ring layer is five launches and no glue in
+between:
 
   1. int4_matvec  (rmsnorm prologue, qkv)              -> y f32 [B, 3D]
   2. decode_attn  (RoPE, cache + in-flight rows)        -> ctx, k_new, v_new
@@ -16,10 +18,11 @@ k/v), ``shared_cache`` (``group=B``: every row attends cache row 0, row r
 folds draft rows 0..r) and ``group_size=g`` (row b attends cache row b//g and
 folds the rows of its group up to itself).
 
-Numerics: all attention arithmetic is f32 (the TPU kernel's bf16 roundings
-of ``k*q`` products and of the rescale lanes are not reproduced); q/k/v and
-the context are rounded to bf16 as the cache stores them, the residual
-between the attention and MLP halves stays f32.
+Numerics (kernels B and H): all attention arithmetic is f32 (the TPU
+kernels' bf16 roundings of ``k*q`` products and of the rescale lanes are not
+reproduced); q/k/v and the context are rounded to bf16 as the cache stores
+them.  The ring's residual between the attention and MLP halves stays f32;
+kernel H rounds its output to bf16, as the split route's reference does.
 """
 
 from __future__ import annotations
@@ -32,7 +35,8 @@ import torch
 
 from dynam3d_torch.ops import kernels
 from dynam3d_torch.ops.int4 import (
-    Int4Weight, int4_matvec, int4_matvec_cuda, int4_matvec_plain,
+    Int4Weight, _matvec_math, _ticket_buffer, _tiles, int4_matvec, int4_matvec_cuda,
+    int4_matvec_plain, plan,
 )
 
 ROWS = 512        # cache rows per scan block (Tmax must be a multiple)
@@ -78,7 +82,11 @@ def decode_attn_plain(
     ``(ctx [B, D], k_new [B, D], v_new [B, D])``."""
     _check_attn(qkv, cache_k, cache_v, group, heads, hd)
     if qkv.is_cuda:
-        kernels.plain_calls["decode_attn"] += 1
+        kernels.count(kernels.plain_calls, "decode_attn")
+    return _attn_math(qkv, cos, sin, cache_k, cache_v, li, mask, t_scan, group, heads, hd)
+
+
+def _attn_math(qkv, cos, sin, cache_k, cache_v, li, mask, t_scan, group, heads, hd):
     B = qkv.shape[0]
     D = heads * hd
     half = hd // 2
@@ -163,7 +171,7 @@ def decode_attn_cuda(
         kernels.stream_ptr(qkv),
     )
     kernels.check(rc, "decode_attn")
-    kernels.launches["decode_attn"] += 1
+    kernels.count(kernels.launches, "decode_attn")
     return ctx, k_new, v_new
 
 
@@ -248,3 +256,126 @@ def decode_layer_ring_cuda(x, ln1_w, qkv, o, ln2_w, gate_up, down, cache_k,
     return _layer(int4_matvec_cuda, decode_attn_cuda, x, ln1_w, qkv, o,
                   ln2_w, gate_up, down, cache_k, cache_v, li, pos, mask, cos,
                   sin, eps, heads, hd, shared_cache, group_size)
+
+
+# ---------------------------------------------------------------- kernel H
+
+def _check_attn_layer(x, qkv, o, cache_k, cache_v, mask, cos, heads, hd):
+    D = x.shape[-1]
+    kernels.require(x.numel() == D, "decode_attn_layer: x must be [1, 1, D] (B = 1)")
+    kernels.require(heads * hd == D, "decode_attn_layer: heads * hd must be D")
+    kernels.require(qkv.d == D and qkv.n == 3 * D == 2 * qkv.n2,
+                    "decode_attn_layer: qkv must be an unpadded D -> 3D pack")
+    kernels.require(o.d == D and o.n == D == 2 * o.n2,
+                    "decode_attn_layer: o must be an unpadded D -> D pack")
+    kernels.require(qkv.dblk == o.dblk, "decode_attn_layer: qkv and o dblk differ")
+    kernels.require(cache_k.shape == cache_v.shape and cache_k.dim() == 4
+                    and cache_k.shape[-1] == D, "decode_attn_layer: caches must be [L, Bc, Tmax, D]")
+    kernels.require(cache_k.shape[2] % ROWS == 0,
+                    f"decode_attn_layer: Tmax must be a multiple of {ROWS}")
+    kernels.require(mask.shape == (cache_k.shape[2],), "decode_attn_layer: mask must be [Tmax]")
+    kernels.require(cos.numel() == hd // 2, "decode_attn_layer: cos/sin must be [hd/2]")
+
+
+def decode_attn_layer_plain(x, ln_w, qkv, o, cache_k, cache_v, li, pos, mask, cos, sin, *,
+                            eps: float, heads: int, hd: int):
+    """PyTorch version of kernel H (any device): the rmsnorm + qkv matvec of
+    kernel A's arithmetic, kernel B's attention (one row, group 1), the o
+    matvec + residual rounded to bf16."""
+    _check_attn_layer(x, qkv, o, cache_k, cache_v, mask, cos, heads, hd)
+    if x.is_cuda:
+        kernels.count(kernels.plain_calls, "decode_attn_layer")
+    D = x.shape[-1]
+    x2 = x.reshape(1, D)
+    y = _matvec_math(x2, qkv, ln_w=ln_w, eps=eps)
+    ctx, k_new, v_new = _attn_math(y, cos, sin, cache_k, cache_v, li, mask,
+                                   scan_length(pos, cache_k.shape[2]), 1, heads, hd)
+    out = _matvec_math(ctx, o, residual=x2, epilogue="residual", out_dtype=torch.bfloat16)
+    return out.view(1, 1, D), k_new, v_new
+
+
+def _bind_attn_layer(lib) -> None:
+    if getattr(lib, "_d3_bound", False):
+        return
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.decode_attn_layer_plan.argtypes = [I, I, I, I, I, I, P]
+    lib.decode_attn_layer_plan.restype = I
+    lib.decode_attn_layer.argtypes = [
+        P, I, P, F, P, P, P, I, I, P, P, P, I, I, I, I, I, I, P, P, P, P, I, I, I, P, I, I,
+        I, F, P, P, P, P, P, P, P, P, P,
+    ]
+    lib.decode_attn_layer.restype = I
+    lib._d3_bound = True
+
+
+def decode_attn_layer_cuda(x, ln_w, qkv, o, cache_k, cache_v, li, pos, mask, cos, sin, *,
+                           eps: float, heads: int, hd: int):
+    """Launch kernel H (``csrc/decode_attn_layer.cu``, one cooperative
+    launch) on CUDA tensors."""
+    _check_attn_layer(x, qkv, o, cache_k, cache_v, mask, cos, heads, hd)
+    tensors = [x, ln_w, qkv.q4, qkv.s_lo, qkv.s_hi, o.q4, o.s_lo, o.s_hi, cache_k, cache_v,
+               mask, cos, sin]
+    kernels.require_cuda(tensors, "decode_attn_layer")
+    kernels.require(x.dtype == torch.bfloat16 and cache_k.dtype == torch.bfloat16
+                    and cache_v.dtype == torch.bfloat16,
+                    "decode_attn_layer: x and the caches must be bf16")
+    kernels.require(ln_w.dtype == torch.float32 and cos.dtype == torch.float32
+                    and sin.dtype == torch.float32 and mask.dtype == torch.bool,
+                    "decode_attn_layer: ln_w/cos/sin must be f32 and mask bool")
+    kernels.require(hd in (32, 64, 96, 128), f"decode_attn_layer: head dim {hd} unsupported")
+    for w in (qkv, o):
+        kernels.require(w.q4.dtype == torch.int8 and w.s_lo.dtype == torch.float32,
+                        "decode_attn_layer: q4 must be int8 and scales f32")
+    lib = kernels.library("decode_attn_layer")
+    _bind_attn_layer(lib)
+    D = x.shape[-1]
+    dev = x.device
+    grid, ks1, ks3 = plan(lib, "decode_attn_layer_plan", dev, hd, qkv.dp, qkv.n2, o.dp, o.n2,
+                          qkv.dblk)
+    y = torch.empty(3 * D, dtype=torch.float32, device=dev)
+    ctx = torch.empty(D, dtype=torch.bfloat16, device=dev)
+    out = torch.empty((1, 1, D), dtype=torch.bfloat16, device=dev)
+    k_new = torch.empty((1, D), dtype=torch.bfloat16, device=dev)
+    v_new = torch.empty_like(k_new)
+    ws1 = torch.empty((qkv.dp // ks1) * 2 * qkv.n2, dtype=torch.float32, device=dev)
+    ws3 = torch.empty((o.dp // ks3) * 2 * o.n2, dtype=torch.float32, device=dev)
+    tickets = _ticket_buffer(dev, _tiles(qkv.n2) + _tiles(o.n2))
+    rc = lib.decode_attn_layer(
+        x.data_ptr(), D, ln_w.data_ptr(), float(eps), qkv.q4.data_ptr(), qkv.s_lo.data_ptr(),
+        qkv.s_hi.data_ptr(), qkv.dp, qkv.n2, o.q4.data_ptr(), o.s_lo.data_ptr(),
+        o.s_hi.data_ptr(), o.dp, o.n2, qkv.dblk, grid, ks1, ks3, cos.data_ptr(),
+        sin.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), cache_k.shape[1],
+        cache_k.shape[2], int(li), mask.data_ptr(), scan_length(pos, cache_k.shape[2]), heads,
+        hd, 1.0 / math.sqrt(hd), y.data_ptr(), ctx.data_ptr(), out.data_ptr(),
+        k_new.data_ptr(), v_new.data_ptr(), ws1.data_ptr(), ws3.data_ptr(),
+        tickets.data_ptr(), kernels.stream_ptr(x),
+    )
+    kernels.check(rc, "decode_attn_layer")
+    kernels.count(kernels.launches, "decode_attn_layer")
+    return out, k_new, v_new
+
+
+def decode_attn_layer(
+    x: torch.Tensor,            # [1, 1, D] bf16 (B = 1)
+    ln_w: torch.Tensor,         # [D] f32
+    qkv: Int4Weight,            # D -> 3D
+    o: Int4Weight,              # D -> D
+    cache_k: torch.Tensor,      # [L, Bc, Tmax, D] bf16 (cache row 0 is read)
+    cache_v: torch.Tensor,
+    li: int,
+    pos: int,                   # the write slot
+    mask: torch.Tensor,         # [Tmax] bool, the write slot excluded
+    cos: torch.Tensor,          # [hd/2] f32
+    sin: torch.Tensor,
+    *,
+    eps: float,
+    heads: int,
+    hd: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The attention half of a decode layer (``pallas_decode.decode_attn_layer``):
+    returns ``(x_out [1, 1, D], k_new [1, D], v_new [1, D])`` in bf16, with
+    ``x_out = x + o(attention)``; the caller writes k_new/v_new at ``pos``.
+    Kernel H on CUDA tensors, its plain version on CPU tensors."""
+    fn = decode_attn_layer_cuda if x.is_cuda else decode_attn_layer_plain
+    return fn(x, ln_w, qkv, o, cache_k, cache_v, li, pos, mask, cos, sin, eps=eps,
+              heads=heads, hd=hd)

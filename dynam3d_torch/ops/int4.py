@@ -1,11 +1,21 @@
-"""Packed int4 weights and the int4 matvec (kernel A).
+"""Packed int4 weights and the int4 kernels A, E, F and G.
 
 Port of ``ops/pallas_int4.py``: :class:`Int4Weight` in the flat biased-lo
 layout, :func:`pack_int4` (bit-identical q values, bytes and scales) and
-:func:`int4_matvec`, the matvec with an optional rmsnorm prologue and a
-residual or SwiGLU epilogue.  On a CUDA tensor :func:`int4_matvec` launches
-``csrc/int4_matvec.cu``; on a CPU tensor it runs :func:`int4_matvec_plain`,
-the same arithmetic in PyTorch.
+four kernels, each with a plain PyTorch version of the same arithmetic:
+
+* A :func:`int4_matvec` (``csrc/int4_matvec.cu``): the matvec with an
+  optional rmsnorm prologue and a residual or SwiGLU epilogue;
+* E :func:`int4_matvec2d` (``csrc/int4_matvec2d.cu``): the 2-D-grid matvec,
+  ``_pallas_int4_matmul2d``, taken by :func:`int4_matmul` under
+  ``DYNAM3D_INT4_GRID2D``;
+* F :func:`int4_mlp` and G :func:`int4_mlp_block` (``csrc/int4_mlp.cu``):
+  the fused SwiGLU MLP, ``_pallas_int4_mlp``, and the same with the rmsnorm
+  prologue and the residual, ``_pallas_int4_mlp_block``.
+
+A dispatcher takes the same route on either device, chosen by shapes and
+flags as in the reference: on a CUDA tensor it launches the kernel (or
+raises), on a CPU tensor it runs the plain version.
 """
 
 from __future__ import annotations
@@ -15,6 +25,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from dynam3d_torch import flags
 from dynam3d_torch.ops import kernels
 
 EPILOGUES = {"store": 0, "residual": 1, "swiglu": 2}
@@ -126,7 +137,12 @@ def int4_matvec_plain(
     scale; groups are summed in f32; then the epilogue."""
     _check_args(x, w, ln_w, residual, epilogue)
     if x.is_cuda:
-        kernels.plain_calls["int4_matvec"] += 1
+        kernels.count(kernels.plain_calls, "int4_matvec")
+    return _matvec_math(x, w, ln_w, eps, residual, epilogue, out_dtype)
+
+
+def _matvec_math(x, w, ln_w=None, eps=1e-5, residual=None, epilogue="store",
+                 out_dtype=torch.float32):
     rows, d = x.shape
     xb = rms_normalize(x, ln_w, eps) if ln_w is not None else x.to(torch.bfloat16)
     xf = torch.zeros((rows, w.dp), dtype=torch.float32, device=x.device)
@@ -232,7 +248,7 @@ def int4_matvec_cuda(
         tickets.data_ptr(), kernels.stream_ptr(x),
     )
     kernels.check(rc, "int4_matvec")
-    kernels.launches["int4_matvec"] += 1
+    kernels.count(kernels.launches, "int4_matvec")
     return out
 
 
@@ -245,10 +261,298 @@ def int4_matvec(x: torch.Tensor, w: Int4Weight, **kw) -> torch.Tensor:
 
 def int4_matmul(x: torch.Tensor, w: Int4Weight, out_dtype=None) -> torch.Tensor:
     """``x [..., D] @ W`` against a packed int4 weight, for <= 16 rows
-    (the decode regime; larger row counts use the int8 weights)."""
+    (the decode regime; larger row counts use the int8 weights): kernel A,
+    or kernel E under ``DYNAM3D_INT4_GRID2D``."""
     lead = x.shape[:-1]
-    y = int4_matvec(
-        x.reshape(-1, x.shape[-1]).contiguous(), w,
-        out_dtype=out_dtype or x.dtype,
-    )
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    out_dtype = out_dtype or x.dtype
+    if flags.int4_grid2d():
+        y = int4_matvec2d(x2, w, out_dtype=out_dtype)
+    else:
+        y = int4_matvec(x2, w, out_dtype=out_dtype)
     return y.reshape(*lead, w.n)
+
+
+# ---------------------------------------------------------------- kernel E
+
+def _check_rows(x: torch.Tensor, d_max: int, name: str) -> None:
+    kernels.require(x.dim() == 2, f"{name}: x must be [rows, d]")
+    kernels.require(1 <= x.shape[0] <= MAX_ROWS, f"{name}: rows must be 1..{MAX_ROWS}")
+    kernels.require(x.shape[1] <= d_max, f"{name}: x is wider than the packed weight")
+
+
+def _unpack_shift(q4: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Biased-lo bytes -> (lo, hi) signed int32 nibbles by shifts, the TPU
+    2-D kernel's unpack (the same integers as :func:`unpack_nibbles`)."""
+    qi = q4.to(torch.int32)
+    return (qi & 15) - 8, (qi << 24) >> 28
+
+
+def int4_matvec2d_plain(x: torch.Tensor, w: Int4Weight,
+                        out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """PyTorch version of kernel E (any device): per scale group i the
+    bf16 activations times the shift-unpacked nibbles, summed in f32 and
+    scaled by the group scale; the groups summed in order i = 0..g-1."""
+    _check_rows(x, w.dp, "int4_matvec2d")
+    if x.is_cuda:
+        kernels.count(kernels.plain_calls, "int4_matvec2d")
+    rows, d = x.shape
+    xf = torch.zeros((rows, w.dp), dtype=torch.float32, device=x.device)
+    xf[:, :d] = x.to(torch.bfloat16).to(torch.float32)
+    lo, hi = _unpack_shift(w.q4)
+    y = torch.zeros((rows, 2 * w.n2), dtype=torch.float32, device=x.device)
+    for i in range(w.dp // w.dblk):
+        ks = slice(i * w.dblk, (i + 1) * w.dblk)
+        p_lo = (xf[:, ks] @ lo[ks].to(torch.float32)) * w.s_lo[i]
+        p_hi = (xf[:, ks] @ hi[ks].to(torch.float32)) * w.s_hi[i]
+        y = y + torch.cat([p_lo, p_hi], dim=-1)
+    return y[:, : w.n].to(out_dtype)
+
+
+def _bind_matvec2d(lib) -> None:
+    if getattr(lib, "_d3_bound", False):
+        return
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.int4_matvec2d.argtypes = [P, I, I, P, P, P, I, I, I, P, I, I, P, P, P]
+    lib.int4_matvec2d.restype = I
+    lib._d3_bound = True
+
+
+def _check_weight_cuda(w: Int4Weight, name: str) -> None:
+    kernels.require(w.q4.dtype == torch.int8 and w.s_lo.dtype == torch.float32
+                    and w.s_hi.dtype == torch.float32,
+                    f"{name}: q4 must be int8 and scales f32")
+    kernels.require(w.n2 % 4 == 0, f"{name}: n2 must be a multiple of 4")
+    kernels.require(w.dp % w.dblk == 0, f"{name}: dp must be a multiple of dblk")
+
+
+def _out_flag(out_dtype: torch.dtype, name: str) -> int:
+    kernels.require(out_dtype in (torch.bfloat16, torch.float32),
+                    f"{name}: out_dtype must be bf16 or f32")
+    return int(out_dtype == torch.float32)
+
+
+def int4_matvec2d_cuda(x: torch.Tensor, w: Int4Weight,
+                       out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Launch kernel E (``csrc/int4_matvec2d.cu``) on CUDA tensors."""
+    _check_rows(x, w.dp, "int4_matvec2d")
+    kernels.require_cuda([x, w.q4, w.s_lo, w.s_hi], "int4_matvec2d")
+    _check_weight_cuda(w, "int4_matvec2d")
+    out_f32 = _out_flag(out_dtype, "int4_matvec2d")
+    lib = kernels.library("int4_matvec2d")
+    _bind_matvec2d(lib)
+    xb = x.to(torch.bfloat16).contiguous()
+    rows, d = x.shape
+    g = w.dp // w.dblk
+    out = torch.empty((rows, w.n), dtype=out_dtype, device=x.device)
+    ws = torch.empty(g * rows * 2 * w.n2, dtype=torch.float32, device=x.device)
+    tickets = _ticket_buffer(x.device, _tiles(w.n2))
+    rc = lib.int4_matvec2d(
+        xb.data_ptr(), rows, d, w.q4.data_ptr(), w.s_lo.data_ptr(), w.s_hi.data_ptr(),
+        w.dp, w.n2, w.dblk, out.data_ptr(), out_f32, w.n, ws.data_ptr(),
+        tickets.data_ptr(), kernels.stream_ptr(x),
+    )
+    kernels.check(rc, "int4_matvec2d")
+    kernels.count(kernels.launches, "int4_matvec2d")
+    return out
+
+
+def int4_matvec2d(x: torch.Tensor, w: Int4Weight, **kw) -> torch.Tensor:
+    """Kernel E on a CUDA tensor, its plain version on a CPU tensor."""
+    if x.is_cuda:
+        return int4_matvec2d_cuda(x, w, **kw)
+    return int4_matvec2d_plain(x, w, **kw)
+
+
+def _tiles(n2: int) -> int:
+    return -(-n2 // 128)       # 128 packed columns per tile in kernels E-H
+
+
+# ------------------------------------------------------------ kernels F, G
+
+def _rows_of(x: torch.Tensor) -> int:
+    n = 1
+    for s in x.shape[:-1]:
+        n *= s
+    return n
+
+
+def _mlp_eligible(rows: int, gate_up: Int4Weight, down: Int4Weight) -> bool:
+    """Shapes kernel F takes (``pallas_int4.int4_mlp``): the lo | hi halves
+    of gate_up are exactly gate | up only without column padding."""
+    return (rows <= MAX_ROWS and gate_up.nblk == down.nblk
+            and gate_up.dblk == down.dblk and gate_up.n == 2 * gate_up.n2)
+
+
+def _mlp_block_eligible(rows: int, d: int, gate_up: Int4Weight, down: Int4Weight) -> bool:
+    """Kernel G additionally needs unpadded widths (``int4_mlp_block``)."""
+    return (_mlp_eligible(rows, gate_up, down) and down.n == 2 * down.n2
+            and gate_up.d == d == down.n and gate_up.dp == d)
+
+
+def _check_mlp(x, gate_up, down, name):
+    _check_rows(x, gate_up.dp, name)
+    kernels.require(_mlp_eligible(x.shape[0], gate_up, down),
+                    f"{name}: gate_up/down packs are not fused-MLP shaped")
+    kernels.require(down.dp >= gate_up.n2, f"{name}: down has fewer rows than gate_up columns")
+
+
+def _swiglu_down(xn, gate_up, down, residual, out_dtype):
+    h = _matvec_math(xn, gate_up, epilogue="swiglu", out_dtype=torch.bfloat16)
+    if residual is None:
+        return _matvec_math(h, down, out_dtype=out_dtype)
+    return _matvec_math(h, down, residual=residual, epilogue="residual", out_dtype=out_dtype)
+
+
+def int4_mlp_plain(x: torch.Tensor, gate_up: Int4Weight, down: Int4Weight,
+                   out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """PyTorch version of kernel F (any device): ``h = silu(gate) * up`` in
+    f32 from the bf16 activations, rounded to bf16, then the down matvec;
+    ``x [rows, d]`` -> ``[rows, down.n]``."""
+    _check_mlp(x, gate_up, down, "int4_mlp")
+    if x.is_cuda:
+        kernels.count(kernels.plain_calls, "int4_mlp")
+    return _swiglu_down(x.to(torch.bfloat16), gate_up, down, None, out_dtype)
+
+
+def int4_mlp_block_plain(x: torch.Tensor, ln_w: torch.Tensor, gate_up: Int4Weight,
+                         down: Int4Weight, eps: float,
+                         out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """PyTorch version of kernel G (any device): ``x + F(bf16(rmsnorm(x) *
+    ln_w))`` with the residual added in f32."""
+    _check_mlp(x, gate_up, down, "int4_mlp_block")
+    kernels.require(_mlp_block_eligible(x.shape[0], x.shape[1], gate_up, down),
+                    "int4_mlp_block: widths must be unpadded")
+    if x.is_cuda:
+        kernels.count(kernels.plain_calls, "int4_mlp_block")
+    xb = x.to(torch.bfloat16)
+    xn = rms_normalize(xb, ln_w, eps)
+    return _swiglu_down(xn, gate_up, down, xb, out_dtype)
+
+
+def _bind_mlp(lib) -> None:
+    if getattr(lib, "_d3_bound", False):
+        return
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.int4_mlp_plan.argtypes = [I, I, I, I, I, I, P]
+    lib.int4_mlp_plan.restype = I
+    lib.int4_mlp.argtypes = [P, I, I, P, P, P, I, I, P, P, P, I, I, I, I, I, I, I, P, P, I,
+                             P, P, P, P]
+    lib.int4_mlp.restype = I
+    lib.int4_mlp_block.argtypes = [P, I, I, P, F, P, P, P, I, I, P, P, P, I, I, I, I, I, I,
+                                   P, P, I, P, P, P, P]
+    lib.int4_mlp_block.restype = I
+    lib._d3_bound = True
+
+
+_plans: Dict[tuple, Tuple[int, int, int]] = {}
+
+
+def plan(lib, fn: str, device: torch.device, *shape: int) -> Tuple[int, int, int]:
+    """``(grid, ks_a, ks_b)`` of a cooperative kernel from its ``*_plan``
+    entry: the blocks the card holds at once and the K slices of its two
+    matvec phases; cached per shape and device."""
+    key = (fn, device) + shape
+    got = _plans.get(key)
+    if got is None:
+        out = (ctypes.c_int * 3)()
+        kernels.check(getattr(lib, fn)(*shape, out), fn)
+        got = _plans[key] = (out[0], out[1], out[2])
+    return got
+
+
+def _mlp_launch(x, ln_w, eps, gate_up, down, out_dtype, name):
+    tensors = [x, gate_up.q4, gate_up.s_lo, gate_up.s_hi, down.q4, down.s_lo, down.s_hi]
+    kernels.require_cuda(tensors + ([ln_w] if ln_w is not None else []), name)
+    _check_weight_cuda(gate_up, name)
+    _check_weight_cuda(down, name)
+    out_f32 = _out_flag(out_dtype, name)
+    lib = kernels.library("int4_mlp")
+    _bind_mlp(lib)
+    xb = x.to(torch.bfloat16).contiguous()
+    rows, d = x.shape
+    grid, ks1, ks2 = plan(lib, "int4_mlp_plan", x.device, rows, gate_up.dp, gate_up.n2, down.dp,
+                          down.n2, gate_up.dblk)
+    dev = x.device
+    h = torch.empty((rows, gate_up.n2), dtype=torch.bfloat16, device=dev)
+    ws1 = torch.empty((gate_up.dp // ks1) * rows * 2 * gate_up.n2, dtype=torch.float32,
+                      device=dev)
+    ws2 = torch.empty((down.dp // ks2) * rows * 2 * down.n2, dtype=torch.float32, device=dev)
+    tickets = _ticket_buffer(dev, _tiles(gate_up.n2) + _tiles(down.n2))
+    common = (gate_up.q4.data_ptr(), gate_up.s_lo.data_ptr(), gate_up.s_hi.data_ptr(),
+              gate_up.dp, gate_up.n2, down.q4.data_ptr(), down.s_lo.data_ptr(),
+              down.s_hi.data_ptr(), down.dp, down.n2)
+    tail = (gate_up.dblk, grid, ks1, ks2, h.data_ptr())
+    if ln_w is None:
+        out = torch.empty((rows, down.n), dtype=out_dtype, device=dev)
+        rc = lib.int4_mlp(xb.data_ptr(), rows, d, *common, down.n, *tail, out.data_ptr(),
+                          out_f32, ws1.data_ptr(), ws2.data_ptr(), tickets.data_ptr(),
+                          kernels.stream_ptr(x))
+    else:
+        kernels.require(ln_w.shape == (d,) and ln_w.dtype == torch.float32,
+                        f"{name}: ln_w must be f32 [d]")
+        out = torch.empty((rows, d), dtype=out_dtype, device=dev)
+        rc = lib.int4_mlp_block(xb.data_ptr(), rows, d, ln_w.data_ptr(), float(eps), *common,
+                                *tail, out.data_ptr(), out_f32, ws1.data_ptr(),
+                                ws2.data_ptr(), tickets.data_ptr(), kernels.stream_ptr(x))
+    kernels.check(rc, name)
+    kernels.count(kernels.launches, name)
+    return out
+
+
+def int4_mlp_cuda(x: torch.Tensor, gate_up: Int4Weight, down: Int4Weight,
+                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Launch kernel F (``csrc/int4_mlp.cu``, one cooperative launch)."""
+    _check_mlp(x, gate_up, down, "int4_mlp")
+    return _mlp_launch(x, None, 0.0, gate_up, down, out_dtype, "int4_mlp")
+
+
+def int4_mlp_block_cuda(x: torch.Tensor, ln_w: torch.Tensor, gate_up: Int4Weight,
+                        down: Int4Weight, eps: float,
+                        out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Launch kernel G (``csrc/int4_mlp.cu``, one cooperative launch)."""
+    _check_mlp(x, gate_up, down, "int4_mlp_block")
+    kernels.require(_mlp_block_eligible(x.shape[0], x.shape[1], gate_up, down),
+                    "int4_mlp_block: widths must be unpadded")
+    return _mlp_launch(x, ln_w, eps, gate_up, down, out_dtype, "int4_mlp_block")
+
+
+def int4_mlp(x: torch.Tensor, gate_up: Int4Weight, down: Int4Weight,
+             out_dtype=None) -> torch.Tensor:
+    """``down(silu(gate(x)) * up(x))`` over packed int4 weights
+    (``pallas_int4.int4_mlp``).  Eligible packs take kernel F (its plain
+    version on a CPU tensor); other packs run the reference's chain: gate
+    and up in f32 through :func:`int4_matmul`, SwiGLU in f32 rounded to
+    ``x``'s type, re-padded to ``down.dp`` rows, then the down matmul."""
+    lead = x.shape[:-1]
+    rows = _rows_of(x)
+    out_dtype = out_dtype or x.dtype
+    if not _mlp_eligible(rows, gate_up, down):
+        gu = int4_matmul(x, gate_up, out_dtype=torch.float32)
+        gate, up = gu.chunk(2, dim=-1)
+        h = (torch.nn.functional.silu(gate) * up).to(x.dtype)
+        pad = down.dp - h.shape[-1]
+        if pad:
+            h = torch.cat([h, h.new_zeros(*h.shape[:-1], pad)], dim=-1)
+        return int4_matmul(h, down, out_dtype=out_dtype)
+    x2 = x.reshape(rows, x.shape[-1])
+    fn = int4_mlp_cuda if x.is_cuda else int4_mlp_plain
+    return fn(x2, gate_up, down, out_dtype=out_dtype).reshape(*lead, down.n)
+
+
+def int4_mlp_block(x: torch.Tensor, ln_w: torch.Tensor, gate_up: Int4Weight,
+                   down: Int4Weight, eps: float, out_dtype=None) -> torch.Tensor:
+    """``x + down(silu(gate(rmsnorm(x))) * up(rmsnorm(x)))``
+    (``pallas_int4.int4_mlp_block``): kernel G on eligible packs, else the
+    reference's chain rmsnorm -> :func:`int4_mlp` -> f32 residual add."""
+    lead = x.shape[:-1]
+    d = x.shape[-1]
+    rows = _rows_of(x)
+    out_dtype = out_dtype or x.dtype
+    if not _mlp_block_eligible(rows, d, gate_up, down):
+        h = rms_normalize(x, ln_w, eps)
+        y = x.to(torch.float32) + int4_mlp(h, gate_up, down, out_dtype=torch.float32)
+        return y.to(out_dtype)
+    x2 = x.reshape(rows, d)
+    fn = int4_mlp_block_cuda if x.is_cuda else int4_mlp_block_plain
+    return fn(x2, ln_w, gate_up, down, eps, out_dtype=out_dtype).reshape(*lead, d)

@@ -2,11 +2,14 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface.  At first use it is
 compiled by ``nvcc`` for ``sm_90a`` into ``build/dynam3d_torch/`` beside the
-package (the file name carries a hash of the source, so an edited source is
-rebuilt) and loaded with ``ctypes``.  :func:`build_all` compiles every
+package (the file name carries a hash of the source and of the shared
+``csrc/*.cuh`` headers, so an edited source is rebuilt) and loaded with
+``ctypes``.  :func:`build_all` compiles every
 source at once, one ``nvcc`` process each.
 
-``launches`` counts, per kernel, the launches made through its wrapper;
+``launches`` counts, per kernel, the launches made through its wrapper (one
+source may hold several kernels: ``int4_mlp.cu`` holds ``int4_mlp`` and
+``int4_mlp_block``);
 ``plain_calls`` counts calls of the plain PyTorch versions on CUDA tensors.
 A run resets both with :func:`reset_counts` and reads them afterwards to
 show which path it went through.
@@ -25,7 +28,9 @@ from typing import Dict, List
 
 import torch
 
-SOURCES = ("int4_matvec", "decode_attn", "nerf_mlp", "knn_topk")
+SOURCES = ("int4_matvec", "decode_attn", "nerf_mlp", "knn_topk", "int4_matvec2d",
+           "int4_mlp", "decode_attn_layer")
+KERNELS = SOURCES[:6] + ("int4_mlp_block", "decode_attn_layer")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parents[2] / "build" / "dynam3d_torch"
 NVCC_FLAGS = [
@@ -33,17 +38,28 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
 ]
 
-launches: Dict[str, int] = {name: 0 for name in SOURCES}
-plain_calls: Dict[str, int] = {name: 0 for name in SOURCES}
+launches: Dict[str, int] = {name: 0 for name in KERNELS}
+plain_calls: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
+_count_lock = threading.Lock()
+
+
+def count(counter: Dict[str, int], name: str) -> None:
+    """Add one to ``counter[name]`` (``launches`` or ``plain_calls``); under
+    a lock, since ``EpisodeRunner.run_interleaved`` launches from threads."""
+    with _count_lock:
+        counter[name] += 1
+
+
 def reset_counts() -> None:
-    for d in (launches, plain_calls):
-        for k in d:
-            d[k] = 0
+    with _count_lock:
+        for d in (launches, plain_calls):
+            for k in d:
+                d[k] = 0
 
 
 def _nvcc() -> str:
@@ -55,6 +71,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD / f"lib{name}-{digest}.so"
 

@@ -119,7 +119,7 @@ def knn_topk_plain(queries: torch.Tensor, points: torch.Tensor, valid: torch.Ten
     the smaller id, ``(1e10, -1)`` while fewer than ``k`` live points."""
     _check_knn_args(queries, points, valid, k)
     if queries.is_cuda:
-        kernels.plain_calls["knn_topk"] += 1
+        kernels.count(kernels.plain_calls, "knn_topk")
     return knn_tiled(queries, points, valid, k)
 
 
@@ -157,7 +157,7 @@ def knn_topk_cuda(queries: torch.Tensor, points: torch.Tensor, valid: torch.Tens
     rc = lib.knn_topk(queries.data_ptr(), nq, points.data_ptr(), valid.data_ptr(), np_, k,
                       dist.data_ptr(), idx.data_ptr(), kernels.stream_ptr(queries))
     kernels.check(rc, "knn_topk")
-    kernels.launches["knn_topk"] += 1
+    kernels.count(kernels.launches, "knn_topk")
     return dist, idx
 
 

@@ -42,7 +42,7 @@ def nerf_mlp_plain(x: torch.Tensor, *w: torch.Tensor) -> Tuple[torch.Tensor, tor
     """PyTorch version of kernel C: ``(out [N, D] bf16, density [N] bf16)``."""
     _check_args(x, w)
     if x.is_cuda:
-        kernels.plain_calls["nerf_mlp"] += 1
+        kernels.count(kernels.plain_calls, "nerf_mlp")
     e1, e2, eo, d1, d2, do = (t.to(torch.bfloat16) for t in w)
     xb = x.to(torch.bfloat16)
     h = xb
@@ -90,7 +90,7 @@ def nerf_mlp_cuda(x: torch.Tensor, *w: torch.Tensor) -> Tuple[torch.Tensor, torc
                       ws[4].data_ptr(), ws[5].data_ptr(), out.data_ptr(),
                       density.data_ptr(), kernels.stream_ptr(x))
     kernels.check(rc, "nerf_mlp")
-    kernels.launches["nerf_mlp"] += 1
+    kernels.count(kernels.launches, "nerf_mlp")
     return out, density
 
 

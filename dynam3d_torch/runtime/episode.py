@@ -1,6 +1,7 @@
 """Closed-loop episode runner: host feed <-> device policy step; port of
-``runtime/episode.py::EpisodeRunner`` (``run``, ``pack_depth``,
-``_prompt_ids`` with 128-token buckets, ``prev_gen`` priming).
+``runtime/episode.py::EpisodeRunner`` (``run`` over a batch of feeds,
+``run_interleaved``, ``pack_depth``, ``_prompt_ids`` with 128-token
+buckets, ``prev_gen`` priming).
 
 The host owns tokenization, action parsing, history strings and the feed;
 the device owns perception, the 3D memory and the VLM.  The reference's
@@ -11,6 +12,7 @@ when ``ignore_stop`` is set.
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -35,7 +37,8 @@ class EpisodeRunner:
     unless ``device="cpu"``; ``params`` must live there).
 
     ``step_log`` records, per step, the generated ids of row 0, its text,
-    the prompt length, the speculative-decode passes and the step's wall
+    the ids and texts of every live row with their feed indices, the prompt
+    length, the speculative-decode tokens and passes and the step's wall
     time (synchronized)."""
 
     def __init__(self, params, cfg: Dynam3DConfig, tokenizer=None, views: int = 1,
@@ -158,6 +161,7 @@ class EpisodeRunner:
                 torch.cuda.synchronize(self.device)
             self.step_log.append({
                 "step": stepk, "gen": gen_np[0].tolist(), "text": texts[0],
+                "feeds": list(live), "gens": gen_np.tolist(), "texts": texts,
                 "prompt_tokens": int(lens[0]), "bucket": int(ids.shape[1]),
                 "passes": stats.get("passes"), "tokens": stats.get("tokens"),
                 "mm_finite": stats.get("mm_finite"),
@@ -172,4 +176,34 @@ class EpisodeRunner:
 
         for i in list(live):
             results[i] = {"steps": max_steps, "distance_to_goal": feeds[i].oracle_distance()}
+        return results  # type: ignore[return-value]
+
+    def run_interleaved(self, feeds: Sequence[Feed], groups: int = 2,
+                        max_steps: Optional[int] = None,
+                        ignore_stop: bool = False) -> List[Dict]:
+        """Round-robin episode groups (feeds ``g::groups``) on threads, so
+        one group's host work (feed rendering, tokenization) overlaps
+        another's device step; results in feed order."""
+        groups = max(1, min(groups, len(feeds)))
+        parts = [list(range(len(feeds)))[g::groups] for g in range(groups)]
+        results: List[Optional[Dict]] = [None] * len(feeds)
+
+        errors: List[BaseException] = []
+
+        def worker(idxs):
+            try:
+                out = self.run([feeds[i] for i in idxs], max_steps, ignore_stop=ignore_stop)
+            except BaseException as e:      # re-raised below, in the caller's thread
+                errors.append(e)
+                return
+            for j, i in enumerate(idxs):
+                results[i] = out[j]
+
+        threads = [threading.Thread(target=worker, args=(p,)) for p in parts]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
         return results  # type: ignore[return-value]

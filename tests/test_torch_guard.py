@@ -91,6 +91,76 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                          torch.ones(512, dtype=torch.bool), 512, 1, heads=2, hd=32)
 
 
+def test_decode_route_kernel_wrappers_refuse_cpu_tensors():
+    from dynam3d_torch.ops.decode import decode_attn_layer_cuda
+    from dynam3d_torch.ops.int4 import (
+        int4_matvec2d_cuda, int4_mlp_block_cuda, int4_mlp_cuda, pack_int4,
+    )
+
+    D, I = 64, 128
+    gu = pack_int4(torch.randn(D, 2 * I), dblk=64, nblk=32)
+    dn = pack_int4(torch.randn(I, D), dblk=64, nblk=32)
+    x = torch.randn(2, D)
+    with pytest.raises(ValueError, match="CUDA"):
+        int4_matvec2d_cuda(x, gu)
+    with pytest.raises(ValueError, match="CUDA"):
+        int4_mlp_cuda(x, gu, dn)
+    with pytest.raises(ValueError, match="CUDA"):
+        int4_mlp_block_cuda(x, torch.ones(D), gu, dn, 1e-5)
+    qkv = pack_int4(torch.randn(D, 3 * D), dblk=64, nblk=32)
+    o = pack_int4(torch.randn(D, D), dblk=64, nblk=32)
+    cache = torch.zeros(1, 1, 512, D, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_attn_layer_cuda(x[:1].view(1, 1, D).to(torch.bfloat16), torch.ones(D), qkv, o,
+                               cache, cache, 0, 40, torch.ones(512, dtype=torch.bool),
+                               torch.ones(16), torch.zeros(16), eps=1e-5, heads=2, hd=32)
+
+
+def test_decode_gates_are_read_at_call_time(monkeypatch):
+    from dynam3d_torch import flags
+
+    gates = {"DYNAM3D_SPEC_DECODE": (flags.spec_decode, True),
+             "DYNAM3D_FUSED_ATTN": (flags.fused_attn, True),
+             "DYNAM3D_FUSED_RING": (flags.fused_ring, True),
+             "DYNAM3D_INT4_FUSED_MLP": (flags.int4_fused_mlp, True),
+             "DYNAM3D_INT4_GRID2D": (flags.int4_grid2d, False)}
+    for name, (gate, default) in gates.items():
+        monkeypatch.delenv(name, raising=False)
+        assert gate() is default, name
+        monkeypatch.setenv(name, "0" if default else "1")
+        assert gate() is (not default), name
+
+
+def test_launch_counters_lose_no_update_across_threads():
+    """``run_interleaved`` launches from threads: concurrent counts add up."""
+    import os
+    import sys
+    import threading
+
+    from dynam3d_torch.ops import kernels
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        kernels.reset_counts()
+        n_threads, per = 2 * (os.cpu_count() or 2), 2000
+
+        def work():
+            for _ in range(per):
+                kernels.count(kernels.launches, "int4_mlp")
+
+        threads = [threading.Thread(target=work) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+        assert kernels.launches["int4_mlp"] == n_threads * per
+    finally:
+        sys.setswitchinterval(old)
+        kernels.reset_counts()
+
+
 def test_pretrain_kernel_wrappers_refuse_cpu_tensors():
     from dynam3d_torch.ops.knn import knn_topk_cuda
     from dynam3d_torch.ops.nerf_mlp import nerf_mlp_cuda
