@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases build,matvec,ring
     python3 chip_smoke.py --phases build,nerf,knn,render,pretrain
     python3 chip_smoke.py --phases build,mlp,attn,matvec2d,routes,batched
+    python3 chip_smoke.py --phases build,yolo,stream
 
 Phases, each printed as it finishes:
 
@@ -21,11 +22,12 @@ Phases, each printed as it finishes:
    Tmax=1024 with ~900 valid rows, in the plain B=1, shared-cache k=8 and
    grouped B=4/g=2 modes, with SDPA (kernel B) and the layer as library
    calls on dequantized weights as yardsticks;
-5. ``parity``: a small config through the port on the card and on the CPU
-   (plain versions) with the same int4 weights: identical ids per step;
+5. ``parity``: a small config (its tiny YOLOv8-seg at conf 0.1) through the
+   port on the card and on the CPU (plain versions) with the same int4
+   weights: identical ids per step;
 6. ``episode``: the full-width serving slice — ``init_policy_params`` at the
-   default config with the ``depth_plane`` segmenter on the card from a
-   ``torch.Generator``, ``quantize_phi3(bits=4)``, then a 3-step
+   default config (YOLOv8-seg at FastSAM-x width, imgsz 576) on the card
+   from a ``torch.Generator``, ``quantize_phi3(bits=4)``, then a 3-step
    ``EpisodeRunner.run`` on ``SyntheticRoomFeed`` — with every launch
    counter reset just before and read just after;
 7. ``nerf``: kernel C (``csrc/nerf_mlp.cu``) against its plain version at
@@ -67,7 +69,18 @@ Phases, each printed as it finishes:
    the split route (H and G), 1 feed unfused under ``DYNAM3D_INT4_GRID2D``
    (E and F), 4 feeds (grouped speculation, kernel B), each with the launch
    counters reset just before and read just after and no plain version on
-   the path, then one profiled 12-feed step.
+   the path, then one profiled 12-feed step;
+16. ``yolo``: one full-width ``segment_views`` (FastSAM-x, imgsz 576) of a
+   ``SyntheticRoomFeed`` view on the card and, with the same weights, on the
+   CPU: ``forward`` within the stated tolerance, the same NMS picks and ids,
+   ms per view, and the launches of the NMS loop;
+17. ``stream``: kernels I and J (``csrc/int4_stream.cu``) against their plain
+   versions at the int4 tools' shapes (4 weights of 3072 x 16384), every
+   ring variant of I and every body of J, then both tools' sweeps
+   (``dynam3d_torch.tools.bench_int4_stream`` / ``bench_int4_unpack``) with
+   the launch counters reset just before and read just after, the bytes
+   bound and a bf16 ``torch.matmul`` on the dequantized weights as the
+   yardstick.
 
 Any failure exits non-zero.  The line before the last is the kernels' JSON
 record; the last line is ``{"ok": true, "device": {...}}``.
@@ -86,12 +99,10 @@ import sys
 import time
 
 PHASES = ("build", "matvec", "ring", "parity", "episode", "nerf", "knn", "render", "pretrain",
-          "matvec2d", "mlp", "attn", "routes", "batched")
+          "matvec2d", "mlp", "attn", "routes", "batched", "yolo", "stream")
 
-# data-sheet device-memory rates, bytes/s, the dense bf16 tensor-core peak and
-# the float32 peak outside the tensor cores (H100 SXM)
-_MEM_RATE = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
-             ("H100", 3.35e12))
+# the dense bf16 tensor-core peak and the float32 peak outside the tensor
+# cores (H100 SXM); memory rates are dynam3d_torch.device.MEM_RATES
 BF16_PEAK = 989e12
 FP32_PEAK = 67e12
 KNN_FLAG_ENV = {"DYNAM3D_DISABLE_BANDED_KNN": "1", "DYNAM3D_ENABLE_PALLAS_KNN": "1"}
@@ -102,10 +113,9 @@ def log(msg: str) -> None:
 
 
 def mem_rate(name: str) -> float:
-    for key, rate in _MEM_RATE:
-        if key in name:
-            return rate
-    raise RuntimeError(f"no memory rate on record for {name!r}")
+    from dynam3d_torch.device import mem_rate as rate
+
+    return rate(name)
 
 
 def bound(nbytes: float, ops: float, name: str, peak: float = BF16_PEAK):
@@ -394,7 +404,9 @@ def _tiny_config():
                             num_layers=2, num_heads=2, num_kv_heads=2, head_dim=32,
                             pad_token_id=260, end_token_id=257),
             projector_hidden=64, prefill_bucket=64, max_new_tokens=8),
-        segmenter=SegmenterConfig(provider="depth_plane"),
+        # the CPU tests' tiny YOLOv8-seg, at a conf that keeps several masks
+        segmenter=SegmenterConfig(provider="yolov8", imgsz=32, width_mult=0.125,
+                                  depth_mult=0.34, num_protos=8, max_masks=8, conf=0.1),
     )
 
 
@@ -418,6 +430,8 @@ def phase_parity(ctx):
     log(f"[parity] ids per step cpu={gens['cpu']} cuda={gens['cuda']}")
     if gens["cpu"] != gens["cuda"]:
         raise AssertionError("generated ids differ between the card and the plain versions")
+    if "yolo" not in params:
+        raise AssertionError("the tiny config did not build its YOLOv8-seg segmenter")
 
 
 def _to_device(torch, tree, dev):
@@ -437,6 +451,8 @@ def phase_episode(ctx):
     from dynam3d_torch.runtime.feed import SyntheticRoomFeed
 
     cfg, params = _serving_params(ctx)
+    if cfg.segmenter.provider != "yolov8" or "yolo" not in params:
+        raise AssertionError("the episode does not run the default YOLOv8-seg segmenter")
     runner = EpisodeRunner(params, cfg, device="cuda")
     feed = SyntheticRoomFeed(rgb_size=336, depth_size=256, views=1, seed=0)
     # one warm-up episode step outside the counted window is not needed:
@@ -698,7 +714,10 @@ def _tiny_int4_params(torch):
     from dynam3d_torch.ops.int4 import pack_int4
 
     cfg = _tiny_config()
-    params = policy.init_policy_params(7, cfg, device="cpu")      # bf16 LLM, as served
+    # seed 8: on the CPU every greedy step of the parity episode and the
+    # routes keeps its top two logits >= 0.01 apart (the tiny random model's
+    # logits are nearly flat, and card and CPU sum in other orders)
+    params = policy.init_policy_params(8, cfg, device="cpu")      # bf16 LLM, as served
     dense = params["llava"]["phi3"]
     q = quantize_phi3(dense, bits=4)
     for lq, ld in zip(q["layers"], dense["layers"]):
@@ -756,11 +775,11 @@ def _serving_params(ctx):
     and batched phases)."""
     torch = ctx["torch"]
     if "serve" not in ctx:
-        from dynam3d_torch.config import Dynam3DConfig, SegmenterConfig
+        from dynam3d_torch.config import Dynam3DConfig
         from dynam3d_torch.models import policy
         from dynam3d_torch.models.vlm.phi3 import quantize_phi3
 
-        cfg = Dynam3DConfig(segmenter=SegmenterConfig(provider="depth_plane"))
+        cfg = Dynam3DConfig()                  # YOLOv8-seg at FastSAM-x width, imgsz 576
         t0 = time.perf_counter()
         gen = torch.Generator(device="cuda").manual_seed(0)
         params = policy.init_policy_params(gen, cfg, device="cuda")
@@ -1197,6 +1216,193 @@ def _profile_pretrain(torch, runner, dataset, steady_ms):
         log(f"[profile] {us / 1e3:9.3f} ms  x{n:<6d} {key[:100]}")
 
 
+def _device_kernels(torch, prof) -> int:
+    """Kernel launches on the card recorded by a ``torch.profiler`` run."""
+    from torch.autograd import DeviceType
+
+    return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+
+
+def phase_yolo(ctx):
+    """One full-width ``segment_views`` on the card and on the CPU with the
+    same weights: ``forward`` within tolerance, the same NMS picks, the same
+    ids where no kept mask lies within 1e-3 of 0.5 at a sampled cell; ms per
+    view and the NMS loop's launches."""
+    torch = ctx["torch"]
+    from torch.profiler import ProfilerActivity, profile
+
+    from dynam3d_torch.config import SegmenterConfig
+    from dynam3d_torch.models.encoders import yolov8_seg as Y
+    from dynam3d_torch.runtime.feed import SyntheticRoomFeed
+
+    seg = SegmenterConfig()
+    grid, max_segments = (24, 24), 64
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = Y.init_yolov8_params(gen, width=seg.width_mult, depth_n=seg.depth_layers(),
+                                  num_protos=seg.num_protos, device="cuda")
+    cpu_params = _to_device(torch, params, "cpu")
+    rgb = torch.from_numpy(SyntheticRoomFeed(rgb_size=336, depth_size=256, views=1,
+                                             seed=0).reset().rgb)           # [1, 336, 336, 3]
+    s = seg.imgsz
+    x = Y.resize_bilinear(rgb.to(torch.float32) / 255.0, s, s)              # on the CPU
+    outs, picks, ids = {}, {}, {}
+    for dev, p in (("cuda", params), ("cpu", cpu_params)):
+        with torch.no_grad():
+            outs[dev] = Y.forward(p, x.to(dev), depth_n=seg.depth_layers())
+            picks[dev] = Y.nms_select(outs[dev].boxes, outs[dev].scores, seg.conf, seg.iou,
+                                      seg.max_masks)
+            ids[dev] = Y.segment_views(p, seg, rgb.to(dev), grid, max_segments)
+    torch.cuda.synchronize()
+    # float32 convolutions, cuDNN vs the CPU, over 100 of them: summation order only
+    errs = {}
+    for name in Y.SegOutput._fields:
+        ref = getattr(outs["cpu"], name)
+        errs[name] = _check(f"yolo forward {name}", getattr(outs["cuda"], name).cpu(), ref,
+                            1e-3 * max(1.0, ref.abs().max().item()))
+    same_picks = all(torch.equal(a.cpu(), b) for a, b in zip(picks["cuda"], picks["cpu"]))
+    # kept masks within 1e-3 of 0.5 at the cells the id map samples
+    o, (idx, valid) = outs["cpu"], picks["cpu"]
+    m = torch.sigmoid(torch.einsum("bhwc,bmc->bmhw", o.protos,
+                                   torch.gather(o.coeffs, 1, idx[..., None].expand(-1, -1, o.coeffs.shape[-1]))))
+    step = o.protos.shape[1] // grid[0]
+    near = ((m[:, :, ::step, ::step] - 0.5).abs() < 1e-3) & valid[:, :, None, None]
+    n_near = int(near.sum())
+    same_ids = torch.equal(ids["cuda"].cpu(), ids["cpu"])
+    kept = int(valid.sum())
+    if not same_picks or (n_near == 0 and not same_ids):
+        raise AssertionError(f"yolo: card and CPU differ (picks equal {same_picks}, ids equal "
+                             f"{same_ids}, near-threshold cells {n_near})")
+    if kept < 1 or int(ids["cuda"].max()) < 1:
+        raise AssertionError(f"yolo: {kept} masks kept, ids {ids['cuda'].unique().tolist()}")
+
+    def view():
+        return Y.segment_views(params, seg, rgb.cuda(), grid, max_segments)
+
+    def timed(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    ms = timed(view)
+    ms12 = timed(lambda: Y.segment_views(params, seg, rgb.cuda().expand(12, -1, -1, -1), grid,
+                                         max_segments), reps=2) / 12
+    o = outs["cuda"]
+    Y.nms_select(o.boxes, o.scores, seg.conf, seg.iou, seg.max_masks)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        Y.nms_select(o.boxes, o.scores, seg.conf, seg.iou, seg.max_masks)
+        torch.cuda.synchronize()
+    nms_launches = _device_kernels(torch, prof)
+    nms_ms = timed(lambda: Y.nms_select(o.boxes, o.scores, seg.conf, seg.iou, seg.max_masks))
+    row = dict(imgsz=s, width=seg.width_mult, depth=list(seg.depth_layers()),
+               anchors=o.scores.shape[1], forward_err=errs, masks_kept=kept,
+               same_nms_picks=same_picks, same_ids=same_ids, near_threshold_cells=n_near,
+               segments=int(ids["cuda"].max()) + 1, ms_per_view=ms, ms_per_view_b12=ms12,
+               nms_ms=nms_ms, nms_launches=nms_launches)
+    log(f"[yolo] {json.dumps(row)}")
+    ctx["yolo"] = row
+
+
+def phase_stream(ctx):
+    """Kernels I and J against their plain versions at the tools' shapes,
+    then both tools' sweeps with the launch counters reset just before and
+    read just after."""
+    torch = ctx["torch"]
+    from dynam3d_torch.ops import int4_stream as S
+    from dynam3d_torch.ops import kernels
+    from dynam3d_torch.tools import bench_int4_stream as stream_tool
+    from dynam3d_torch.tools import bench_int4_unpack as unpack_tool
+
+    timer = ctx["timer"]
+    x, q4, sl, sh = stream_tool.make_weights(device="cuda")
+    nw, d, n2 = q4.shape
+    dblk = stream_tool.DBLK
+    # the weights dequantized to bf16 for the yardstick: [NW, D, N]
+    lo, hi = (q4.to(torch.int32) & 15) - 8, q4.to(torch.int32) >> 4
+    wd = torch.cat([(lo.view(nw, d // dblk, dblk, n2) * sl[:, :, None]).view(nw, d, n2),
+                    (hi.view(nw, d // dblk, dblk, n2) * sh[:, :, None]).view(nw, d, n2)],
+                   -1).to(torch.bfloat16)
+    del lo, hi
+    lib_ms = timer(lambda: torch.matmul(x, wd))
+    del wd
+    nbytes = q4.numel() + 4 * (sl.numel() + sh.numel()) + x.numel() * 2 + nw * 8 * 2 * n2 * 4
+    b_ms, b_by = bound(nbytes, 2.0 * nw * 8 * d * 2 * n2, ctx["card"])
+
+    def tol(ref, rel=1e-5):
+        return rel * max(1.0, ref.abs().max().item())
+
+    rows, entries = [], {}
+    for Sv, nblk in S.STREAM_VARIANTS:
+        kc, kslice = S.plan(q4, Sv, nblk, dblk)
+        yk = S.int4_stream_matvec_cuda(x, q4, sl, sh, S=Sv, nblk=nblk, dblk=dblk)
+        yp = S.int4_stream_matvec_plain(x, q4, sl, sh, dblk=dblk)
+        torch.cuda.synchronize()
+        err = _check(f"int4_stream_matvec S={Sv} nblk={nblk}", yk, yp, tol(yp))
+        ms = timer(lambda: S.int4_stream_matvec_cuda(x, q4, sl, sh, S=Sv, nblk=nblk, dblk=dblk))
+        row = dict(kernel="int4_stream_matvec", S=Sv, nblk=nblk, kc=kc, kslice=kslice,
+                   blocks=nw * (n2 // nblk) * (d // kslice), max_abs_err=err, tol=tol(yp), ms=ms,
+                   bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, bytes=nbytes)
+        if (Sv, nblk) == (2, 512):
+            row["plain_ms"] = timer(lambda: S.int4_stream_matvec_plain(x, q4, sl, sh, dblk=dblk),
+                                    iters=3, warmup=1)
+            entries["int4_stream_matvec"] = row
+        rows.append(row)
+        log(f"[stream] {json.dumps(row)}")
+    xi, _ = unpack_tool.quantize_rows(x)
+    outs = {}
+    for body in S.UNPACK_BODIES:
+        xb, qb = (xi if body == "w4a8" else x), unpack_tool.feed(body, q4)
+        yk = S.int4_unpack_matvec_cuda(xb, qb, sl, sh, body=body, dblk=dblk)
+        yp = S.int4_unpack_matvec_plain(xb, qb, sl, sh, body=body, dblk=dblk)
+        torch.cuda.synchronize()
+        if body == "dma-floor":
+            if not (torch.equal(yk[:, :, :n2], yp[:, :, :n2]) and not yk[:, :, n2:].any()):
+                raise AssertionError("int4_unpack_matvec dma-floor: not the weight rows")
+            err, t = 0.0, 0.0
+        else:
+            # w4a8: exact int32 sums, only the f32 scaling differs
+            t = tol(yp, 1e-6 if body == "w4a8" else 1e-5)
+            err = _check(f"int4_unpack_matvec {body}", yk, yp, t)
+        outs[body] = yk
+        ms = timer(lambda: S.int4_unpack_matvec_cuda(xb, qb, sl, sh, body=body, dblk=dblk))
+        row = dict(kernel="int4_unpack_matvec", body=body, max_abs_err=err, tol=t, ms=ms,
+                   bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, bytes=nbytes)
+        if body == "andtrick":
+            row["plain_ms"] = timer(lambda: S.int4_unpack_matvec_plain(xb, qb, sl, sh, body=body,
+                                                                       dblk=dblk),
+                                    iters=3, warmup=1)
+            entries["int4_unpack_matvec"] = row
+        rows.append(row)
+        log(f"[stream] {json.dumps(row)}")
+    err_ca = _check("current vs andtrick", outs["current"], outs["andtrick"],
+                    tol(outs["andtrick"]))
+    log(f"[stream] current vs andtrick max_abs_err={err_ca}")
+    del outs, x, q4, sl, sh
+
+    kernels.reset_counts()
+    sweep_i = stream_tool.sweep(device="cuda", log=lambda m: log(f"[stream] {m}"))
+    sweep_j = unpack_tool.sweep(device="cuda", log=lambda m: log(f"[stream] {m}"))
+    torch.cuda.synchronize()
+    counts, plain = dict(kernels.launches), dict(kernels.plain_calls)
+    log(f"[stream] launches {json.dumps(counts)} plain calls {json.dumps(plain)}")
+    for name in ("int4_stream_matvec", "int4_unpack_matvec"):
+        if counts[name] < 1:
+            raise AssertionError(f"kernel {name} was not launched by the tools")
+    if any(plain.values()):
+        raise AssertionError(f"plain kernel versions ran in the tools: {plain}")
+    floor_us = 1e3 * (d * n2 + 8 * (d // dblk) * n2) / mem_rate(ctx["card"]) * 1e3
+    log(f"[stream] bytes bound per weight {floor_us:.2f} us; sweeps "
+        f"{json.dumps(dict(stream=sweep_i, unpack=sweep_j))}")
+    for name in entries:
+        entries[name]["launches"] = counts[name]
+        entries[name]["max_abs_err"] = max(r["max_abs_err"] for r in rows if r["kernel"] == name)
+    ctx["stream"] = entries
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -1278,6 +1484,18 @@ def main(argv=None) -> int:
                 max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                 bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
                 work=work))
+    tools = [("int4_stream_matvec", "tools/bench_int4_stream.py:95",
+              "4 weights of 3072x16384 at S=2, nblk=512, 8 rows"),
+             ("int4_unpack_matvec", "tools/bench_int4_unpack.py:174",
+              "andtrick body, 4 weights of 3072x16384, 8 rows")]
+    for name, rep_, work in tools:
+        r = ctx.get("stream", {}).get(name)
+        if r is not None:
+            kernels_rec.append(dict(
+                name=name, route="cuda", source="dynam3d_torch/csrc/int4_stream.cu",
+                replaces=rep_, launches=r["launches"], max_abs_err=r["max_abs_err"], ms=r["ms"],
+                plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                library_ms=r["library_ms"], work=work))
     print(json.dumps({"kernels": kernels_rec}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -87,17 +87,27 @@ class CLIPConfig:
 
 @dataclass(frozen=True)
 class SegmenterConfig:
-    """Segmentation provider.  The port runs ``"depth_plane"`` (the
-    geometric provider); the learned YOLOv8-seg provider is not ported yet."""
+    """FastSAM / YOLOv8-seg "segment everything".
+
+    ``provider`` selects the segmentation source of ``perceive``:
+    ``"yolov8"`` (default: the learned FastSAM-x provider,
+    ``models/encoders/yolov8_seg.py``, conf 0.4 / iou 0.8 / imgsz 576) or
+    ``"depth_plane"`` (the geometric provider, ``models/segmenter.py``)."""
 
     provider: str = "yolov8"
     imgsz: int = 576
     conf: float = 0.4
     iou: float = 0.8
     max_masks: int = 64
-    width_mult: float = 1.25
+    width_mult: float = 1.25        # FastSAM-x = YOLOv8x-seg scaling
     depth_mult: float = 1.0
     num_protos: int = 32
+
+    def depth_layers(self) -> tuple:
+        """ultralytics depth scaling: base (3,6,6,3) x depth_mult, min 1."""
+        return tuple(
+            max(1, round(n * self.depth_mult)) for n in (3, 6, 6, 3)
+        )
 
 
 @dataclass(frozen=True)

@@ -41,13 +41,31 @@ def _int4(w, device: torch.device) -> Int4Weight:
                       int(w.nblk))
 
 
-def params_from_jax(tree: Any, device: DeviceLike = None) -> Any:
-    """Convert a reference parameter tree (numpy leaves) to torch."""
+def yolo_params_from_jax(tree: Any, device: DeviceLike = None) -> Any:
+    """A reference YOLOv8-seg tree (numpy leaves, HWIO convolution weights,
+    in dicts and lists) -> the port's, with the weights laid out OIHW once."""
     device = resolve_device(device)
 
     def conv(node):
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(conv(v) for v in node)
+        t = _tensor(node, device)
+        return t.permute(3, 2, 0, 1).contiguous() if t.dim() == 4 else t
+
+    return conv(tree)
+
+
+def params_from_jax(tree: Any, device: DeviceLike = None) -> Any:
+    """Convert a reference parameter tree (numpy leaves) to torch; a
+    ``yolo`` subtree goes through :func:`yolo_params_from_jax`."""
+    device = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: yolo_params_from_jax(v, device) if k == "yolo" else conv(v)
+                    for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return type(node)(conv(v) for v in node)
         if all(hasattr(node, a) for a in ("q4", "s_lo", "s_hi", "dblk", "nblk")):

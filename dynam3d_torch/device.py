@@ -13,6 +13,19 @@ import torch
 
 DeviceLike = Optional[Union[str, torch.device]]
 
+# data-sheet device-memory rates, bytes/s, by a part of the card's name
+MEM_RATES = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
+             ("H100", 3.35e12))
+
+
+def mem_rate(name: str) -> float:
+    """The data-sheet memory rate of the card called ``name`` (as
+    ``torch.cuda.get_device_name`` or ``nvidia-smi`` print it)."""
+    for key, rate in MEM_RATES:
+        if key in name:
+            return rate
+    raise RuntimeError(f"no memory rate on record for {name!r}")
+
 
 def pin_full_fp32() -> None:
     """Keep float32 matmuls and convolutions in full float32 on the card.

@@ -58,14 +58,15 @@ def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2.0, torch.zeros_like(out), out)
 
 
-def _resize_weights(n_in: int, n_out: int, device) -> torch.Tensor:
-    """``[n_in, n_out]`` weights of ``jax.image.resize(method="cubic")``:
-    Keys a=-0.5, kernel widened by the downscale factor (antialias)."""
+def resize_weights(n_in: int, n_out: int, device, kernel=_keys_cubic) -> torch.Tensor:
+    """``[n_in, n_out]`` weights of ``jax.image.resize`` with ``kernel``
+    (Keys a=-0.5 for ``method="cubic"``), the kernel widened by the
+    downscale factor (antialias)."""
     inv_scale = n_in / n_out
     kernel_scale = max(inv_scale, 1.0)
     sample = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) * inv_scale - 0.5
     x = (sample[None, :] - torch.arange(n_in, dtype=torch.float32, device=device)[:, None]).abs()
-    w = _keys_cubic(x / kernel_scale)
+    w = kernel(x / kernel_scale)
     tot = w.sum(dim=0, keepdim=True)
     w = torch.where(tot.abs() > 1000.0 * float(torch.finfo(torch.float32).eps),
                     w / torch.where(tot != 0, tot, torch.ones_like(tot)), torch.zeros_like(w))
@@ -77,8 +78,8 @@ def preprocess_rgb(rgb: torch.Tensor, size: int = 336) -> torch.Tensor:
     """uint8 ``[B, H, W, 3]`` -> CLIP-normalized float ``[B, size, size, 3]``."""
     x = rgb.to(torch.float32) / 255.0
     if rgb.shape[1] != size or rgb.shape[2] != size:
-        wh = _resize_weights(rgb.shape[1], size, rgb.device)
-        ww = _resize_weights(rgb.shape[2], size, rgb.device)
+        wh = resize_weights(rgb.shape[1], size, rgb.device)
+        ww = resize_weights(rgb.shape[2], size, rgb.device)
         x = torch.einsum("bhwc,hy,wx->byxc", x, wh, ww)
     mean = torch.tensor(CLIP_MEAN, device=rgb.device)
     std = torch.tensor(CLIP_STD, device=rgb.device)

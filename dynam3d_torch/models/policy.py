@@ -9,8 +9,9 @@ Sequence layout: ``[BOS <|user|> \\n][576*V patch tokens][<=I_ENV instance]
 zone slots beyond the live count are masked out and RoPE positions come from
 the validity cumsum, so the masked slots are positionally invisible.
 
-Segmentation runs the geometric ``depth_plane`` provider; the learned
-YOLOv8-seg provider of the reference is not ported yet.
+Segmentation runs the provider the config names, as the reference does:
+the learned YOLOv8-seg (FastSAM) provider by default, on every view, or the
+geometric ``depth_plane`` provider.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from dynam3d_torch.config import Dynam3DConfig
 from dynam3d_torch.device import DeviceLike, resolve_device
 from dynam3d_torch.geom.projection import habitat_to_world, patch_3d_info
 from dynam3d_torch.models.encoders import clip as clip_mod
+from dynam3d_torch.models.encoders import yolov8_seg
 from dynam3d_torch.models.encoders.depth_resnet import preprocess_depth
 from dynam3d_torch.models.memory3d import (
     FieldState, delete_from_frustum, environment_features, init_field_params,
@@ -79,13 +81,9 @@ def init_policy_params(gen: Union[int, torch.Generator], cfg: Dynam3DConfig,
     ``device`` (the card unless ``device="cpu"``) from a ``torch.Generator``
     or an integer seed."""
     device = resolve_device(device)
-    if cfg.segmenter.provider != "depth_plane":
-        raise NotImplementedError(
-            "dynam3d_torch runs the depth_plane segmenter; the YOLOv8-seg "
-            "provider is not ported yet (set segmenter.provider='depth_plane')")
     g = _generator(gen, device)
     d, dl = cfg.fields.fts_dim, cfg.llava.phi3.hidden_size
-    return {
+    params = {
         "fields": init_field_params(g, cfg.fields, device),
         "clip": clip_mod.init_clip_params(g, cfg.clip, device),
         "llava": llava_mod.init_llava_params(g, cfg.llava, cfg.clip, dtype=llm_dtype,
@@ -96,6 +94,12 @@ def init_policy_params(gen: Union[int, torch.Generator], cfg: Dynam3DConfig,
         "inst_proj": init_mlp2(g, 2 * d, dl, dl, device),
         "zone_proj": init_mlp2(g, 2 * d, dl, dl, device),
     }
+    if cfg.segmenter.provider == "yolov8":
+        seg = cfg.segmenter
+        params["yolo"] = yolov8_seg.init_yolov8_params(
+            g, width=seg.width_mult, depth_n=seg.depth_layers(), num_protos=seg.num_protos,
+            device=device)
+    return params
 
 
 def perceive(params: Params, cfg: Dynam3DConfig, state: FieldState,
@@ -127,7 +131,13 @@ def perceive(params: Params, cfg: Dynam3DConfig, state: FieldState,
     # the reference rounds grid features through fp16 before the tables
     grid = grid.to(torch.float16).to(grid.dtype)
 
-    segm = depth_plane_segments(d24.reshape(B * V, HW), H, W, f.max_segments).reshape(B, V, HW)
+    if cfg.segmenter.provider == "yolov8" and "yolo" in params:
+        segm = yolov8_seg.segment_views(params["yolo"], cfg.segmenter,
+                                        rgb.reshape(B * V, *rgb.shape[2:]), (H, W),
+                                        f.max_segments)
+    else:
+        segm = depth_plane_segments(d24.reshape(B * V, HW), H, W, f.max_segments)
+    segm = segm.reshape(B, V, HW)
     pos_world = habitat_to_world(position_hab.to(torch.float32))
     heading = heading.to(torch.float32)
     view_offsets = torch.arange(V, dtype=torch.float32, device=rgb.device) * (-math.pi / 6.0)

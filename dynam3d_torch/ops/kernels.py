@@ -9,7 +9,8 @@ source at once, one ``nvcc`` process each.
 
 ``launches`` counts, per kernel, the launches made through its wrapper (one
 source may hold several kernels: ``int4_mlp.cu`` holds ``int4_mlp`` and
-``int4_mlp_block``);
+``int4_mlp_block``, ``int4_stream.cu`` ``int4_stream_matvec`` and
+``int4_unpack_matvec``);
 ``plain_calls`` counts calls of the plain PyTorch versions on CUDA tensors.
 A run resets both with :func:`reset_counts` and reads them afterwards to
 show which path it went through.
@@ -29,8 +30,9 @@ from typing import Dict, List
 import torch
 
 SOURCES = ("int4_matvec", "decode_attn", "nerf_mlp", "knn_topk", "int4_matvec2d",
-           "int4_mlp", "decode_attn_layer")
-KERNELS = SOURCES[:6] + ("int4_mlp_block", "decode_attn_layer")
+           "int4_mlp", "decode_attn_layer", "int4_stream")
+KERNELS = SOURCES[:6] + ("int4_mlp_block", "decode_attn_layer", "int4_stream_matvec",
+                         "int4_unpack_matvec")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parents[2] / "build" / "dynam3d_torch"
 NVCC_FLAGS = [

@@ -4,6 +4,7 @@ CPU on their own, and a kernel wrapper refuses tensors that are not on the
 card."""
 
 import ast
+import os
 import pkgutil
 import subprocess
 import sys
@@ -27,7 +28,8 @@ def test_port_imports_no_jax_in_a_fresh_process():
     mods = _all_modules()
     for m in ("models.policy", "ops.decode", "ops.knn", "ops.nerf_mlp", "models.render.nerf",
               "models.memory3d.pretrain", "runtime.losses_3dff", "runtime.trainer_3dff",
-              "runtime.pretrain_loop"):
+              "runtime.pretrain_loop", "models.encoders.yolov8_seg", "ops.int4_stream",
+              "tools.bench_int4_stream", "tools.bench_int4_unpack"):
         assert f"dynam3d_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -172,9 +174,78 @@ def test_pretrain_kernel_wrappers_refuse_cpu_tensors():
         nerf_mlp_cuda(torch.zeros(4, 128), *w)
 
 
-def test_yolov8_provider_is_refused_not_replaced():
-    from dynam3d_torch.config import Dynam3DConfig
-    from dynam3d_torch.models.policy import init_policy_params
+def test_yolov8_provider_is_refused_not_replaced(monkeypatch):
+    """The default provider is neither refused nor replaced: the YOLOv8-seg
+    parameters are built and ``perceive`` segments with them, never with
+    the depth_plane provider."""
+    import dataclasses
 
-    with pytest.raises(NotImplementedError, match="depth_plane"):
-        init_policy_params(0, Dynam3DConfig(), device="cpu")
+    from dynam3d_torch.config import (
+        CLIPConfig, Dynam3DConfig, FieldsConfig, LLaVAConfig, Phi3Config, SegmenterConfig,
+    )
+    from dynam3d_torch.models import policy
+
+    cfg = Dynam3DConfig(
+        fields=FieldsConfig(input_height=4, input_width=4, fts_dim=64, patch_capacity=256,
+                            instance_capacity=64, zone_capacity=32, max_segments=8,
+                            max_members=32, max_zone_members=16),
+        clip=CLIPConfig(image_size=56, patch_size=14, vision_width=64, vision_layers=2,
+                        vision_heads=2, embed_dim=64),
+        llava=LLaVAConfig(phi3=Phi3Config(vocab_size=512, hidden_size=64, intermediate_size=128,
+                                          num_layers=2, num_heads=2, num_kv_heads=2,
+                                          head_dim=32, pad_token_id=260, end_token_id=257),
+                          projector_hidden=64, prefill_bucket=64, max_new_tokens=8),
+        segmenter=dataclasses.replace(SegmenterConfig(), imgsz=32, width_mult=0.125,
+                                      depth_mult=0.34, num_protos=8, max_masks=8),
+    )
+    assert SegmenterConfig().provider == cfg.segmenter.provider == "yolov8"
+    params = policy.init_policy_params(0, cfg, device="cpu")
+    assert params["yolo"]["stem"]["w"].shape == (8, 3, 3, 3)      # OIHW
+
+    def refuse(*a, **k):
+        raise AssertionError("depth_plane_segments ran under the yolov8 provider")
+
+    monkeypatch.setattr(policy, "depth_plane_segments", refuse)
+    rng = torch.Generator().manual_seed(0)
+    out = policy.perceive(params, cfg, policy.batched_init_state(cfg, 1, "cpu"),
+                          torch.randint(0, 255, (1, 1, 56, 56, 3), generator=rng).to(torch.uint8),
+                          torch.rand(1, 1, 32, 32, generator=rng) * 0.8 + 0.1,
+                          torch.tensor([[1.0, 1.25, 2.0]]), torch.tensor([0.3]))
+    assert bool(out.mm_valid.any())
+
+
+def test_stream_kernel_wrappers_refuse_cpu_tensors():
+    from dynam3d_torch.ops.int4_stream import int4_stream_matvec_cuda, int4_unpack_matvec_cuda
+
+    q4 = torch.zeros(2, 256, 1024, dtype=torch.int8)
+    s = torch.ones(2, 2, 1024)
+    x = torch.zeros(8, 256, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        int4_stream_matvec_cuda(x, q4, s, s, S=2, nblk=512, dblk=128)
+    for body in ("dma-floor", "current", "andtrick"):
+        with pytest.raises(ValueError, match="CUDA"):
+            int4_unpack_matvec_cuda(x, q4, s, s, body=body, dblk=128)
+    with pytest.raises(ValueError, match="CUDA"):
+        int4_unpack_matvec_cuda(x.to(torch.int8), q4, s, s, body="w4a8", dblk=128)
+
+
+@pytest.mark.parametrize("tool", ["bench_int4_stream", "bench_int4_unpack"])
+def test_tools_raise_without_a_card(tool, monkeypatch):
+    """The tools time the card: without one they raise, in process and as
+    ``python -m``, before any plain version runs."""
+    import importlib
+
+    from dynam3d_torch.ops import kernels
+
+    mod = importlib.import_module(f"dynam3d_torch.tools.{tool}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    kernels.reset_counts()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.sweep(device="cpu")
+    assert not any(kernels.plain_calls.values()) and not any(kernels.launches.values())
+    out = subprocess.run([sys.executable, "-m", f"dynam3d_torch.tools.{tool}"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0 and "CUDA" in out.stderr and "us/mv" not in out.stdout

@@ -33,15 +33,17 @@ def to_torch(jparams, device="cpu"):
     return params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), device=device)
 
 
-def slice_config(f32: bool = True):
-    """The end-to-end slice's tiny config with the depth_plane segmenter;
+def slice_config(f32: bool = True, provider: str = "depth_plane"):
+    """The end-to-end slice's tiny config with the ``depth_plane``
+    segmenter, or with ``provider="yolov8"`` its own tiny YOLOv8-seg;
     ``f32`` pins the aggregation encoders and the CLIP tower to float32,
     where the point of a comparison is the algorithm."""
     from dynam3d_tpu.config import SegmenterConfig
     from tests.test_e2e_slice import tiny_config
 
     cfg = tiny_config()
-    cfg = dataclasses.replace(cfg, segmenter=SegmenterConfig(provider="depth_plane"))
+    if provider != "yolov8":
+        cfg = dataclasses.replace(cfg, segmenter=SegmenterConfig(provider=provider))
     if f32:
         cfg = dataclasses.replace(
             cfg,
