@@ -11,12 +11,13 @@ Phases, each printed as it finishes:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. ``build``: compile every CUDA kernel of the port at once (one ``nvcc``
-   per source, into ``build/dynam3d_torch/``);
+   per source, into ``build/dynam3d_torch/``), and print the registers and
+   spills ``ptxas -v`` reports for each instantiation of kernels A and F;
 3. ``matvec``: kernel A (``csrc/int4_matvec.cu``) against its plain PyTorch
    version at the main path's shapes (lm_head, qkv, o, gate_up + SwiGLU,
-   down at 1 and 8 rows), with its time, the plain version's time, the time
-   of a bf16 ``torch.matmul`` against the pre-dequantized weight (yardstick
-   only) and the bandwidth bound;
+   down at 1, 8, 12 and 16 rows), with its time, the plain version's time,
+   the time of a bf16 ``torch.matmul`` against the pre-dequantized weight
+   (yardstick only) and the bandwidth bound;
 4. ``ring``: kernel B (``csrc/decode_attn.cu``) and the whole decode layer
    (five launches) against the plain versions at Phi-3-mini widths,
    Tmax=1024 with ~900 valid rows, in the plain B=1, shared-cache k=8 and
@@ -55,7 +56,7 @@ Phases, each printed as it finishes:
 12. ``mlp``: kernels F and G (``csrc/int4_mlp.cu``) against their plain
    versions at Phi-3-mini widths (D=3072, I=8192), 1, 8, 12 and 16 rows,
    with two bf16 ``torch.matmul`` on pre-dequantized weights plus ``silu``
-   as the yardstick;
+   as the yardstick, and F's cooperative grid;
 13. ``attn``: kernel H (``csrc/decode_attn_layer.cu``) against its plain
    version at Phi-3-mini widths, Tmax=1024, ~870 valid rows with holes, with
    dequantized bf16 matmuls plus ``scaled_dot_product_attention`` as the
@@ -185,6 +186,10 @@ def phase_build(ctx):
         kernels.library(name)
     log(f"[build] kernels {list(kernels.SOURCES)} built in "
         f"{time.perf_counter() - t0:.2f} s")
+    for name in ("int4_matvec", "int4_mlp"):
+        for fn, regs, st, ld in kernels.ptxas_summary(name):
+            log(f"[build] ptxas {name}.cu {fn}: {regs} registers, spill stores {st} B, "
+                f"spill loads {ld} B")
 
 
 def _dequant_bf16(torch, w):
@@ -221,7 +226,7 @@ def phase_matvec(ctx):
         w = pack_int4(torch.randn(d, n, generator=gen, device=dev) * 0.02)
         wd = _dequant_bf16(torch, w)
         ln_w = (1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)) if ln else None
-        for rows in (1, 8):
+        for rows in (1, 8, 12, 16):
             x = torch.randn(rows, d, generator=gen, device=dev).to(xdt)
             res = (torch.randn(rows, n, generator=gen, device=dev).to(rdt)
                    if rdt is not None else None)
@@ -583,8 +588,10 @@ def phase_mlp(ctx):
     12 and 16 rows, with two bf16 matmuls on pre-dequantized weights plus
     silu as the yardstick."""
     torch = ctx["torch"]
+    from dynam3d_torch.ops import kernels
     from dynam3d_torch.ops.int4 import (
         int4_mlp_block_cuda, int4_mlp_block_plain, int4_mlp_cuda, int4_mlp_plain, pack_int4,
+        plan,
     )
 
     gen, timer = ctx["gen"], ctx["timer"]
@@ -601,8 +608,14 @@ def phase_mlp(ctx):
         return x + y if block else y
 
     rows_out, entries = [], {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for rows in (1, 8, 12, 16):
         x = torch.randn(rows, D, generator=gen, device="cuda").to(torch.bfloat16)
+        # F's cooperative launch plan: grid, gate_up and down K slices
+        grid, ks1, ks2 = plan(kernels.library("int4_mlp"), "int4_mlp_plan", x.device, rows,
+                              gu.dp, gu.n2, dn.dp, dn.n2, gu.dblk)
+        log(f"[mlp] rows={rows} cooperative grid {grid} blocks ({grid / sms:g} per SM on {sms} "
+            f"SMs), K slices {ks1} / {ks2}")
         for name, block in (("int4_mlp", False), ("int4_mlp_block", True)):
             args = (x, ln_w, gu, dn, 1e-5) if block else (x, gu, dn)
             cuda_fn, plain_fn = ((int4_mlp_block_cuda, int4_mlp_block_plain) if block

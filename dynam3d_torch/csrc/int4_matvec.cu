@@ -13,44 +13,44 @@
 //
 // Bound: at R <= 16 rows the matvec does 4*R operations per packed byte, far
 // below the card's ~295 operations per byte, so it is bound by the bytes of
-// the packed weight (Dp * N2) read once from device memory.  The design
-// keeps the weight stream coalesced and spread over every SM:
-//   * a block owns a tile of 128 packed columns; a warp reads one 128-byte
-//     row segment per step (4 bytes a lane), eight warps take eight rows;
-//     a lane keeps 8 accumulators per row (2 nibbles x 4 bytes), so the
-//     16-row bucket stays in registers, where 16-byte loads would need 32
-//     per row (512 at 16 rows, over the 255-register cap);
-//   * the K dimension is split across blocks (grid.y) in slices inside one
-//     scale group, so narrow outputs (o, down: 1536 packed columns) still
-//     launch hundreds of blocks; each slice's partial is scaled by its group
-//     scale, written to a workspace, and the last block of a column tile
-//     (an atomic ticket) sums the slices in a fixed order and applies the
-//     epilogue, so the result does not depend on block scheduling;
-//   * the activation slice is staged once per block in shared memory, after
-//     the optional rmsnorm prologue and the bf16 rounding the TPU kernel
-//     applies to x.
-// Products of the integer nibble with the bf16 activation are exact in f32
-// and are accumulated in f32 over the slice before the group scale applies.
+// the packed weight (Dp * N2) read once from device memory.
+//
+// Body: the tensor-core body of int4_mma.cuh at every row count.  A block
+// owns a tile of 128 packed columns and a K slice inside one scale group; a
+// producer warp streams the [ks, 128] weight slice through a 4-slot
+// shared-memory ring of TMA box copies, and four consumer warps
+// turn the packed bytes into bf16 A fragments and run mma.sync m16n8k16
+// against the staged x slice (one n8 tile up to 8 rows, two above).  The
+// first design ran one f32 FMA per nibble and row on the CUDA cores, with
+// 40-183 registers by row bucket and one block per SM at 16 rows; at 1, 2
+// and 4 rows the tensor-core body measured faster on the lm_head, qkv and
+// gate_up shapes and within 7% on o and down (chip_smoke.py on an NVIDIA
+// H100 80GB HBM3 at 700 W; PERF.md, PR 5), so it runs everywhere.
+//
+// The K dimension is split across blocks (grid.y) until the grid has a
+// block per SM or kMaxSplits slices, so narrow outputs (o, down: 1536
+// packed columns) still spread over the card; each slice's partial is scaled by its group scale,
+// written to a workspace, and the last block of a column tile (an atomic
+// ticket) sums the slices in a fixed order and applies the epilogue, so
+// the result does not depend on block scheduling.  The activation slice is
+// staged once per block in shared memory, after the optional rmsnorm
+// prologue and the bf16 rounding the TPU kernel applies to x.  Products of
+// the integer nibble with the bf16 activation are exact and are accumulated
+// in f32 over the slice before the group scale applies.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "int4_mma.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBytesPerLane = 4;
-constexpr int kTile = 32 * kBytesPerLane;   // packed columns per block
-constexpr int kOut = 2 * kTile;             // outputs per block (lo + hi)
-constexpr int kSmemFloats = 8192;           // staged x slice / reduction scratch
-constexpr int kRedRows = kSmemFloats / (kWarps * kOut);   // rows per reduction pass
+// K split into at most this many slices: o and down (12 column tiles)
+// measured faster at 8 than at 12 and 16 (PERF.md, PR 5)
+constexpr int kMaxSplits = 8;
 
 enum Epilogue { kStore = 0, kResidual = 1, kSwiglu = 2 };
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
 
 __device__ __forceinline__ float load_val(const void* p, int is_f32, long i) {
   return is_f32 ? reinterpret_cast<const float*>(p)[i]
@@ -62,215 +62,114 @@ __device__ __forceinline__ void store_val(void* p, int is_f32, long i, float v) 
   else reinterpret_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(v);
 }
 
-template <int RB>
-__global__ void __launch_bounds__(kThreads) int4_matvec_kernel(
-    const void* __restrict__ x, int x_f32, int rows, int d,
+// NT n8 tiles of x rows: 1-8 rows (NT = 1) or 9-16 (NT = 2); three blocks
+// per SM
+template <int NT>
+__global__ void __launch_bounds__(d3mma::kThreads, 3) int4_matvec_kernel(
+    const __grid_constant__ CUtensorMap q4_map, const void* __restrict__ x, int x_f32, int rows,
+    int d,
     const float* __restrict__ ln_w, float eps,
-    const int8_t* __restrict__ q4, const float* __restrict__ s_lo,
-    const float* __restrict__ s_hi, int n2, int dblk, int ks,
+    const float* __restrict__ s_lo, const float* __restrict__ s_hi, int n2, int dblk, int ks,
     const void* __restrict__ resid, int resid_f32, int epilogue,
     void* __restrict__ out, int out_f32, int n_out,
     float* __restrict__ ws, unsigned int* __restrict__ tickets) {
-  __shared__ float smem[kSmemFloats];
+  using namespace d3mma;
+  extern __shared__ __align__(128) unsigned char smem_dyn[];
   __shared__ float inv_rms[16];
   __shared__ int is_last;
+  const Ring ring = ring_at(smem_dyn, NT);
+  __nv_bfloat16* xs = xs_at(smem_dyn);
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tile = blockIdx.x, split = blockIdx.y, nsplit = gridDim.y;
-  const int k0 = split * ks;
-  const int g = k0 / dblk;
-  const int c0 = tile * kTile + lane * kBytesPerLane;
-  const bool col_ok = c0 < n2;   // n2 % 4 == 0: the lane's 4 columns are all in range
-
-  // ---- prologue: each block reduces the rows itself (rmsnorm) ----
-  if (ln_w != nullptr) {
-    for (int r = warp; r < rows; r += kWarps) {
-      float ss = 0.f;
-      for (int i = lane; i < d; i += 32) {
-        float v = load_val(x, x_f32, (long)r * d + i);
-        ss += v * v;
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
-      if (lane == 0) inv_rms[r] = rsqrtf(ss / (float)d + eps);
-    }
-    __syncthreads();
-  }
-  // ---- stage the K slice of x: [RB][ks], bf16-rounded, zero past d / rows ----
-  for (int i = tid; i < RB * ks; i += kThreads) {
-    const int r = i / ks, kk = i - r * ks, k = k0 + kk;
-    float v = 0.f;
-    if (r < rows && k < d) {
-      v = load_val(x, x_f32, (long)r * d + k);
-      if (ln_w != nullptr) v = v * inv_rms[r] * ln_w[k];
-      v = bf16_round(v);
-    }
-    smem[i] = v;
-  }
+  const int k0 = split * ks, col0 = tile * kCols, nst = ks / kKc;
+  if (threadIdx.x == 0) ring_init(ring);
   __syncthreads();
-
-  // ---- stream the packed slice: warp w takes rows w, w+8, ... ----
-  float acc_lo[RB][kBytesPerLane], acc_hi[RB][kBytesPerLane];
-#pragma unroll
-  for (int r = 0; r < RB; ++r)
-#pragma unroll
-    for (int j = 0; j < kBytesPerLane; ++j) acc_lo[r][j] = acc_hi[r][j] = 0.f;
-
-  constexpr int kUnroll = 4;
-  for (int kk = warp; kk < ks; kk += kUnroll * kWarps) {
-    uint32_t wv[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int kq = kk + u * kWarps;
-      wv[u] = 0x08080808u;   // decodes to zero weights
-      if (col_ok && kq < ks)
-        wv[u] = __ldg(reinterpret_cast<const uint32_t*>(q4 + (long)(k0 + kq) * n2 + c0));
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int kq = kk + u * kWarps;
-      if (kq >= ks) break;
-      float lo[kBytesPerLane], hi[kBytesPerLane];
-#pragma unroll
-      for (int j = 0; j < kBytesPerLane; ++j) {
-        const int b = (int)((wv[u] >> (8 * j)) & 0xffu);
-        lo[j] = (float)((b & 15) - 8);
-        hi[j] = (float)(((int)(int8_t)b) >> 4);
-      }
-#pragma unroll
-      for (int r = 0; r < RB; ++r) {
-        const float xv = smem[r * ks + kq];
-#pragma unroll
-        for (int j = 0; j < kBytesPerLane; ++j) {
-          acc_lo[r][j] = fmaf(xv, lo[j], acc_lo[r][j]);
-          acc_hi[r][j] = fmaf(xv, hi[j], acc_hi[r][j]);
-        }
-      }
-    }
-  }
-
-  // ---- reduce over the 8 warps: thread tid owns output o = tid ----
-  // (o < 128: lo column tile*128 + o; o >= 128: hi column tile*128 + o - 128)
-  float tot[RB];
-  __syncthreads();   // smem now reused as reduction scratch
-#pragma unroll
-  for (int r0 = 0; r0 < RB; r0 += kRedRows) {
-#pragma unroll
-    for (int rr = 0; rr < kRedRows; ++rr) {
-      if (r0 + rr < RB) {
-        float* dst = smem + (warp * kRedRows + rr) * kOut;
-#pragma unroll
-        for (int j = 0; j < kBytesPerLane; ++j) {
-          dst[lane * kBytesPerLane + j] = acc_lo[r0 + rr][j];
-          dst[kTile + lane * kBytesPerLane + j] = acc_hi[r0 + rr][j];
-        }
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int rr = 0; rr < kRedRows; ++rr) {
-      if (r0 + rr < RB) {
-        float s = 0.f;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) s += smem[(w * kRedRows + rr) * kOut + tid];
-        tot[r0 + rr] = s;
-      }
-    }
-    __syncthreads();
-  }
-
-  const int half = tid / kTile;
-  const int col = tile * kTile + (tid - half * kTile);
-  const bool out_ok = col < n2;
-  const long po = (long)half * n2 + col;     // index in the [lo | hi] output
-  const long n_pack = 2L * n2;
-  if (out_ok) {
-    const float sc = (half ? s_hi : s_lo)[(long)g * n2 + col];
-#pragma unroll
-    for (int r = 0; r < RB; ++r) tot[r] *= sc;
-  }
-
-  if (nsplit > 1) {
-    if (out_ok) {
-#pragma unroll
-      for (int r = 0; r < RB; ++r)
-        if (r < rows) ws[((long)split * rows + r) * n_pack + po] = tot[r];
-    }
-    __threadfence();
-    __syncthreads();
-    if (tid == 0) is_last = (atomicAdd(&tickets[tile], 1u) == (unsigned)(nsplit - 1));
-    __syncthreads();
-    if (!is_last) return;
-    __threadfence();
-    if (out_ok) {
-#pragma unroll
-      for (int r = 0; r < RB; ++r) {
-        if (r < rows) {
-          float s = 0.f;
-          for (int sp = 0; sp < nsplit; ++sp) s += __ldcg(ws + ((long)sp * rows + r) * n_pack + po);
-          tot[r] = s;
-        }
-      }
-    }
-    if (tid == 0) tickets[tile] = 0u;   // ready for the next launch on this stream
-  }
-
-  // ---- epilogue ----
-  if (epilogue == kSwiglu) {
-    // gate = lo half, up = hi half of the same packed column
-    __syncthreads();
-    if (half == 1 && out_ok) {
-#pragma unroll
-      for (int r = 0; r < RB; ++r) smem[r * kTile + (tid - kTile)] = tot[r];
-    }
-    __syncthreads();
-    if (half == 0 && out_ok) {
-#pragma unroll
-      for (int r = 0; r < RB; ++r) {
-        if (r < rows) {
-          const float gt = tot[r], up = smem[r * kTile + tid];
-          const float h = gt * (1.f / (1.f + expf(-gt))) * up;
-          store_val(out, out_f32, (long)r * n_out + col, h);
-        }
-      }
-    }
+  if (threadIdx.x >= kConsumers) {   // the producer warp: stream the slice
+    for (int s = 0; s < nst; ++s) produce(ring, s, &q4_map, k0 + s * kKc, col0);
     return;
   }
-  if (out_ok && po < n_out) {
+
+  // ---- prologue, while the first stages fly: rmsnorm, then x -> bf16 slice ----
+  if (ln_w != nullptr) row_inv_rms(x, x_f32, rows, d, eps, inv_rms);
+  stage_x<NT>(xs, x, x_f32, rows, d, d, k0, ks, inv_rms, ln_w);
+  consumer_sync();
+
+  const Scales sc = load_scales(col0, s_lo, s_hi, k0 / dblk, n2);
+  Acc<NT> acc;
+  acc_zero(acc);
+  for (int s = 0; s < nst; ++s) consume<NT>(ring, s, xs, s * kKc, acc);
+  scale(acc, sc);
+  consumer_sync();   // every warp is done with xs: its room takes the sums
+  float tot[8 * NT][2];
+  if (!finish<NT>(acc, reinterpret_cast<float*>(xs), col0, rows, split, nsplit, n2, ws,
+                  &tickets[tile], &is_last, tot))
+    return;
+
+  // ---- epilogue: thread t holds lo and hi of packed column col0 + t ----
+  const int c = col0 + (int)threadIdx.x;
+  if (c >= n2) return;
+  if (epilogue == kResidual) {   // every residual load before the first store
 #pragma unroll
-    for (int r = 0; r < RB; ++r) {
-      if (r < rows) {
-        float v = tot[r];
-        if (epilogue == kResidual) v += load_val(resid, resid_f32, (long)r * n_out + po);
-        store_val(out, out_f32, (long)r * n_out + po, v);
+    for (int r = 0; r < 8 * NT; ++r)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const long po = (long)half * n2 + c;
+        if (r < rows && po < n_out) tot[r][half] += load_val(resid, resid_f32, (long)r * n_out + po);
       }
+  }
+#pragma unroll
+  for (int r = 0; r < 8 * NT; ++r) {
+    if (r >= rows) break;
+    const float lo = tot[r][0], hi = tot[r][1];
+    if (epilogue == kSwiglu) {   // gate = lo half, up = hi half of column c
+      store_val(out, out_f32, (long)r * n_out + c, lo * (1.f / (1.f + expf(-lo))) * hi);
+      continue;
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const long po = (long)half * n2 + c;
+      if (po < n_out) store_val(out, out_f32, (long)r * n_out + po, half ? hi : lo);
     }
   }
 }
 
-template <int RB>
-void launch(dim3 grid, cudaStream_t st, const void* x, int x_f32, int rows, int d,
-            const float* ln_w, float eps, const int8_t* q4, const float* s_lo,
-            const float* s_hi, int n2, int dblk, int ks, const void* resid,
-            int resid_f32, int epilogue, void* out, int out_f32, int n_out,
-            float* ws, unsigned int* tickets) {
-  int4_matvec_kernel<RB><<<grid, kThreads, 0, st>>>(
-      x, x_f32, rows, d, ln_w, eps, q4, s_lo, s_hi, n2, dblk, ks, resid,
+template <int NT>
+int launch(dim3 grid, cudaStream_t st, const void* x, int x_f32, int rows, int d,
+           const float* ln_w, float eps, const int8_t* q4, const float* s_lo,
+           const float* s_hi, int dp, int n2, int dblk, int ks, const void* resid,
+           int resid_f32, int epilogue, void* out, int out_f32, int n_out,
+           float* ws, unsigned int* tickets) {
+  constexpr int smem = d3mma::smem_bytes(NT);
+  // raised once (not per launch, so a CUDA graph can capture launches)
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        int4_matvec_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = true;
+  }
+  CUtensorMap map;
+  const int rc = d3mma::weight_map(&map, q4, dp, n2);
+  if (rc != 0) return rc;
+  int4_matvec_kernel<NT><<<grid, d3mma::kThreads, smem, st>>>(
+      map, x, x_f32, rows, d, ln_w, eps, s_lo, s_hi, n2, dblk, ks, resid,
       resid_f32, epilogue, out, out_f32, n_out, ws, tickets);
+  return 0;
 }
 
 }  // namespace
 
-extern "C" int int4_matvec_tile() { return kTile; }
+extern "C" int int4_matvec_tile() { return d3mma::kCols; }
 
-extern "C" int int4_matvec_max_slice(int rows) {
-  const int rb = rows <= 1 ? 1 : rows <= 2 ? 2 : rows <= 4 ? 4 : rows <= 8 ? 8 : 16;
-  return kSmemFloats / rb;
-}
+// The largest K slice a launch takes, and the most slices K is split into
+extern "C" int int4_matvec_max_slice() { return d3mma::kMaxSlice; }
+extern "C" int int4_matvec_max_splits() { return kMaxSplits; }
 
-// Launches y = epilogue(prologue(x) @ dequant(q4)).  Returns cudaGetLastError().
+// Launches y = epilogue(prologue(x) @ dequant(q4)).  Returns cudaGetLastError(),
+// or 1 (cudaErrorInvalidValue) for a shape the kernel does not take.
 //   x: [rows, d] bf16 (x_f32 = 0) or f32;  ln_w: [d] f32 or NULL (no rmsnorm)
-//   q4: [dp, n2] int8;  s_lo/s_hi: [dp/dblk, n2] f32;  ks divides dblk
+//   q4: [dp, n2] int8, 16-byte aligned, n2 % 16 == 0;  s_lo/s_hi: [dp/dblk, n2] f32
+//   ks divides dblk, a multiple of 64 and at most int4_matvec_max_slice()
 //   epilogue 0: out[rows, n_out] = y[:, :n_out]
 //   epilogue 1: out = y[:, :n_out] + resid[rows, n_out]
 //   epilogue 2: out[rows, n2] = silu(y_lo) * y_hi   (n_out = n2)
@@ -281,16 +180,14 @@ extern "C" int int4_matvec(const void* x, int x_f32, int rows, int d,
                            int dblk, int ks, const void* resid, int resid_f32,
                            int epilogue, void* out, int out_f32, int n_out,
                            float* ws, unsigned int* tickets, void* stream) {
-  dim3 grid((n2 + kTile - 1) / kTile, dp / ks);
+  if (rows < 1 || rows > 16 || !d3mma::takes(q4, n2, ks)) return 1;
+  dim3 grid((n2 + d3mma::kCols - 1) / d3mma::kCols, dp / ks);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-#define D3_LAUNCH(RB)                                                          \
-  launch<RB>(grid, st, x, x_f32, rows, d, ln_w, eps, q4, s_lo, s_hi, n2, dblk, \
-             ks, resid, resid_f32, epilogue, out, out_f32, n_out, ws, tickets)
-  if (rows <= 1) D3_LAUNCH(1);
-  else if (rows <= 2) D3_LAUNCH(2);
-  else if (rows <= 4) D3_LAUNCH(4);
-  else if (rows <= 8) D3_LAUNCH(8);
-  else D3_LAUNCH(16);
+#define D3_LAUNCH(NT)                                                                   \
+  launch<NT>(grid, st, x, x_f32, rows, d, ln_w, eps, q4, s_lo, s_hi, dp, n2, dblk, ks, resid, \
+             resid_f32, epilogue, out, out_f32, n_out, ws, tickets)
+  const int rc = rows <= 8 ? D3_LAUNCH(1) : D3_LAUNCH(2);
 #undef D3_LAUNCH
+  if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }

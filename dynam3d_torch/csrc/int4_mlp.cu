@@ -26,16 +26,29 @@
 // Bound: 4*R operations per packed byte at R <= 16 rows, so the bytes of the
 // two packed weights (3072 x 8192 + 8192 x 1536 bytes, ~37.8 MB with scales
 // at Phi-3-mini widths), read once, bound it.
+//
+// Body: the tensor-core body of int4_mma.cuh (shared with kernel A) at every
+// row count.  Per block a producer warp streams each work item's [ks, 128]
+// weight slice through a 4-slot ring of TMA box copies, four consumer warps
+// run mma.sync on bf16 fragments of the packed bytes; the ring runs on
+// across work items, and before the grid barrier the producer already
+// fetches the first down-projection stages (they do not depend on h).  The
+// first design ran one f32 FMA per nibble and row on the CUDA cores (254
+// registers, one block per SM at 16 rows); at 1 row, where it held out
+// longest, the tensor-core body measured 0.0385 against 0.0425 ms for F and
+// 0.0442 against 0.0479 ms for G (chip_smoke.py on an NVIDIA H100 80GB HBM3
+// at 700 W; PERF.md, PR 5).
 
 #include <cooperative_groups.h>
 
-#include "int4_tile.cuh"
+#include "int4_mma.cuh"
 
 namespace cg = cooperative_groups;
+namespace mm = d3mma;
 
 namespace {
 
-using namespace d3;
+constexpr int kMaxRows = 16;
 
 struct Params {
   const __nv_bfloat16* x;   // [rows, d]
@@ -58,109 +71,174 @@ struct Params {
   float* ws1;
   float* ws2;
   unsigned int* tickets;    // [tiles1 + tiles2], zeroed
+  CUtensorMap gu_map;       // TMA views of gu_q4 and dn_q4
+  CUtensorMap dn_map;
 };
 
-template <int RB>
-__global__ void __launch_bounds__(kThreads) int4_mlp_kernel(Params p) {
-  __shared__ float smem[kSmemFloats];
+// The producer warp's walk over one phase: the stages of this block's work
+// items (item = blockIdx.x + i * gridDim.x), from stage j0 up to j1.
+__device__ __forceinline__ int produce_phase(const mm::Ring& ring, int it, const CUtensorMap* map,
+                                             int dp, int ks, int j0, int j1) {
+  const int ns = dp / ks, nst = ks / mm::kKc;
+  for (int j = j0; j < j1; ++j) {
+    const int item = blockIdx.x + (j / nst) * gridDim.x, s = j - (j / nst) * nst;
+    const int tile = item / ns, split = item - tile * ns;
+    mm::produce(ring, it++, map, split * ks + s * mm::kKc, tile * mm::kCols);
+  }
+  return it;
+}
+
+// stages of this block in a phase of `items` work items of nst stages
+__device__ __forceinline__ int block_stages(int items, int nst) {
+  const int b = (int)blockIdx.x, n = (int)gridDim.x;
+  const int mine = items > b ? (items - 1 - b) / n + 1 : 0;
+  return mine * nst;
+}
+
+// NT n8 tiles of x rows: 1-8 rows (NT = 1) or 9-16 (NT = 2); three blocks
+// per SM
+template <int NT>
+__global__ void __launch_bounds__(mm::kThreads, 3) int4_mlp_kernel(
+    const __grid_constant__ Params p) {
+  extern __shared__ __align__(128) unsigned char smem_dyn[];
   __shared__ float inv_rms[kMaxRows];
   __shared__ int is_last;
   cg::grid_group grid = cg::this_grid();
+  const mm::Ring ring = mm::ring_at(smem_dyn, NT);
+  __nv_bfloat16* xs = mm::xs_at(smem_dyn);
 
-  if (p.ln_w != nullptr) row_inv_rms(p.x, p.rows, p.d, p.eps, inv_rms);
+  const int tiles1 = (p.gu_n2 + mm::kCols - 1) / mm::kCols, ns1 = p.gu_dp / p.ks1;
+  const int tiles2 = (p.dn_n2 + mm::kCols - 1) / mm::kCols, ns2 = p.dn_dp / p.ks2;
+  const int nst1 = p.ks1 / mm::kKc, nst2 = p.ks2 / mm::kKc;
+  if (threadIdx.x == 0) mm::ring_init(ring);
+  __syncthreads();
+
+  if (threadIdx.x >= mm::kConsumers) {   // the producer warp
+    const int total1 = block_stages(tiles1 * ns1, nst1), total2 = block_stages(tiles2 * ns2, nst2);
+    int it = produce_phase(ring, 0, &p.gu_map, p.gu_dp, p.ks1, 0, total1);
+    // the first down stages do not depend on h: fetch them before the barrier
+    const int pre = min(mm::kStages, total2);
+    it = produce_phase(ring, it, &p.dn_map, p.dn_dp, p.ks2, 0, pre);
+    grid.sync();
+    produce_phase(ring, it, &p.dn_map, p.dn_dp, p.ks2, pre, total2);
+    return;
+  }
+
+  if (p.ln_w != nullptr) mm::row_inv_rms(p.x, 0, p.rows, p.d, p.eps, inv_rms);
+  float* red = reinterpret_cast<float*>(xs);   // the sums' room, once xs is read
+  int it = 0;
 
   // ---- phase 1: h = silu(gate) * up, rounded to bf16 ----
-  const int tiles1 = (p.gu_n2 + kTile - 1) / kTile, ns1 = p.gu_dp / p.ks1;
   for (int item = blockIdx.x; item < tiles1 * ns1; item += gridDim.x) {
     const int tile = item / ns1, split = item - tile * ns1, k0 = split * p.ks1;
-    Acc<RB> a;
-    acc_zero(a);
-    __syncthreads();
-    stage<RB>(smem, p.x, p.rows, p.d, p.d, k0, p.ks1, inv_rms, p.ln_w);
-    __syncthreads();
-    acc_slice(a, smem, p.ks1, p.gu_q4, p.gu_n2, k0, tile);
-    float tot[RB];
-    acc_reduce(a, smem, tot);
-    const OutCol c = out_col(tile, p.gu_n2);
-    apply_scale<RB>(tot, c, p.gu_slo, p.gu_shi, k0 / p.dblk, p.gu_n2);
-    if (!combine<RB>(tot, c, p.rows, split, ns1, p.gu_n2, p.ws1, p.tickets + tile, &is_last))
+    const int col0 = tile * mm::kCols;
+    mm::consumer_sync();   // the previous item's reads of xs / red are done
+    mm::stage_x<NT>(xs, p.x, 0, p.rows, p.d, p.d, k0, p.ks1, inv_rms, p.ln_w);
+    mm::consumer_sync();
+    const mm::Scales sc = mm::load_scales(col0, p.gu_slo, p.gu_shi, k0 / p.dblk, p.gu_n2);
+    mm::Acc<NT> acc;
+    mm::acc_zero(acc);
+    for (int s = 0; s < nst1; ++s) mm::consume<NT>(ring, it++, xs, s * mm::kKc, acc);
+    mm::scale(acc, sc);
+    mm::consumer_sync();
+    float tot[8 * NT][2];
+    if (!mm::finish<NT>(acc, red, col0, p.rows, split, ns1, p.gu_n2, p.ws1, p.tickets + tile,
+                        &is_last, tot))
       continue;
     // gate = lo half, up = hi half of the same packed column
-    if (c.half == 1 && c.ok) {
+    const int c = col0 + (int)threadIdx.x;
+    if (c >= p.gu_n2) continue;
 #pragma unroll
-      for (int r = 0; r < RB; ++r) smem[r * kTile + (threadIdx.x - kTile)] = tot[r];
-    }
-    __syncthreads();
-    if (c.half == 0 && c.ok) {
-#pragma unroll
-      for (int r = 0; r < RB; ++r) {
-        if (r < p.rows) {
-          const float gt = tot[r], up = smem[r * kTile + threadIdx.x];
-          p.h[(long)r * p.gu_n2 + c.col] = __float2bfloat16(gt * (1.f / (1.f + expf(-gt))) * up);
-        }
-      }
+    for (int r = 0; r < 8 * NT; ++r) {
+      if (r >= p.rows) break;
+      const float gt = tot[r][0], up = tot[r][1];
+      p.h[(long)r * p.gu_n2 + c] = __float2bfloat16(gt * (1.f / (1.f + expf(-gt))) * up);
     }
   }
 
   grid.sync();
 
   // ---- phase 2: out = h @ down (+ x) ----
-  const int tiles2 = (p.dn_n2 + kTile - 1) / kTile, ns2 = p.dn_dp / p.ks2;
   for (int item = blockIdx.x; item < tiles2 * ns2; item += gridDim.x) {
     const int tile = item / ns2, split = item - tile * ns2, k0 = split * p.ks2;
-    Acc<RB> a;
-    acc_zero(a);
-    __syncthreads();
+    const int col0 = tile * mm::kCols;
+    mm::consumer_sync();
     // rows I..dn_dp-1 of down are padding: their activations stage as zero
-    stage<RB>(smem, p.h, p.rows, p.gu_n2, p.gu_n2, k0, p.ks2, nullptr, nullptr);
-    __syncthreads();
-    acc_slice(a, smem, p.ks2, p.dn_q4, p.dn_n2, k0, tile);
-    float tot[RB];
-    acc_reduce(a, smem, tot);
-    const OutCol c = out_col(tile, p.dn_n2);
-    apply_scale<RB>(tot, c, p.dn_slo, p.dn_shi, k0 / p.dblk, p.dn_n2);
-    if (!combine<RB>(tot, c, p.rows, split, ns2, p.dn_n2, p.ws2, p.tickets + tiles1 + tile,
-                     &is_last))
+    mm::stage_x<NT>(xs, p.h, 0, p.rows, p.gu_n2, p.gu_n2, k0, p.ks2, nullptr, nullptr);
+    mm::consumer_sync();
+    const mm::Scales sc = mm::load_scales(col0, p.dn_slo, p.dn_shi, k0 / p.dblk, p.dn_n2);
+    mm::Acc<NT> acc;
+    mm::acc_zero(acc);
+    for (int s = 0; s < nst2; ++s) mm::consume<NT>(ring, it++, xs, s * mm::kKc, acc);
+    mm::scale(acc, sc);
+    mm::consumer_sync();
+    float tot[8 * NT][2];
+    if (!mm::finish<NT>(acc, red, col0, p.rows, split, ns2, p.dn_n2, p.ws2,
+                        p.tickets + tiles1 + tile, &is_last, tot))
       continue;
-    if (c.ok && c.po < p.n_out) {
+    const int c = col0 + (int)threadIdx.x;
+    if (c >= p.dn_n2) continue;
+    if (p.residual) {   // every residual load before the first store
 #pragma unroll
-      for (int r = 0; r < RB; ++r) {
-        if (r < p.rows) {
-          float v = tot[r];
-          if (p.residual) v += __bfloat162float(p.x[(long)r * p.d + c.po]);
-          const long i = (long)r * p.n_out + c.po;
-          if (p.out_f32) reinterpret_cast<float*>(p.out)[i] = v;
-          else reinterpret_cast<__nv_bfloat16*>(p.out)[i] = __float2bfloat16(v);
+      for (int r = 0; r < 8 * NT; ++r)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const long po = (long)half * p.dn_n2 + c;
+          if (r < p.rows && po < p.n_out) tot[r][half] += __bfloat162float(p.x[(long)r * p.d + po]);
         }
+    }
+#pragma unroll
+    for (int r = 0; r < 8 * NT; ++r) {
+      if (r >= p.rows) break;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const long po = (long)half * p.dn_n2 + c;
+        if (po >= p.n_out) continue;
+        const long i = (long)r * p.n_out + po;
+        if (p.out_f32) reinterpret_cast<float*>(p.out)[i] = tot[r][half];
+        else reinterpret_cast<__nv_bfloat16*>(p.out)[i] = __float2bfloat16(tot[r][half]);
       }
     }
   }
 }
 
-template <int RB>
-void* kernel_for() {
-  return reinterpret_cast<void*>(int4_mlp_kernel<RB>);
+template <int NT>
+int prepare(void** fn) {
+  static bool raised = false;   // the shared-memory limit, raised once
+  *fn = reinterpret_cast<void*>(int4_mlp_kernel<NT>);
+  if (!raised) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        int4_mlp_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, mm::smem_bytes(NT));
+    if (e != cudaSuccess) return (int)e;
+    raised = true;
+  }
+  return 0;
 }
 
-void* kernel_for_rows(int rows) {
-  switch (row_bucket(rows)) {
-    case 1: return kernel_for<1>();
-    case 2: return kernel_for<2>();
-    case 4: return kernel_for<4>();
-    case 8: return kernel_for<8>();
-    default: return kernel_for<16>();
-  }
-}
+int kernel_for_rows(int rows, void** fn) { return rows <= 8 ? prepare<1>(fn) : prepare<2>(fn); }
+
+int smem_for_rows(int rows) { return mm::smem_bytes(rows <= 8 ? 1 : 2); }
 
 int plan(int rows, int gu_dp, int gu_n2, int dn_dp, int dn_n2, int dblk, int* out3) {
-  if (rows < 1 || rows > kMaxRows || gu_n2 % 4 != 0 || dn_n2 % 4 != 0) return 1;
-  int grid = 0;
-  const int rc = coop_grid(kernel_for_rows(rows), &grid);
+  if (rows < 1 || rows > kMaxRows || gu_n2 % 16 != 0 || dn_n2 % 16 != 0) return 1;
+  void* fn = nullptr;
+  int rc = kernel_for_rows(rows, &fn);
   if (rc != 0) return rc;
+  int dev = 0, sms = 0, per_sm = 0, coop = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, mm::kThreads,
+                                                      smem_for_rows(rows));
+  if (e != cudaSuccess) return (int)e;
+  const int grid = coop ? per_sm * sms : 0;
   if (grid < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const int rb = row_bucket(rows);
-  const int ks1 = pick_slice(dblk, gu_dp, (gu_n2 + kTile - 1) / kTile, grid, rb);
-  const int ks2 = pick_slice(dblk, dn_dp, (dn_n2 + kTile - 1) / kTile, grid, rb);
+  // a work item per SM in at most 16 slices: aiming at the whole grid
+  // split gate_up 12 ways, and 8 slices left down 96 items for the 396
+  // blocks; both measured slower at 12 rows (PERF.md, PR 5)
+  const int ks1 = mm::pick_slice(dblk, gu_dp, (gu_n2 + mm::kCols - 1) / mm::kCols, sms, 16);
+  const int ks2 = mm::pick_slice(dblk, dn_dp, (dn_n2 + mm::kCols - 1) / mm::kCols, sms, 16);
   if (ks1 < 1 || ks2 < 1 || gu_dp % dblk != 0 || dn_dp % dblk != 0) return 1;
   out3[0] = grid;
   out3[1] = ks1;
@@ -174,12 +252,21 @@ int launch(const void* x, int rows, int d, const float* ln_w, float eps, const i
            int dn_n2, int n_out, int dblk, int grid, int ks1, int ks2, int residual,
            void* h, void* out, int out_f32, float* ws1, float* ws2, unsigned int* tickets,
            void* stream) {
+  if (rows < 1 || rows > kMaxRows || !mm::takes(gu_q4, gu_n2, ks1) ||
+      !mm::takes(dn_q4, dn_n2, ks2))
+    return 1;
+  void* fn = nullptr;
+  int rc = kernel_for_rows(rows, &fn);
+  if (rc != 0) return rc;
   Params p{reinterpret_cast<const __nv_bfloat16*>(x), rows, d, ln_w, eps, gu_q4, gu_slo,
            gu_shi, gu_dp, gu_n2, dn_q4, dn_slo, dn_shi, dn_dp, dn_n2, n_out, dblk, ks1,
            ks2, residual, reinterpret_cast<__nv_bfloat16*>(h), out, out_f32, ws1, ws2,
-           tickets};
+           tickets, {}, {}};
+  rc = mm::weight_map(&p.gu_map, gu_q4, gu_dp, gu_n2);
+  if (rc == 0) rc = mm::weight_map(&p.dn_map, dn_q4, dn_dp, dn_n2);
+  if (rc != 0) return rc;
   void* args[] = {&p};
-  cudaLaunchCooperativeKernel(kernel_for_rows(rows), dim3(grid), dim3(kThreads), args, 0,
+  cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(mm::kThreads), args, smem_for_rows(rows),
                               reinterpret_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }

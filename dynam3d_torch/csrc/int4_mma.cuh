@@ -1,0 +1,576 @@
+// The tensor-core body of the int4 kernels A (int4_matvec.cu) and F/G
+// (int4_mlp.cu) at 1-16 activation rows: the counterpart of the TPU's
+// nibble_matvec_acc (dynam3d_tpu/ops/pallas_int4.py), two matrix-unit dots
+// per scale group.
+//
+// Operand roles.  mma.sync m16n8k16 (bf16 in, f32 accumulate) with the
+// weight's output columns on the M side and the activation rows on N: a
+// warp owns 32 packed columns, i.e. four M tiles (lo and hi nibbles of two
+// 16-column tiles), against one n8 tile of x rows (rows <= 8) or two (9-16).
+// Rows are never padded to 16 and there is one A fragment per output.
+//
+// M row -> packed column.  Lane (g = lane / 4, t = lane % 4) reads the
+// 32-bit words of columns 4g..4g+3 at K rows 2t, 2t+1, 2t+8, 2t+9 of a
+// k16 step.  M tile j (0, 1) maps row g to column 4g + 2j and row g + 8 to
+// column 4g + 2j + 1, so a 4x4 byte transpose of those four words (the job
+// of int4_stream.cu's transpose4) leaves in each register the two K
+// neighbours of one column that the A fragment wants (PTX ISA, m16n8k16 A
+// layout: a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 = (g, 2t+8..), a3 =
+// (g+8, 2t+8..)).  The C fragment then holds, per lane, lo and hi of the
+// same four columns for rows 2t, 2t+1 (+8); finish() moves the sums through
+// shared memory to one packed column per consumer thread, so the split-K
+// partials, the ordered sum and the epilogues read and write whole rows of
+// consecutive columns.
+//
+// Nibble -> bf16, exactly.  A byte b holds lo + 8 in its low nibble and hi
+// (signed) in its high nibble (pack_int4).  OR-ing a nibble n under the
+// bf16 exponent of 128.0 (0x4300) gives 128 + n exactly; one bf16x2 FMA
+// subtracts 136 (0xC308): lo = (128 + (b & 15)) - 136, hi = (128 + ((b >> 4)
+// ^ 8)) - 136.  Products of a bf16 activation with these small integers are
+// exact, and they sum in the f32 accumulators.
+//
+// Weight stream.  A ring of kStages slots of [kKc, 128] bytes per block,
+// each filled by one TMA copy of a [kKc, 128] box of the weight (a tensor
+// map made on the host per launch, 128-byte swizzle: 16-byte chunk j of
+// row r lands at chunk j ^ (r % 8), so the lanes' 32-bit loads fall on 32
+// distinct banks) that completes on the slot's full mbarrier; one producer
+// lane issues the copies and the consumer warps release a slot through its
+// empty mbarrier.  A stage never straddles a scale group (kKc divides the K
+// slice, which divides dblk).  Two fills measured slower (kernel A, lm_head
+// at 8 rows, chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md,
+// PR 5): one cp.async.bulk per 128-byte weight row, 0.048 ms, and 16-byte
+// cp.async from the producer warp, 0.037 ms, against 0.034-0.035 ms for the
+// box copies.
+//
+// Activations.  The block's K slice of x, bf16 [8*NT][ks + 8] (pitch padded
+// so that ldmatrix's eight rows fall on distinct banks), staged once per
+// work item by the consumer warps with 16-byte loads, several in flight per
+// thread, while the producer's first copies fly; B fragments come from
+// ldmatrix.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace d3mma {
+
+constexpr int kCols = 128;                  // packed columns per block tile
+constexpr int kConsumerWarps = kCols / 32;  // a warp per 32 packed columns
+constexpr int kConsumers = 32 * kConsumerWarps;
+constexpr int kThreads = kConsumers + 32;   // + one producer warp
+constexpr int kStages = 4;                  // ring slots
+constexpr int kKc = 64;                     // weight rows per slot
+constexpr int kSlotBytes = kKc * kCols;     // one TMA box
+constexpr int kMaxSlice = 1024;             // K rows of x a block stages
+constexpr int kXsPitch = kMaxSlice + 8;     // bf16 elements per staged x row
+constexpr int kRingBytes = kStages * kSlotBytes;
+constexpr int kAlign = 1024;                // the 128-byte swizzle's slot alignment
+
+// dynamic shared memory of a block at NT n8 tiles: alignment slack, ring,
+// x slice, barriers
+__host__ __device__ constexpr int smem_bytes(int nt) {
+  return kAlign + kRingBytes + 8 * nt * kXsPitch * 2 + 2 * kStages * 8;
+}
+
+// The driver's cuTensorMapEncodeTiled, found once through the runtime (no
+// link against the driver library)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+            cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// Tensor map of a packed weight q4 [dp, n2] in [kKc, kCols] boxes with the
+// 128-byte swizzle (columns past n2 read as zero); 0 or a CUDA error code
+inline int weight_map(CUtensorMap* map, const int8_t* q4, int dp, int n2) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)n2, (cuuint64_t)dp};
+  const cuuint64_t strides[1] = {(cuuint64_t)n2};
+  const cuuint32_t box[2] = {(cuuint32_t)kCols, (cuuint32_t)kKc};
+  const cuuint32_t estrides[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(q4), dims,
+                        strides, box, estrides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// TMA: the box of `map` at (column x, row y) into shared dst, completing
+// on bar
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map, int x, int y,
+                                        uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
+        "r"(smem_u32(bar))
+      : "memory");
+}
+
+// barrier of the consumer warps only (the producer warp runs ahead)
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+// The block's ring: slots, and a full and an empty mbarrier per slot.
+struct Ring {
+  unsigned char* buf;
+  uint64_t* full;
+  uint64_t* empty;
+};
+
+// The ring at the 1024-byte aligned start of the dynamic shared memory,
+// the staged x slice after it, the barriers last
+__device__ __forceinline__ unsigned char* aligned_base(unsigned char* smem) {
+  const uint32_t a = smem_u32(smem);
+  return smem + (((a + kAlign - 1) & ~(uint32_t)(kAlign - 1)) - a);
+}
+
+__device__ __forceinline__ Ring ring_at(unsigned char* smem, int nt) {
+  unsigned char* base = aligned_base(smem);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + kRingBytes + 8 * nt * kXsPitch * 2);
+  return Ring{base, bars, bars + kStages};
+}
+
+__device__ __forceinline__ __nv_bfloat16* xs_at(unsigned char* smem) {
+  return reinterpret_cast<__nv_bfloat16*>(aligned_base(smem) + kRingBytes);
+}
+
+// thread 0; the block syncs after it
+__device__ __forceinline__ void ring_init(const Ring& r) {
+  for (int s = 0; s < kStages; ++s) {
+    mbar_init(&r.full[s], 1);
+    mbar_init(&r.empty[s], kConsumerWarps);
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Producer warp: ring stage `it` (a running count over the block's life)
+// <- the box of weight rows k .. k + kKc, columns col0 .. col0 + kCols.
+__device__ __forceinline__ void produce(const Ring& r, int it, const CUtensorMap* map, int k,
+                                        int col0) {
+  const int slot = it % kStages;
+  if (it >= kStages) mbar_wait(&r.empty[slot], (uint32_t)((it / kStages - 1) & 1));
+  if ((threadIdx.x & 31) == 0) {
+    mbar_expect_tx(&r.full[slot], (uint32_t)kSlotBytes);
+    // order the consumers' generic reads of the slot before the async write
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    tma_box(r.buf + slot * kSlotBytes, map, col0, k, &r.full[slot]);
+  }
+  __syncwarp();
+}
+
+template <int NT>
+struct Acc {
+  float c[NT][4][4];   // [n8 tile][M tile: lo0, lo1, hi0, hi1][C register]
+};
+
+template <int NT>
+__device__ __forceinline__ void acc_zero(Acc<NT>& a) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a.c[n][m][e] = 0.f;
+}
+
+// 128 + n -> n - 8 in both bf16 halves
+__device__ __forceinline__ uint32_t minus136(uint32_t v) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(v), "r"(0x3F803F80u), "r"(0xC308C308u));
+  return d;
+}
+
+// bytes (sel picks two bytes of p into the halves' low bytes) -> bf16x2 lo
+// and hi nibbles of those two bytes
+__device__ __forceinline__ void nibbles(uint32_t p, uint32_t sel, uint32_t& lo, uint32_t& hi) {
+  const uint32_t s = __byte_perm(p, 0u, sel);
+  lo = minus136((s & 0x000F000Fu) | 0x43004300u);
+  hi = minus136(((s >> 4) & 0x000F000Fu) ^ 0x43084308u);
+}
+
+// A fragments of one k16 step for the warp's four M tiles, from the words
+// at K rows 2t, 2t+1 (w0, w1) and 2t+8, 2t+9 (w2, w3), columns 4g..4g+3
+__device__ __forceinline__ void a_frags(uint32_t w0, uint32_t w1, uint32_t w2, uint32_t w3,
+                                        uint32_t a[4][4]) {
+  // p01: columns 4g, 4g+1 (bytes: c0k0 c0k1 c1k0 c1k1); p23: columns 4g+2, 4g+3
+  const uint32_t p01 = __byte_perm(w0, w1, 0x5140), p23 = __byte_perm(w0, w1, 0x7362);
+  const uint32_t q01 = __byte_perm(w2, w3, 0x5140), q23 = __byte_perm(w2, w3, 0x7362);
+  // M tile j (lo: j, hi: 2 + j): a0 = column 4g+2j rows 2t.., a1 = 4g+2j+1,
+  // a2 / a3 the same at rows 2t+8..
+  nibbles(p01, 0x4140, a[0][0], a[2][0]);
+  nibbles(p01, 0x4342, a[0][1], a[2][1]);
+  nibbles(q01, 0x4140, a[0][2], a[2][2]);
+  nibbles(q01, 0x4342, a[0][3], a[2][3]);
+  nibbles(p23, 0x4140, a[1][0], a[3][0]);
+  nibbles(p23, 0x4342, a[1][1], a[3][1]);
+  nibbles(q23, 0x4140, a[1][2], a[3][2]);
+  nibbles(q23, 0x4342, a[1][3], a[3][3]);
+}
+
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// B fragments of x rows 0..8*NT-1 at K columns k..k+15 of the staged slice
+template <int NT>
+__device__ __forceinline__ void b_frags(const __nv_bfloat16* xs, int k, uint32_t b[NT][2]) {
+  const int lane = threadIdx.x & 31;
+  if constexpr (NT == 1) {
+    const int l = lane & 15;
+    const uint32_t addr = smem_u32(xs + (l & 7) * kXsPitch + k + (l >> 3) * 8);
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+                 : "=r"(b[0][0]), "=r"(b[0][1])
+                 : "r"(addr));
+  } else {
+    const uint32_t addr =
+        smem_u32(xs + ((lane >> 4) * 8 + (lane & 7)) * kXsPitch + k + ((lane >> 3) & 1) * 8);
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(b[0][0]), "=r"(b[0][1]), "=r"(b[1][0]), "=r"(b[1][1])
+                 : "r"(addr));
+  }
+}
+
+// Consumer warp: wait for ring stage `it`, multiply its kKc rows (x columns
+// kx .. kx + kKc of the staged slice) into the accumulators, release it.
+template <int NT>
+__device__ __forceinline__ void consume(const Ring& r, int it, const __nv_bfloat16* xs, int kx,
+                                        Acc<NT>& acc) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3, slot = it % kStages;
+  mbar_wait(&r.full[slot], (uint32_t)((it / kStages) & 1));
+  // the swizzled offsets of the lane's words in rows 2t and 2t + 1 (rows
+  // 16q + 8 + ... repeat them: 16q and 8 are multiples of 8)
+  const int chunk = 2 * warp + (g >> 2), in_chunk = 4 * (g & 3);
+  const int off0 = 2 * t * kCols + ((chunk ^ (2 * t)) << 4) + in_chunk;
+  const int off1 = (2 * t + 1) * kCols + ((chunk ^ (2 * t + 1)) << 4) + in_chunk;
+  const unsigned char* base = r.buf + slot * kSlotBytes;
+#pragma unroll
+  for (int q = 0; q < kKc / 16; ++q) {
+    const unsigned char* p = base + q * 16 * kCols;
+    const uint32_t w0 = *reinterpret_cast<const uint32_t*>(p + off0);
+    const uint32_t w1 = *reinterpret_cast<const uint32_t*>(p + off1);
+    const uint32_t w2 = *reinterpret_cast<const uint32_t*>(p + 8 * kCols + off0);
+    const uint32_t w3 = *reinterpret_cast<const uint32_t*>(p + 8 * kCols + off1);
+    uint32_t b[NT][2];
+    b_frags<NT>(xs, kx + q * 16, b);
+    uint32_t a[4][4];
+    a_frags(w0, w1, w2, w3, a);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int m = 0; m < 4; ++m) mma_bf16(acc.c[n][m], a[m], b[n][0], b[n][1]);
+  }
+  __syncwarp();
+  if (lane == 0) mbar_arrive(&r.empty[slot]);
+}
+
+// What a lane holds after the loop: lo and hi of packed columns col + jj
+// (jj < 4) for the x rows row(rs), rs < 2 * NT.
+struct LaneCols {
+  int col;       // first of the lane's four packed columns
+  int row0;      // x row of rs = 0 (2t); rs adds 8 * (rs / 2) + rs % 2
+};
+
+__device__ __forceinline__ LaneCols lane_cols(int col0) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  return LaneCols{col0 + warp * 32 + 4 * (lane >> 2), 2 * (lane & 3)};
+}
+
+__device__ __forceinline__ int lane_row(const LaneCols& lc, int rs) {
+  return lc.row0 + 8 * (rs >> 1) + (rs & 1);
+}
+
+// lo (half 0) or hi (half 1) of column col + jj at row slot rs
+template <int NT>
+__device__ __forceinline__ float& acc_at(Acc<NT>& a, int half, int rs, int jj) {
+  return a.c[rs >> 1][2 * half + (jj >> 1)][2 * (jj & 1) + (rs & 1)];
+}
+
+// The group scales of the lane's four columns (read before the stages
+// land, so their latency hides behind the stream)
+struct Scales {
+  float lo[4], hi[4];
+};
+
+__device__ __forceinline__ Scales load_scales(int col0, const float* s_lo, const float* s_hi,
+                                              int grp, int n2) {
+  const LaneCols lc = lane_cols(col0);
+  Scales sc;
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+    const int c = lc.col + jj;
+    sc.lo[jj] = c < n2 ? __ldg(s_lo + (long)grp * n2 + c) : 0.f;
+    sc.hi[jj] = c < n2 ? __ldg(s_hi + (long)grp * n2 + c) : 0.f;
+  }
+  return sc;
+}
+
+// Scale the slice's sums by its group's scales (one group per K slice)
+template <int NT>
+__device__ __forceinline__ void scale(Acc<NT>& a, const Scales& sc) {
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+    for (int rs = 0; rs < 2 * NT; ++rs) {
+      acc_at(a, 0, rs, jj) *= sc.lo[jj];
+      acc_at(a, 1, rs, jj) *= sc.hi[jj];
+    }
+}
+
+// 8 consecutive values of x (bf16 or f32) at element i, i % 8 == 0, through
+// L2 (x may have been written earlier in the same launch by another block)
+__device__ __forceinline__ void load8(const void* x, int x_f32, long i, float v[8]) {
+  if (x_f32) {
+    const float4 a = __ldcg(reinterpret_cast<const float4*>(x) + i / 4);
+    const float4 b = __ldcg(reinterpret_cast<const float4*>(x) + i / 4 + 1);
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+  } else {
+    const uint4 u = __ldcg(reinterpret_cast<const uint4*>(x) + i / 8);
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[2 * j] = __uint_as_float(w[j] << 16);
+      v[2 * j + 1] = __uint_as_float(w[j] & 0xFFFF0000u);
+    }
+  }
+}
+
+__device__ __forceinline__ float load1(const void* x, int x_f32, long i) {
+  return x_f32 ? __ldcg(reinterpret_cast<const float*>(x) + i)
+               : __uint_as_float((uint32_t)__ldcg(reinterpret_cast<const unsigned short*>(x) + i)
+                                 << 16);
+}
+
+// 8-wide loads need rows of a multiple of 8 elements on a 16-byte boundary
+__device__ __forceinline__ bool vec8(const void* x, int ld) {
+  return ld % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+}
+
+// 1 / rms of each row of x [rows, d] into inv_rms; consumer warps, a warp
+// per row, 8 values a lane per load
+__device__ __forceinline__ void row_inv_rms(const void* x, int x_f32, int rows, int d, float eps,
+                                            float* inv_rms) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool vec = vec8(x, d);
+  for (int r = warp; r < rows; r += kConsumerWarps) {
+    float ss = 0.f;
+    if (vec) {
+      // twelve loads in flight: a 3072-wide row in one round
+#pragma unroll 12
+      for (int i = 8 * lane; i < d; i += 256) {
+        float v[8];
+        load8(x, x_f32, (long)r * d + i, v);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) ss += v[j] * v[j];
+      }
+    } else {
+      for (int i = lane; i < d; i += 32) {
+        const float v = load1(x, x_f32, (long)r * d + i);
+        ss += v * v;
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    if (lane == 0) inv_rms[r] = rsqrtf(ss / (float)d + eps);
+  }
+  consumer_sync();
+}
+
+// Stage x[:, k0:k0+ks] of x [rows, ld] (bf16 or f32) into xs as bf16
+// [8*NT][kXsPitch], zero past d or rows; with ln_w, x * inv_rms * ln_w
+// first.  Consumer threads, 8 values each per step, four steps' loads in
+// flight; the caller syncs the consumers before and after.
+template <int NT>
+__device__ __forceinline__ void stage_x(__nv_bfloat16* xs, const void* x, int x_f32, int rows,
+                                        int ld, int d, int k0, int ks, const float* inv_rms,
+                                        const float* ln_w) {
+  const int cpr = ks / 8, n = 8 * NT * cpr;
+  const bool vec = vec8(x, ld);
+  constexpr int kBatch = 4;
+  for (int i0 = threadIdx.x; i0 < n; i0 += kBatch * kConsumers) {
+    float v[kBatch][8];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int i = i0 + b * kConsumers, r = i / cpr, k = k0 + (i - r * cpr) * 8;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[b][j] = 0.f;
+      if (i >= n || r >= rows) continue;
+      if (vec && k + 8 <= d) {
+        load8(x, x_f32, (long)r * ld + k, v[b]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (k + j < d) v[b][j] = load1(x, x_f32, (long)r * ld + k + j);
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int i = i0 + b * kConsumers, r = i / cpr, kk = (i - r * cpr) * 8;
+      if (i >= n) break;
+      if (ln_w != nullptr && r < rows) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (k0 + kk + j < d) v[b][j] *= inv_rms[r] * ln_w[k0 + kk + j];
+      }
+      uint32_t w[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(v[b][2 * j], v[b][2 * j + 1]);
+        w[j] = *reinterpret_cast<const uint32_t*>(&h);
+      }
+      *reinterpret_cast<uint4*>(xs + r * kXsPitch + kk) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+// After the slice's sums are scaled: move them from the fragments to one
+// column per consumer thread (thread t: packed column col0 + t, tot[r][0]
+// lo and tot[r][1] hi), through red (shared, [8*NT][256] f32; it may alias
+// the staged x slice: the caller syncs the consumers first).  With K split
+// across blocks (nsplit > 1) the slice's sums go to ws [nsplit][rows][2*n2]
+// and the block that takes the column tile's last ticket sums the slices in
+// order 0..nsplit-1 (at one n8 tile two slices' loads in flight at a time,
+// at two one, to keep three blocks' registers on an SM), rearms the ticket
+// and returns true; the others return false.
+template <int NT>
+__device__ __forceinline__ bool finish(Acc<NT>& a, float* red, int col0, int rows, int split,
+                                       int nsplit, int n2, float* ws, unsigned int* ticket,
+                                       int* is_last, float tot[8 * NT][2]) {
+  constexpr int NR = 8 * NT;
+  const LaneCols lc = lane_cols(col0);
+#pragma unroll
+  for (int rs = 0; rs < 2 * NT; ++rs)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        red[lane_row(lc, rs) * 2 * kCols + half * kCols + (lc.col - col0) + jj] =
+            acc_at(a, half, rs, jj);
+  consumer_sync();
+  const int t = threadIdx.x, c = col0 + t;
+  const bool ok = c < n2;
+#pragma unroll
+  for (int r = 0; r < NR; ++r)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) tot[r][half] = red[r * 2 * kCols + half * kCols + t];
+  if (nsplit == 1) return true;
+  const long n_pack = 2L * n2;
+  if (ok) {
+#pragma unroll
+    for (int r = 0; r < NR; ++r)
+      if (r < rows)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          ws[((long)split * rows + r) * n_pack + half * n2 + c] = tot[r][half];
+  }
+  __threadfence();
+  consumer_sync();
+  if (t == 0) *is_last = (atomicAdd(ticket, 1u) == (unsigned)(nsplit - 1));
+  consumer_sync();
+  if (!*is_last) return false;
+  __threadfence();
+  if (ok) {
+#pragma unroll
+    for (int r = 0; r < NR; ++r) tot[r][0] = tot[r][1] = 0.f;
+    constexpr int kPer = NT == 1 ? 2 : 1;   // slices per round
+    for (int sp0 = 0; sp0 < nsplit; sp0 += kPer) {
+      float p[kPer][NR][2];
+#pragma unroll
+      for (int q = 0; q < kPer; ++q)
+#pragma unroll
+        for (int r = 0; r < NR; ++r)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const long o = ((long)(sp0 + q) * rows + r) * n_pack + half * n2 + c;
+            p[q][r][half] = r < rows && sp0 + q < nsplit ? __ldcg(ws + o) : 0.f;
+          }
+#pragma unroll
+      for (int q = 0; q < kPer; ++q)
+#pragma unroll
+        for (int r = 0; r < NR; ++r)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) tot[r][half] += p[q][r][half];
+    }
+  }
+  if (t == 0) *ticket = 0u;   // ready for the next launch on this stream
+  return true;
+}
+
+// K rows per slice: the largest power-of-two divisor of dblk up to
+// kMaxSlice that still gives `blocks` work items, halving down to 128 rows
+// but to no more than max_splits slices; -1 if none fits.  Every further
+// split adds rows x 256 f32 partials per column tile to the workspace and a
+// round of loads to the last block's ordered sum.
+inline int pick_slice(int dblk, int dp, int tiles, int blocks, int max_splits) {
+  int ks = dblk;
+  while (ks > kMaxSlice && ks % 2 == 0) ks /= 2;
+  while ((long)tiles * (dp / ks) < blocks && ks % 2 == 0 && ks > 128 &&
+         dp / (ks / 2) <= max_splits)
+    ks /= 2;
+  return (dblk % ks == 0 && ks <= kMaxSlice && ks % kKc == 0) ? ks : -1;
+}
+
+// The shapes the mma body takes: 16-byte aligned rows for the tensor map
+inline bool takes(const void* q4, int n2, int ks) {
+  return n2 % 16 == 0 && (reinterpret_cast<uintptr_t>(q4) & 15) == 0 && ks % kKc == 0 &&
+         ks <= kMaxSlice;
+}
+
+}  // namespace d3mma

@@ -1,5 +1,5 @@
-// Shared pieces of the int4 kernels E (int4_matvec2d.cu), F and G
-// (int4_mlp.cu) and H (decode_attn_layer.cu).
+// Shared pieces of the CUDA-core int4 kernels E (int4_matvec2d.cu) and H
+// (decode_attn_layer.cu); kernels A, F and G run on int4_mma.cuh.
 //
 // Weight layout (flat, biased-lo): byte q4[k][c] of a [Dp, N2] int8 array
 // holds column c of the first output half in its low nibble, stored +8, and

@@ -10,6 +10,7 @@ import torch
 
 from dynam3d_torch import flags
 from dynam3d_torch.config import CLIPConfig, LLaVAConfig
+from dynam3d_torch.device import resolve_device
 from dynam3d_torch.models.encoders import clip as clip_mod
 from dynam3d_torch.models.vlm import phi3
 from dynam3d_torch.ops.transformer import dot_f32, gelu, init_dense, weight_like
@@ -62,6 +63,9 @@ def generate(params: Params, cfg: LLaVAConfig, embeds: torch.Tensor,
 
 def init_llava_params(gen: torch.Generator, cfg: LLaVAConfig, clip_cfg: CLIPConfig,
                       dtype=torch.bfloat16, device=None) -> Params:
+    """Random CLIP tower, projector and Phi-3 parameters on ``device``
+    (``None``: the card)."""
+    device = resolve_device(device)
     return {
         "clip": clip_mod.init_clip_params(gen, clip_cfg, device),
         "projector": {

@@ -35,6 +35,7 @@ import torch
 
 from dynam3d_torch import flags
 from dynam3d_torch.config import Phi3Config
+from dynam3d_torch.device import resolve_device
 from dynam3d_torch.ops.decode import MAX_ROWS, ROWS, decode_attn_layer, decode_layer_ring
 from dynam3d_torch.ops.int4 import int4_matmul, int4_mlp, int4_mlp_block, pack_int4
 from dynam3d_torch.ops.transformer import dot_f32
@@ -73,6 +74,8 @@ class KVCache(NamedTuple):
 
 def init_cache(cfg: Phi3Config, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None) -> KVCache:
+    """Zeroed K/V caches on ``device`` (``None``: the card)."""
+    device = resolve_device(device)
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
@@ -629,7 +632,9 @@ def greedy_decode_spec_batched(params: Params, cfg: Phi3Config, embeds: torch.Te
 
 def init_phi3_params(gen: torch.Generator, cfg: Phi3Config, dtype=torch.bfloat16,
                      device=None) -> Params:
-    """Random Phi-3 parameters (normal, std 0.02), made on ``device``."""
+    """Random Phi-3 parameters (normal, std 0.02), made on ``device``
+    (``None``: the card)."""
+    device = resolve_device(device)
     D = cfg.hidden_size
     q_sz = cfg.num_heads * cfg.head_dim
     kv_sz = cfg.num_kv_heads * cfg.head_dim

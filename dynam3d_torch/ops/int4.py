@@ -177,19 +177,22 @@ def _ticket_buffer(device: torch.device, n: int) -> torch.Tensor:
     return buf
 
 
-def _slice_rows(w: Int4Weight, rows: int, lib) -> int:
+def _slice_rows(w: Int4Weight, lib) -> int:
     """K rows per block: the largest power-of-two divisor of dblk that fits
-    the staged-x buffer while the grid still has >= 2 blocks per SM."""
+    the staged-x buffer while the grid still has a block per SM, in at most
+    ``int4_matvec_max_splits()`` slices (each further slice adds a round to
+    the last block's ordered sum)."""
     tile = lib.int4_matvec_tile()
     ks = w.dblk
-    cap = lib.int4_matvec_max_slice(rows)
+    cap = lib.int4_matvec_max_slice()
     while ks > cap and ks % 2 == 0:
         ks //= 2
     n_tiles = -(-w.n2 // tile)
     sms = torch.cuda.get_device_properties(w.q4.device).multi_processor_count
-    while n_tiles * (w.dp // ks) < 2 * sms and ks % 2 == 0 and ks > 128:
+    while (n_tiles * (w.dp // ks) < sms and ks % 2 == 0 and ks > 128
+           and w.dp // (ks // 2) <= lib.int4_matvec_max_splits()):
         ks //= 2
-    kernels.require(w.dblk % ks == 0 and ks <= cap,
+    kernels.require(w.dblk % ks == 0 and ks <= cap and ks % 64 == 0,
                     f"int4_matvec: no K slice fits dblk={w.dblk}")
     return ks
 
@@ -204,8 +207,10 @@ def _bind(lib) -> None:
     lib.int4_matvec.restype = I
     lib.int4_matvec_tile.argtypes = []
     lib.int4_matvec_tile.restype = I
-    lib.int4_matvec_max_slice.argtypes = [I]
+    lib.int4_matvec_max_slice.argtypes = []
     lib.int4_matvec_max_slice.restype = I
+    lib.int4_matvec_max_splits.argtypes = []
+    lib.int4_matvec_max_splits.restype = I
     lib._d3_bound = True
 
 
@@ -221,7 +226,7 @@ def int4_matvec_cuda(
     kernels.require_cuda(tensors, "int4_matvec")
     kernels.require(w.q4.dtype == torch.int8 and w.s_lo.dtype == torch.float32,
                     "int4_matvec: q4 must be int8 and scales f32")
-    kernels.require(w.n2 % 4 == 0, "int4_matvec: n2 must be a multiple of 4")
+    kernels.require(w.n2 % 16 == 0, "int4_matvec: n2 must be a multiple of 16")
     kernels.require(out_dtype in (torch.bfloat16, torch.float32),
                     "int4_matvec: out_dtype must be bf16 or f32")
     if residual is not None:
@@ -230,7 +235,7 @@ def int4_matvec_cuda(
     lib = kernels.library("int4_matvec")
     _bind(lib)
     rows, d = x.shape
-    ks = _slice_rows(w, rows, lib)
+    ks = _slice_rows(w, lib)
     nsplit = w.dp // ks
     out = torch.empty(_out_shape(rows, w, epilogue), dtype=out_dtype, device=x.device)
     ws = (torch.empty(nsplit * rows * 2 * w.n2, dtype=torch.float32, device=x.device)

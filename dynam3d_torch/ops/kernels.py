@@ -13,7 +13,9 @@ source may hold several kernels: ``int4_mlp.cu`` holds ``int4_mlp`` and
 ``int4_unpack_matvec``);
 ``plain_calls`` counts calls of the plain PyTorch versions on CUDA tensors.
 A run resets both with :func:`reset_counts` and reads them afterwards to
-show which path it went through.
+show which path it went through.  :func:`ptxas_summary` reads the
+registers and spills ``ptxas -v`` reported for each kernel of a source
+built in this process.
 """
 
 from __future__ import annotations
@@ -21,11 +23,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -37,13 +40,14 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parents[2] / "build" / "dynam3d_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v",
 ]
 
 launches: Dict[str, int] = {name: 0 for name in KERNELS}
 plain_calls: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_build_logs: Dict[str, str] = {}
 _lock = threading.Lock()
 
 
@@ -98,6 +102,7 @@ def _finish_build(name: str, started) -> None:
     out, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+    _build_logs[name] = out
     os.replace(tmp, target)
 
 
@@ -108,6 +113,34 @@ def build_all() -> None:
         for n, s in started:
             if s is not None:
                 _finish_build(n, s)
+
+
+def ptxas_summary(name: str) -> List[Tuple[str, int, int, int]]:
+    """``(kernel, registers, spill store bytes, spill load bytes)`` for each
+    entry function of ``csrc/<name>.cu`` from its ``ptxas -v`` report;
+    empty when the library was not built by this process.  The kernel is
+    named by its symbol's readable part and template arguments, e.g.
+    ``int4_matvec_mma_kernel<2>``."""
+    out, fn = [], None
+    spills = (0, 0)
+    for line in _build_logs.get(name, "").splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            sym = m.group(1)
+            base = re.search(r"[a-z][a-z0-9_]*_kernel", sym)
+            args = re.findall(r"Li(\d+)E", sym)
+            fn = (base.group(0) if base else sym) + (
+                f"<{','.join(args)}>" if args else "")
+            spills = (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out.append((fn, int(m.group(1)), *spills))
+            fn = None
+    return out
 
 
 def library(name: str) -> ctypes.CDLL:

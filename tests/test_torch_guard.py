@@ -79,6 +79,37 @@ def test_entry_points_raise_without_a_device(monkeypatch):
         PretrainRunner({}, cfg, device=None)
 
 
+@pytest.mark.parametrize("entry", ["init_cache", "init_phi3_params", "init_llava_params"])
+def test_model_initialisers_resolve_none_to_the_card(entry, monkeypatch):
+    """The Phi-3 and LLaVA initialisers take ``device=None`` as the card, as
+    every other entry point does: without one they raise, and with
+    ``device="cpu"`` they build on the CPU."""
+    from dynam3d_torch.config import CLIPConfig, LLaVAConfig, Phi3Config
+    from dynam3d_torch.models.vlm import llava, phi3
+
+    pcfg = Phi3Config(vocab_size=64, hidden_size=32, intermediate_size=64, num_layers=1,
+                      num_heads=2, num_kv_heads=2, head_dim=16, pad_token_id=60,
+                      end_token_id=61)
+    ccfg = CLIPConfig(image_size=28, patch_size=14, vision_width=32, vision_layers=1,
+                      vision_heads=2, embed_dim=32)
+    lcfg = LLaVAConfig(phi3=pcfg, projector_hidden=32)
+    calls = {
+        "init_cache": lambda **kw: phi3.init_cache(pcfg, 1, 8, **kw),
+        "init_phi3_params": lambda **kw: phi3.init_phi3_params(torch.Generator(), pcfg, **kw),
+        "init_llava_params": lambda **kw: llava.init_llava_params(torch.Generator(), lcfg, ccfg,
+                                                                  **kw),
+    }
+    made = calls[entry](device="cpu")
+    if entry == "init_cache":
+        leaves = list(made)
+    else:
+        leaves = [made.get("phi3", made)["final_ln"]]
+    assert all(t.device.type == "cpu" for t in leaves)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]()
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     from dynam3d_torch.ops.decode import decode_attn_cuda
     from dynam3d_torch.ops.int4 import int4_matvec_cuda, pack_int4

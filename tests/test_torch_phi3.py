@@ -59,7 +59,7 @@ def test_w8a8_prefill_logits():
                           lm_at=last)
     te, tv = _torch_prompt(embeds, valid)
     tcfg = _tcfg(cfg)
-    tc = tphi3.init_cache(tcfg, 1, total, dtype=torch.bfloat16)
+    tc = tphi3.init_cache(tcfg, 1, total, dtype=torch.bfloat16, device="cpu")
     tl, _ = tphi3.forward(to_torch(qp), tcfg, te, torch.from_numpy(np.asarray(pos)), tc, 0,
                           tphi3.prefill_mask(tv, total), lm_at=tphi3._last_valid_idx(tv))
     assert int(tphi3._last_valid_idx(tv)[0]) == int(last[0])
