@@ -11,8 +11,9 @@ Phases, each printed as it finishes:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. ``build``: compile every CUDA kernel of the port at once (one ``nvcc``
-   per source, into ``build/dynam3d_torch/``), and print the registers and
-   spills ``ptxas -v`` reports for each instantiation of kernels A and F;
+   per source, into ``build/dynam3d_torch/``), print the registers and
+   spills ``ptxas -v`` reports for each instantiation of kernels A, E, F
+   and C, and every warning or performance note of any build;
 3. ``matvec``: kernel A (``csrc/int4_matvec.cu``) against its plain PyTorch
    version at the main path's shapes (lm_head, qkv, o, gate_up + SwiGLU,
    down at 1, 8, 12 and 16 rows), with its time, the plain version's time,
@@ -32,10 +33,13 @@ Phases, each printed as it finishes:
    ``EpisodeRunner.run`` on ``SyntheticRoomFeed`` — with every launch
    counter reset just before and read just after;
 7. ``nerf``: kernel C (``csrc/nerf_mlp.cu``) against its plain version at
-   N = 1152 (one novel view) and 16 x 1152 rows, D = 768, on the weights of
-   ``init_render_params``, with the time of the same chain as six bf16
-   ``torch.matmul`` calls as its yardstick, and the clusters the launch
-   needs beside those the card runs at once;
+   N = 1152 (one novel view), 1152 + 37 (a ragged row tile) and 16 x 1152
+   rows, D = 768, on the weights of ``init_render_params``: the clusters
+   each N needs, those the card runs at once and the waves (N = 1152 must
+   run in one), the time of the first view of a weight version (its bf16
+   copies made anew), of a later view (copies cached) and of the first view
+   on bf16 weights, with the same chain as six bf16 ``torch.matmul`` calls
+   as its yardstick;
 8. ``knn``: kernel D (``csrc/knn_topk.cu``) against its plain version at
    the renderer's stage-1 shape (72,144 ray samples, a 32,768-slot table of
    35 walk frames x 576 patches, k = 4), with a chunked ``torch.matmul``
@@ -52,7 +56,8 @@ Phases, each printed as it finishes:
    one profiled iteration;
 11. ``matvec2d``: kernel E (``csrc/int4_matvec2d.cu``) against its plain
    version and against kernel A at the lm_head and qkv shapes, 1, 8, 12 and
-   16 rows;
+   16 rows, with its work items (column tiles x scale groups) and the
+   blocks an SM holds;
 12. ``mlp``: kernels F and G (``csrc/int4_mlp.cu``) against their plain
    versions at Phi-3-mini widths (D=3072, I=8192), 1, 8, 12 and 16 rows,
    with two bf16 ``torch.matmul`` on pre-dequantized weights plus ``silu``
@@ -129,14 +134,22 @@ class Timer:
     """Mean device time of one call with the L2 cache flushed before it (the
     decode loop finds its weights cold).
 
-    CUDA events span ``iters`` (flush, call) pairs, minus the same window
-    of flushes alone.  A GPU sleep enqueued ahead of each window holds the
-    card while the host enqueues the whole window, so the wrappers' host
+    The flush reads a 96 MB buffer (a sum whose result is dropped): a write
+    would leave dirty lines that the timed call's own reads must first write
+    back.  CUDA events span ``iters`` (flush, call) pairs, minus the same
+    window of flushes alone.  A GPU sleep enqueued ahead of each window holds
+    the card while the host enqueues the whole window, so the wrappers' host
     time does not open gaps on the device that would count as kernel time."""
 
     def __init__(self, torch):
         self.torch = torch
-        self.flush_buf = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")
+        self.flush_buf = torch.zeros(24 * 2**20, dtype=torch.float32, device="cuda")
+        self.flush_out = torch.zeros((), dtype=torch.float32, device="cuda")
+        self.flush()   # the reduction's first launch loads its module: not in a window
+        torch.cuda.synchronize()
+
+    def flush(self) -> None:
+        self.torch.sum(self.flush_buf, 0, out=self.flush_out)
 
     def _window(self, fn, iters: int, sleep_cycles: int) -> float:
         torch = self.torch
@@ -146,7 +159,7 @@ class Timer:
         torch.cuda._sleep(sleep_cycles)
         a.record()
         for _ in range(iters):
-            self.flush_buf.zero_()
+            self.flush()
             if fn is not None:
                 fn()
         b.record()
@@ -186,10 +199,13 @@ def phase_build(ctx):
         kernels.library(name)
     log(f"[build] kernels {list(kernels.SOURCES)} built in "
         f"{time.perf_counter() - t0:.2f} s")
-    for name in ("int4_matvec", "int4_mlp"):
+    for name in ("int4_matvec", "int4_matvec2d", "int4_mlp", "nerf_mlp"):
         for fn, regs, st, ld in kernels.ptxas_summary(name):
             log(f"[build] ptxas {name}.cu {fn}: {regs} registers, spill stores {st} B, "
                 f"spill loads {ld} B")
+    for name in kernels.SOURCES:
+        for line in kernels.build_warnings(name):
+            log(f"[build] {name}.cu: {line}")
 
 
 def _dequant_bf16(torch, w):
@@ -550,12 +566,22 @@ def phase_matvec2d(ctx):
         int4_matvec2d_cuda, int4_matvec2d_plain, int4_matvec_cuda, pack_int4,
     )
 
+    from dynam3d_torch.ops import kernels
+    from dynam3d_torch.ops.int4 import _bind_matvec2d
+
     gen, timer = ctx["gen"], ctx["timer"]
+    lib = kernels.library("int4_matvec2d")
+    _bind_matvec2d(lib)
     rows_out, entry = [], None
     for name, d, n in (("lm_head", 3072, 32064), ("qkv", 3072, 9216)):
         w = pack_int4(torch.randn(d, n, generator=gen, device="cuda") * 0.02)
         wd = _dequant_bf16(torch, w)
+        # one work item per (128-column tile, scale group), on the mma body
+        items = lib.int4_matvec2d_items(w.n2, w.dp, w.dblk)
         for rows in (1, 8, 12, 16):
+            per_sm = ctypes.c_int(0)
+            kernels.check(lib.int4_matvec2d_blocks_per_sm(rows, ctypes.byref(per_sm)),
+                          "int4_matvec2d")
             x = torch.randn(rows, d, generator=gen, device="cuda").to(torch.bfloat16)
             yk = int4_matvec2d_cuda(x, w)
             yp = int4_matvec2d_plain(x, w)
@@ -571,9 +597,10 @@ def phase_matvec2d(ctx):
             lib_ms = timer(lambda: torch.matmul(x, wd))
             nbytes = _weight_bytes(w) + x.numel() * 2 + rows * n * 4
             b_ms, b_by = bound(nbytes, 2.0 * rows * d * n, ctx["card"])
-            row = dict(shape=name, rows=rows, d=d, n=n, max_abs_err=err, err_vs_kernel_a=err_a,
-                       tol=tol, ms=ms, kernel_a_ms=a_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       bound_ms=b_ms, bound_by=b_by, bytes=nbytes)
+            row = dict(shape=name, rows=rows, d=d, n=n, items=items, blocks_per_sm=per_sm.value,
+                       max_abs_err=err, err_vs_kernel_a=err_a, tol=tol, ms=ms, kernel_a_ms=a_ms,
+                       plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                       bytes=nbytes)
             rows_out.append(row)
             log(f"[matvec2d] {json.dumps(row)}")
             if name == "qkv" and rows == 8:
@@ -876,7 +903,7 @@ def phase_nerf(ctx):
     torch = ctx["torch"]
     from dynam3d_torch.config import FieldsConfig
     from dynam3d_torch.models.render.nerf import init_render_params
-    from dynam3d_torch.ops import kernels
+    from dynam3d_torch.ops import kernels, nerf_mlp
     from dynam3d_torch.ops.nerf_mlp import nerf_mlp_cuda, nerf_mlp_plain
 
     gen, timer = ctx["gen"], ctx["timer"]
@@ -899,11 +926,27 @@ def phase_nerf(ctx):
         return h @ wb[5], eo[:, D]
 
     lib = kernels.library("nerf_mlp")
+    nerf_mlp._bind(lib)
     max_clusters = ctypes.c_int(0)
     kernels.check(lib.nerf_mlp_max_clusters(D, ctypes.byref(max_clusters)), "nerf_mlp")
     rows_per_cluster = lib.nerf_mlp_rows()
+    cluster_blocks = lib.nerf_mlp_cluster_blocks(D)
+
+    # the weight kernel's copies: exactly the transposed bf16 roundings
+    nerf_mlp._weight_cache.clear()
+    wt, eo_col = nerf_mlp.kernel_weights(w)
+    if not (torch.equal(wt, torch.cat([t[:, :D].t().to(torch.bfloat16) for t in w]))
+            and torch.equal(eo_col, w[2][:, D].to(torch.bfloat16))):
+        raise AssertionError("nerf_mlp_weights: the kernel's weight copies differ")
+
+    def first_view(ws):
+        """A call on a weight version the wrapper has not seen (the first
+        view after an optimizer step): the bf16 copies are made anew."""
+        nerf_mlp._weight_cache.clear()
+        return nerf_mlp_cuda(x, *ws)
+
     rows, entry = [], None
-    for N in (1152, 16 * 1152):
+    for N in (1152, 1152 + 37, 16 * 1152):   # one view, a ragged tile, 16 views
         x = torch.randn(N, D, generator=gen, device="cuda")
         ok, dk = nerf_mlp_cuda(x, *w)
         op, dp = nerf_mlp_plain(x, *w)
@@ -913,23 +956,31 @@ def phase_nerf(ctx):
         tol = max(_bf16_tol(op), _bf16_tol(dp))
         if not (err <= tol and torch.isfinite(ok.float()).all() and torch.isfinite(dk.float()).all()):
             raise AssertionError(f"nerf_mlp N={N}: err {err} > {tol}")
-        ms = timer(lambda: nerf_mlp_cuda(x, *w))
-        # the wrapper on weights already in bf16, as the library chain gets them
-        ms_bf16_w = timer(lambda: nerf_mlp_cuda(x, *wb))
+        # f32 weights as the renderer passes them: the first view of a step
+        # casts them, the later views find the cached copies
+        ms = timer(lambda: first_view(w))
+        ms_cached = timer(lambda: nerf_mlp_cuda(x, *w))
+        # the first view on weights already in bf16, as the library chain gets them
+        ms_bf16_w = timer(lambda: first_view(wb))
         plain_ms = timer(lambda: nerf_mlp_plain(x, *w), iters=3, warmup=1)
         lib_ms = timer(lambda: library(x))
         # inputs as the renderer hands them over: f32 x and f32 weights
         nbytes = x.numel() * 4 + sum(t.numel() * 4 for t in w) + N * D * 2 + N * 2
         b_ms, b_by = bound(nbytes, 2.0 * N * D * (6 * D + 1), ctx["card"])
         clusters = -(-N // rows_per_cluster)
-        row = dict(N=N, D=D, clusters=clusters, max_active_clusters=max_clusters.value,
-                   max_abs_err=err, tol=tol, ms=ms, ms_bf16_weights=ms_bf16_w,
-                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                   bytes=nbytes)
+        row = dict(N=N, D=D, rows_per_cluster=rows_per_cluster, cluster_blocks=cluster_blocks,
+                   clusters=clusters, max_active_clusters=max_clusters.value,
+                   waves=-(-clusters // max(1, max_clusters.value)),
+                   max_abs_err=err, tol=tol, ms=ms, ms_cached_weights=ms_cached,
+                   ms_bf16_weights=ms_bf16_w, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=b_ms, bound_by=b_by, bytes=nbytes)
         rows.append(row)
         log(f"[nerf] {json.dumps(row)}")
         if N == 1152:
             entry = dict(row)
+            if row["waves"] != 1:
+                raise AssertionError(f"nerf_mlp N=1152: {clusters} clusters run in "
+                                     f"{row['waves']} waves")
     ctx["nerf"] = dict(entry, max_abs_err=max(r["max_abs_err"] for r in rows), rows=rows)
 
 
@@ -1469,9 +1520,9 @@ def main(argv=None) -> int:
         kernels_rec.append(dict(
             name="nerf_mlp", route="cuda", source="dynam3d_torch/csrc/nerf_mlp.cu",
             replaces="dynam3d_tpu/ops/pallas_mlp.py:50", launches=pre.get("nerf_mlp", 0),
-            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            max_abs_err=r["max_abs_err"], ms=r["ms_cached_weights"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
-            work="one novel view: N=1152 rows, D=768"))
+            work="one novel view: N=1152 rows, D=768, weights cached"))
     if "knn" in ctx:
         r = ctx["knn"]
         kernels_rec.append(dict(

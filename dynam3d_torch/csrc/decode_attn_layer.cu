@@ -76,26 +76,22 @@ struct Params {
 // One work item of a B=1 matvec: tile x K slice of q4 over the staged
 // activations; returns true in the block that holds the tile's sum.
 __device__ __forceinline__ bool matvec_item(float* smem, const __nv_bfloat16* src, int d,
-                                            const float* inv_rms, const float* ln_w,
+                                            float inv_rms, const float* ln_w,
                                             const int8_t* q4, const float* s_lo,
                                             const float* s_hi, int n2, int dblk, int ks,
                                             int tile, int split, int nsplit, float* ws,
                                             unsigned int* ticket, int* is_last, float& v,
                                             OutCol& c) {
   const int k0 = split * ks;
-  Acc<1> a;
+  Acc a;
   acc_zero(a);
   __syncthreads();
-  stage<1>(smem, src, 1, d, d, k0, ks, inv_rms, ln_w);
+  stage(smem, src, d, k0, ks, inv_rms, ln_w);
   __syncthreads();
   acc_slice(a, smem, ks, q4, n2, k0, tile);
-  float tot[1];
-  acc_reduce(a, smem, tot);
   c = out_col(tile, n2);
-  apply_scale<1>(tot, c, s_lo, s_hi, k0 / dblk, n2);
-  const bool last = combine<1>(tot, c, 1, split, nsplit, n2, ws, ticket, is_last);
-  v = tot[0];
-  return last;
+  v = apply_scale(acc_reduce(a, smem), c, s_lo, s_hi, k0 / dblk, n2);
+  return combine(v, c, split, nsplit, n2, ws, ticket, is_last);
 }
 
 template <int HD>
@@ -111,13 +107,13 @@ __global__ void __launch_bounds__(kThreads) decode_attn_layer_kernel(Params p) {
   const int D = p.D, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   // ---- phase 1: y = bf16(rmsnorm(x) * ln_w) @ qkv ----
-  row_inv_rms(p.x, 1, D, p.eps, inv_rms);
+  row_inv_rms(p.x, D, p.eps, inv_rms);
   const int tiles1 = (p.qkv_n2 + kTile - 1) / kTile, ns1 = p.qkv_dp / p.ks1;
   for (int item = blockIdx.x; item < tiles1 * ns1; item += gridDim.x) {
     const int tile = item / ns1, split = item - tile * ns1;
     float v;
     OutCol c;
-    if (!matvec_item(smem, p.x, D, inv_rms, p.ln_w, p.qkv_q4, p.qkv_slo, p.qkv_shi, p.qkv_n2,
+    if (!matvec_item(smem, p.x, D, inv_rms[0], p.ln_w, p.qkv_q4, p.qkv_slo, p.qkv_shi, p.qkv_n2,
                      p.dblk, p.ks1, tile, split, ns1, p.ws1, p.tickets + tile, &is_last, v, c))
       continue;
     if (c.ok && c.po < 3L * D) p.y[c.po] = v;
@@ -240,7 +236,7 @@ __global__ void __launch_bounds__(kThreads) decode_attn_layer_kernel(Params p) {
     const int tile = item / ns3, split = item - tile * ns3;
     float v;
     OutCol c;
-    if (!matvec_item(smem, p.ctx, D, nullptr, nullptr, p.o_q4, p.o_slo, p.o_shi, p.o_n2,
+    if (!matvec_item(smem, p.ctx, D, 1.f, nullptr, p.o_q4, p.o_slo, p.o_shi, p.o_n2,
                      p.dblk, p.ks3, tile, split, ns3, p.ws3, p.tickets + tiles1 + tile,
                      &is_last, v, c))
       continue;
@@ -273,8 +269,8 @@ extern "C" int decode_attn_layer_plan(int hd, int qkv_dp, int qkv_n2, int o_dp, 
   const int rc = coop_grid(k, &grid);
   if (rc != 0) return rc;
   if (grid < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const int ks1 = pick_slice(dblk, qkv_dp, (qkv_n2 + kTile - 1) / kTile, grid, 1);
-  const int ks3 = pick_slice(dblk, o_dp, (o_n2 + kTile - 1) / kTile, grid, 1);
+  const int ks1 = pick_slice(dblk, qkv_dp, (qkv_n2 + kTile - 1) / kTile, grid);
+  const int ks3 = pick_slice(dblk, o_dp, (o_n2 + kTile - 1) / kTile, grid);
   if (ks1 < 1 || ks3 < 1) return 1;
   out3[0] = grid;
   out3[1] = ks1;

@@ -6,98 +6,54 @@
 // unpacked with shifts, each group's product scaled by its group scale and
 // the groups summed in order i = 0..g-1.
 //
-// Here a block per (tile of 128 packed columns, scale group): the block
-// streams the group's dblk weight rows in sub-slices that fit its staged
-// activations, sums them in registers, scales the total by the group scale
-// and writes it to a workspace; the block that takes the tile's last ticket
-// sums the groups in order 0..g-1 and stores.  The result is deterministic;
-// it differs from kernel A (int4_matvec.cu, K slices inside a group) only in
-// the order of the f32 sums.
+// Here the plan of that grid on the tensor-core body of int4_mma.cuh (the
+// int4_matvec_kernel of kernel A): a block per (tile of 128 packed columns,
+// scale group), whose K slice is the whole group (ks = dblk, dblk <= 1024);
+// a producer warp streams the group's [dblk, 128] weight slice through the
+// 4-slot TMA ring, four consumer warps run mma.sync m16n8k16 on bf16
+// fragments of the packed bytes against the staged x slice, scale() applies
+// the group's scales, and the block that takes the tile's last ticket sums
+// the groups in order 0..g-1 (finish()) and stores.  The result is
+// deterministic; it differs from kernel A only where A's plan cuts a group
+// into several slices.  The nibbles are the integers the TPU's shift unpack
+// gives (test_torch_int4_fragments.py holds the conversion).
 //
 // Bound: 4*R operations per packed byte at R <= 16 rows, far below the
 // card's ~295 per byte, so the packed weight's bytes (Dp * N2, read once)
 // bound it.  The grid has (N2/128) x g blocks: 36 x 3 = 108 at the Phi-3
-// qkv shape, fewer than the 132 SMs, which is the 2-D grid's cost on this
-// card (kernel A splits inside a group to fill it).
+// qkv shape, fewer than the 132 SMs (kernel A splits inside a group to fill
+// the card); even so it took 0.0191 ms at qkv, 8 rows, against 0.0222 ms
+// for bf16 torch.matmul on the dequantized weight, and 0.0256 ms at the
+// lm_head, 1 row (384 items, A's own plan there), so no finer grid is kept.
+// The first design ran one f32 FMA per nibble and row on the CUDA cores
+// (int4_tile.cuh): 0.0601 and 0.0502 ms (chip_smoke.py on an NVIDIA H100
+// 80GB HBM3 at 700 W; PERF.md section 6).
 
-#include "int4_tile.cuh"
-
-namespace {
-
-using namespace d3;
-
-struct Params {
-  const __nv_bfloat16* x;
-  int rows, d;
-  const int8_t* q4;
-  const float* s_lo;
-  const float* s_hi;
-  int n2, dblk, ks;
-  void* out;
-  int out_f32, n_out;
-  float* ws;
-  unsigned int* tickets;
-};
-
-template <int RB>
-__global__ void __launch_bounds__(kThreads) int4_matvec2d_kernel(Params p) {
-  __shared__ float smem[kSmemFloats];
-  __shared__ int is_last;
-  const int tile = blockIdx.x, grp = blockIdx.y, ng = gridDim.y;
-
-  Acc<RB> a;
-  acc_zero(a);
-  for (int k0 = grp * p.dblk; k0 < (grp + 1) * p.dblk; k0 += p.ks) {
-    __syncthreads();
-    stage<RB>(smem, p.x, p.rows, p.d, p.d, k0, p.ks, nullptr, nullptr);
-    __syncthreads();
-    acc_slice(a, smem, p.ks, p.q4, p.n2, k0, tile);
-  }
-  float tot[RB];
-  acc_reduce(a, smem, tot);
-  const OutCol c = out_col(tile, p.n2);
-  apply_scale<RB>(tot, c, p.s_lo, p.s_hi, grp, p.n2);
-  if (!combine<RB>(tot, c, p.rows, grp, ng, p.n2, p.ws, p.tickets + tile, &is_last)) return;
-  if (c.ok && c.po < p.n_out) {
-#pragma unroll
-    for (int r = 0; r < RB; ++r) {
-      if (r < p.rows) {
-        const long i = (long)r * p.n_out + c.po;
-        if (p.out_f32) reinterpret_cast<float*>(p.out)[i] = tot[r];
-        else reinterpret_cast<__nv_bfloat16*>(p.out)[i] = __float2bfloat16(tot[r]);
-      }
-    }
-  }
-}
-
-}  // namespace
+#include "int4_mma.cuh"
 
 // Launches out[rows, n_out] = (x @ dequant(q4))[:, :n_out].  Returns
 // cudaGetLastError(); 1 (cudaErrorInvalidValue) for arguments it does not take.
-//   x: [rows, d] bf16, rows <= 16;  q4: [dp, n2] int8, n2 % 4 == 0;
+//   x: [rows, d] bf16, rows <= 16;  q4: [dp, n2] int8, 16-byte aligned,
+//   n2 % 16 == 0;  dblk: a multiple of 64, at most 1024, dividing dp;
 //   s_lo/s_hi: [dp/dblk, n2] f32;  ws: f32 [dp/dblk, rows, 2*n2];
 //   tickets: zeroed uint32 [ceil(n2/128)]
 extern "C" int int4_matvec2d(const void* x, int rows, int d, const int8_t* q4,
                              const float* s_lo, const float* s_hi, int dp, int n2, int dblk,
                              void* out, int out_f32, int n_out, float* ws,
                              unsigned int* tickets, void* stream) {
-  const int rb = row_bucket(rows);
-  // the sub-slice: the largest power-of-two divisor of dblk the stage holds
-  int ks = dblk;
-  while (ks > kSmemFloats / rb && ks % 2 == 0) ks /= 2;
-  if (rows < 1 || rows > kMaxRows || n2 % 4 != 0 || dblk % ks != 0 || ks > kSmemFloats / rb ||
-      dp % dblk != 0 || d > dp)
-    return 1;
-  Params p{reinterpret_cast<const __nv_bfloat16*>(x), rows, d, q4, s_lo, s_hi, n2, dblk, ks,
-           out, out_f32, n_out, ws, tickets};
-  dim3 grid((n2 + kTile - 1) / kTile, dp / dblk);
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  switch (rb) {
-    case 1: int4_matvec2d_kernel<1><<<grid, kThreads, 0, st>>>(p); break;
-    case 2: int4_matvec2d_kernel<2><<<grid, kThreads, 0, st>>>(p); break;
-    case 4: int4_matvec2d_kernel<4><<<grid, kThreads, 0, st>>>(p); break;
-    case 8: int4_matvec2d_kernel<8><<<grid, kThreads, 0, st>>>(p); break;
-    default: int4_matvec2d_kernel<16><<<grid, kThreads, 0, st>>>(p); break;
-  }
-  return (int)cudaGetLastError();
+  if (d > dp) return 1;
+  return d3mma::launch_matvec(reinterpret_cast<cudaStream_t>(stream), x, 0, rows, d, nullptr,
+                              0.f, q4, s_lo, s_hi, dp, n2, dblk, dblk, nullptr, 0, d3mma::kStore,
+                              out, out_f32, n_out, ws, tickets);
+}
+
+// Work items of a launch: column tiles x scale groups
+extern "C" int int4_matvec2d_items(int n2, int dp, int dblk) {
+  return (n2 + d3mma::kCols - 1) / d3mma::kCols * (dp / dblk);
+}
+
+// Blocks of the kernel one SM holds at `rows` activation rows, into *count;
+// returns the CUDA error code
+extern "C" int int4_matvec2d_blocks_per_sm(int rows, int* count) {
+  return d3mma::matvec_blocks_per_sm(rows, count);
 }

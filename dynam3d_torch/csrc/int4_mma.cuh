@@ -1,7 +1,9 @@
-// The tensor-core body of the int4 kernels A (int4_matvec.cu) and F/G
-// (int4_mlp.cu) at 1-16 activation rows: the counterpart of the TPU's
-// nibble_matvec_acc (dynam3d_tpu/ops/pallas_int4.py), two matrix-unit dots
-// per scale group.
+// The tensor-core body of the int4 kernels A (int4_matvec.cu), E
+// (int4_matvec2d.cu) and F/G (int4_mlp.cu) at 1-16 activation rows: the
+// counterpart of the TPU's nibble_matvec_acc (dynam3d_tpu/ops/pallas_int4.py),
+// two matrix-unit dots per scale group.  A and E are one kernel here
+// (matvec_kernel) launched with two plans: A cuts K into slices that fill
+// the card, E takes one slice per scale group.
 //
 // Operand roles.  mma.sync m16n8k16 (bf16 in, f32 accumulate) with the
 // weight's output columns on the M side and the activation rows on N: a
@@ -55,7 +57,11 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace d3mma {
+
+using namespace d3sm90;
 
 constexpr int kCols = 128;                  // packed columns per block tile
 constexpr int kConsumerWarps = kCols / 32;  // a warp per 32 packed columns
@@ -75,86 +81,10 @@ __host__ __device__ constexpr int smem_bytes(int nt) {
   return kAlign + kRingBytes + 8 * nt * kXsPitch * 2 + 2 * kStages * 8;
 }
 
-// The driver's cuTensorMapEncodeTiled, found once through the runtime (no
-// link against the driver library)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
-            cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
 // Tensor map of a packed weight q4 [dp, n2] in [kKc, kCols] boxes with the
 // 128-byte swizzle (columns past n2 read as zero); 0 or a CUDA error code
 inline int weight_map(CUtensorMap* map, const int8_t* q4, int dp, int n2) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {(cuuint64_t)n2, (cuuint64_t)dp};
-  const cuuint64_t strides[1] = {(cuuint64_t)n2};
-  const cuuint32_t box[2] = {(cuuint32_t)kCols, (cuuint32_t)kKc};
-  const cuuint32_t estrides[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(q4), dims,
-                        strides, box, estrides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// TMA: the box of `map` at (column x, row y) into shared dst, completing
-// on bar
-__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map, int x, int y,
-                                        uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n"
-      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
-        "r"(smem_u32(bar))
-      : "memory");
+  return tensor_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, q4, dp, n2, kKc, kCols);
 }
 
 // barrier of the consumer warps only (the producer warp runs ahead)
@@ -572,5 +502,151 @@ inline bool takes(const void* q4, int n2, int ks) {
   return n2 % 16 == 0 && (reinterpret_cast<uintptr_t>(q4) & 15) == 0 && ks % kKc == 0 &&
          ks <= kMaxSlice;
 }
+
+// ---- the matvec kernel of A and E ----
+// (internal linkage: each library that includes this header keeps its own
+// kernel and its own opt-in flag, even when two are loaded in one process)
+namespace {
+
+enum Epilogue { kStore = 0, kResidual = 1, kSwiglu = 2 };
+
+__device__ __forceinline__ float load_val(const void* p, int is_f32, long i) {
+  return is_f32 ? reinterpret_cast<const float*>(p)[i]
+                : __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i]);
+}
+
+__device__ __forceinline__ void store_val(void* p, int is_f32, long i, float v) {
+  if (is_f32) reinterpret_cast<float*>(p)[i] = v;
+  else reinterpret_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(v);
+}
+
+// y = epilogue(prologue(x) @ dequant(q4)) over a grid of (column tile, K
+// slice): block (tile, split) streams weight rows split*ks .. +ks (inside
+// scale group split*ks / dblk) of packed columns tile*128 .. +128 and scales
+// its sums by that group's scales; finish() sums the slices in order.  NT
+// n8 tiles of x rows: 1-8 rows (NT = 1) or 9-16 (NT = 2); three blocks per
+// SM.
+template <int NT>
+__global__ void __launch_bounds__(kThreads, 3) int4_matvec_kernel(
+    const __grid_constant__ CUtensorMap q4_map, const void* __restrict__ x, int x_f32, int rows,
+    int d,
+    const float* __restrict__ ln_w, float eps,
+    const float* __restrict__ s_lo, const float* __restrict__ s_hi, int n2, int dblk, int ks,
+    const void* __restrict__ resid, int resid_f32, int epilogue,
+    void* __restrict__ out, int out_f32, int n_out,
+    float* __restrict__ ws, unsigned int* __restrict__ tickets) {
+  extern __shared__ __align__(128) unsigned char smem_dyn[];
+  __shared__ float inv_rms[16];
+  __shared__ int is_last;
+  const Ring ring = ring_at(smem_dyn, NT);
+  __nv_bfloat16* xs = xs_at(smem_dyn);
+
+  const int tile = blockIdx.x, split = blockIdx.y, nsplit = gridDim.y;
+  const int k0 = split * ks, col0 = tile * kCols, nst = ks / kKc;
+  if (threadIdx.x == 0) ring_init(ring);
+  __syncthreads();
+  if (threadIdx.x >= kConsumers) {   // the producer warp: stream the slice
+    for (int s = 0; s < nst; ++s) produce(ring, s, &q4_map, k0 + s * kKc, col0);
+    return;
+  }
+
+  // ---- prologue, while the first stages fly: rmsnorm, then x -> bf16 slice ----
+  if (ln_w != nullptr) row_inv_rms(x, x_f32, rows, d, eps, inv_rms);
+  stage_x<NT>(xs, x, x_f32, rows, d, d, k0, ks, inv_rms, ln_w);
+  consumer_sync();
+
+  const Scales sc = load_scales(col0, s_lo, s_hi, k0 / dblk, n2);
+  Acc<NT> acc;
+  acc_zero(acc);
+  for (int s = 0; s < nst; ++s) consume<NT>(ring, s, xs, s * kKc, acc);
+  scale(acc, sc);
+  consumer_sync();   // every warp is done with xs: its room takes the sums
+  float tot[8 * NT][2];
+  if (!finish<NT>(acc, reinterpret_cast<float*>(xs), col0, rows, split, nsplit, n2, ws,
+                  &tickets[tile], &is_last, tot))
+    return;
+
+  // ---- epilogue: thread t holds lo and hi of packed column col0 + t ----
+  const int c = col0 + (int)threadIdx.x;
+  if (c >= n2) return;
+  if (epilogue == kResidual) {   // every residual load before the first store
+#pragma unroll
+    for (int r = 0; r < 8 * NT; ++r)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const long po = (long)half * n2 + c;
+        if (r < rows && po < n_out) tot[r][half] += load_val(resid, resid_f32, (long)r * n_out + po);
+      }
+  }
+#pragma unroll
+  for (int r = 0; r < 8 * NT; ++r) {
+    if (r >= rows) break;
+    const float lo = tot[r][0], hi = tot[r][1];
+    if (epilogue == kSwiglu) {   // gate = lo half, up = hi half of column c
+      store_val(out, out_f32, (long)r * n_out + c, lo * (1.f / (1.f + expf(-lo))) * hi);
+      continue;
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const long po = (long)half * n2 + c;
+      if (po < n_out) store_val(out, out_f32, (long)r * n_out + po, half ? hi : lo);
+    }
+  }
+}
+
+// The shared memory opt-in of int4_matvec_kernel<NT>, raised once per
+// process (not per launch, so a CUDA graph can capture launches)
+template <int NT>
+int matvec_smem_optin() {
+  static int rc = -1;
+  if (rc < 0)
+    rc = (int)cudaFuncSetAttribute(int4_matvec_kernel<NT>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes(NT));
+  return rc;
+}
+
+// Launches int4_matvec_kernel over (tiles of n2, dp / ks) for 1-16 rows;
+// 1 (cudaErrorInvalidValue) for a shape the body does not take, else
+// cudaGetLastError().  Arguments as int4_matvec() in int4_matvec.cu.  (A
+// template, so that only the sources that launch the kernel compile it.)
+template <int kMaxRows = 16>
+int launch_matvec(cudaStream_t st, const void* x, int x_f32, int rows, int d,
+                         const float* ln_w, float eps, const int8_t* q4, const float* s_lo,
+                         const float* s_hi, int dp, int n2, int dblk, int ks, const void* resid,
+                         int resid_f32, int epilogue, void* out, int out_f32, int n_out,
+                         float* ws, unsigned int* tickets) {
+  if (rows < 1 || rows > kMaxRows || !takes(q4, n2, ks) || dblk % ks != 0 || dp % ks != 0)
+    return 1;
+  const dim3 grid((n2 + kCols - 1) / kCols, dp / ks);
+  CUtensorMap map;
+  int rc = weight_map(&map, q4, dp, n2);
+  if (rc != 0) return rc;
+  if (rows <= 8) {
+    if ((rc = matvec_smem_optin<1>()) != 0) return rc;
+    int4_matvec_kernel<1><<<grid, kThreads, smem_bytes(1), st>>>(
+        map, x, x_f32, rows, d, ln_w, eps, s_lo, s_hi, n2, dblk, ks, resid, resid_f32, epilogue,
+        out, out_f32, n_out, ws, tickets);
+  } else {
+    if ((rc = matvec_smem_optin<2>()) != 0) return rc;
+    int4_matvec_kernel<2><<<grid, kThreads, smem_bytes(2), st>>>(
+        map, x, x_f32, rows, d, ln_w, eps, s_lo, s_hi, n2, dblk, ks, resid, resid_f32, epilogue,
+        out, out_f32, n_out, ws, tickets);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Blocks of int4_matvec_kernel one SM holds at `rows` activation rows
+template <int kMaxRows = 16>
+int matvec_blocks_per_sm(int rows, int* count) {
+  if (rows < 1 || rows > kMaxRows) return 1;
+  const int rc = rows <= 8 ? matvec_smem_optin<1>() : matvec_smem_optin<2>();
+  if (rc != 0) return rc;
+  return rows <= 8 ? (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                         count, int4_matvec_kernel<1>, kThreads, smem_bytes(1))
+                   : (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                         count, int4_matvec_kernel<2>, kThreads, smem_bytes(2));
+}
+
+}  // namespace
 
 }  // namespace d3mma

@@ -8,7 +8,7 @@ four kernels, each with a plain PyTorch version of the same arithmetic:
   optional rmsnorm prologue and a residual or SwiGLU epilogue;
 * E :func:`int4_matvec2d` (``csrc/int4_matvec2d.cu``): the 2-D-grid matvec,
   ``_pallas_int4_matmul2d``, taken by :func:`int4_matmul` under
-  ``DYNAM3D_INT4_GRID2D``;
+  ``DYNAM3D_INT4_GRID2D``: A's kernel with one K slice per scale group;
 * F :func:`int4_mlp` and G :func:`int4_mlp_block` (``csrc/int4_mlp.cu``):
   the fused SwiGLU MLP, ``_pallas_int4_mlp``, and the same with the rmsnorm
   prologue and the residual, ``_pallas_int4_mlp_block``.
@@ -320,6 +320,10 @@ def _bind_matvec2d(lib) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.int4_matvec2d.argtypes = [P, I, I, P, P, P, I, I, I, P, I, I, P, P, P]
     lib.int4_matvec2d.restype = I
+    lib.int4_matvec2d_items.argtypes = [I, I, I]
+    lib.int4_matvec2d_items.restype = I
+    lib.int4_matvec2d_blocks_per_sm.argtypes = [I, P]
+    lib.int4_matvec2d_blocks_per_sm.restype = I
     lib._d3_bound = True
 
 
@@ -339,10 +343,18 @@ def _out_flag(out_dtype: torch.dtype, name: str) -> int:
 
 def int4_matvec2d_cuda(x: torch.Tensor, w: Int4Weight,
                        out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Launch kernel E (``csrc/int4_matvec2d.cu``) on CUDA tensors."""
+    """Launch kernel E (``csrc/int4_matvec2d.cu``) on CUDA tensors: the
+    tensor-core body of ``csrc/int4_mma.cuh`` with one K slice per scale
+    group, so it takes what that body takes (``n2 % 16 == 0``, a 16-byte
+    aligned ``q4``, ``dblk`` a multiple of 64 up to 1024) and raises on the
+    rest."""
     _check_rows(x, w.dp, "int4_matvec2d")
     kernels.require_cuda([x, w.q4, w.s_lo, w.s_hi], "int4_matvec2d")
     _check_weight_cuda(w, "int4_matvec2d")
+    kernels.require(w.n2 % 16 == 0 and w.q4.data_ptr() % 16 == 0,
+                    "int4_matvec2d: n2 must be a multiple of 16 and q4 16-byte aligned")
+    kernels.require(w.dblk % 64 == 0 and w.dblk <= 1024,
+                    "int4_matvec2d: dblk must be a multiple of 64, at most 1024")
     out_f32 = _out_flag(out_dtype, "int4_matvec2d")
     lib = kernels.library("int4_matvec2d")
     _bind_matvec2d(lib)
@@ -370,7 +382,7 @@ def int4_matvec2d(x: torch.Tensor, w: Int4Weight, **kw) -> torch.Tensor:
 
 
 def _tiles(n2: int) -> int:
-    return -(-n2 // 128)       # 128 packed columns per tile in kernels E-H
+    return -(-n2 // 128)       # 128 packed columns per tile in kernels A and E-H
 
 
 # ------------------------------------------------------------ kernels F, G

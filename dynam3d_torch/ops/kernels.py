@@ -115,6 +115,22 @@ def build_all() -> None:
                 _finish_build(n, s)
 
 
+def _kernel_name(sym: str) -> str:
+    """The unqualified name of a mangled ``*_kernel`` symbol: the last of
+    the length-prefixed names after ``_Z`` / ``_ZN`` (``_ZN5d3mma18int4_
+    matvec_kernelILi1EE...`` -> ``int4_matvec_kernel``); the symbol itself
+    when it is not of that form."""
+    i = 3 if sym.startswith("_ZN") else 2 if sym.startswith("_Z") else len(sym)
+    last = sym
+    while i < len(sym) and sym[i].isdigit():
+        j = i
+        while sym[j].isdigit():
+            j += 1
+        n = int(sym[i:j])
+        last, i = sym[j:j + n], j + n
+    return last if last.endswith("_kernel") else sym
+
+
 def ptxas_summary(name: str) -> List[Tuple[str, int, int, int]]:
     """``(kernel, registers, spill store bytes, spill load bytes)`` for each
     entry function of ``csrc/<name>.cu`` from its ``ptxas -v`` report;
@@ -127,10 +143,8 @@ def ptxas_summary(name: str) -> List[Tuple[str, int, int, int]]:
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             sym = m.group(1)
-            base = re.search(r"[a-z][a-z0-9_]*_kernel", sym)
             args = re.findall(r"Li(\d+)E", sym)
-            fn = (base.group(0) if base else sym) + (
-                f"<{','.join(args)}>" if args else "")
+            fn = _kernel_name(sym) + (f"<{','.join(args)}>" if args else "")
             spills = (0, 0)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -141,6 +155,14 @@ def ptxas_summary(name: str) -> List[Tuple[str, int, int, int]]:
             out.append((fn, int(m.group(1)), *spills))
             fn = None
     return out
+
+
+def build_warnings(name: str) -> List[str]:
+    """The warnings and performance notes of ``csrc/<name>.cu``'s build in
+    this process (ptxas reports there, for one, wgmma it had to
+    serialize)."""
+    return [ln.strip() for ln in _build_logs.get(name, "").splitlines()
+            if "warning" in ln.lower() or "performance" in ln.lower()]
 
 
 def library(name: str) -> ctypes.CDLL:

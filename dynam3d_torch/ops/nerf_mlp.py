@@ -7,12 +7,15 @@ density) -> residual ``bf16(enc + x)`` -> decoder 2 x (D -> D LeakyReLU
 in float32.  On a CUDA tensor :func:`fused_nerf_mlp` launches
 ``csrc/nerf_mlp.cu``; on a CPU tensor it runs :func:`nerf_mlp_plain`, the
 same arithmetic in PyTorch.  Forward only: the renderer's gradient is the
-autograd of its own chain (``models/render/nerf.py``).
+autograd of its own chain (``models/render/nerf.py``).  The kernel's bf16
+weight copies are cached per weight version (:func:`kernel_weights`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
+from collections import OrderedDict
 from typing import Tuple
 
 import torch
@@ -60,35 +63,98 @@ def _bind(lib) -> None:
     if getattr(lib, "_d3_bound", False):
         return
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.nerf_mlp.argtypes = [P, I, I, P, P, P, P, P, P, P, P, P, P]
+    lib.nerf_mlp.argtypes = [P, I, I, I, P, P, P, P, P]
     lib.nerf_mlp.restype = I
+    lib.nerf_mlp_rows.argtypes = []
+    lib.nerf_mlp_rows.restype = I
+    lib.nerf_mlp_cluster_blocks.argtypes = [I]
+    lib.nerf_mlp_cluster_blocks.restype = I
+    lib.nerf_mlp_max_clusters.argtypes = [I, P]
+    lib.nerf_mlp_max_clusters.restype = I
+    lib.nerf_mlp_weights.argtypes = [P, P, P, P, P, P, I, I, P, P, P]
+    lib.nerf_mlp_weights.restype = I
     lib._d3_bound = True
+
+
+# kernel_weights' cache: the source weights (held, so their storage cannot
+# be reused while an entry lives) and the kernel's copies, newest last
+_CACHE_SIZE = 4
+_weight_cache: "OrderedDict[tuple, Tuple[Weights, torch.Tensor, torch.Tensor]]" = OrderedDict()
+_cache_lock = threading.Lock()
+
+
+def _weight_key(w: Weights) -> tuple:
+    return tuple((t.data_ptr(), t._version, tuple(t.shape), t.dtype, t.device) for t in w)
+
+
+def kernel_weights(w: Weights) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel C's weights: ``(wt [6D, D] bf16, eo_col [D] bf16)`` -- the
+    transposes of E1, E2, EO[:, :D], D1, D2, DO stacked (row ``o*D + j``
+    is column ``j`` of layer ``o``, K contiguous, as the kernel's TMA boxes
+    and wgmma read them) and EO's density column, rounded to bf16 as the
+    TPU kernel's wrapper rounds its weights.  On the card one launch of
+    ``nerf_mlp_weights`` makes them (a tiled transpose through shared
+    memory), on the CPU PyTorch copies.
+
+    Made once per weight version and cached: the key is each weight's
+    storage, ``_version``, shape, dtype and device, so an in-place update
+    (an optimizer step) gives fresh copies at the next call, and a weight
+    replaced by a new tensor is a new key."""
+    key = _weight_key(w)
+    with _cache_lock:
+        hit = _weight_cache.get(key)
+        if hit is not None:
+            _weight_cache.move_to_end(key)
+            return hit[1], hit[2]
+    D = w[0].shape[0]
+    if w[0].is_cuda:   # one launch of csrc/nerf_mlp.cu's weight kernel
+        src = [t.contiguous() for t in w]
+        if any(t.dtype != src[0].dtype for t in src) or src[0].dtype not in (
+                torch.float32, torch.bfloat16):
+            src = [t.to(torch.float32) for t in src]
+        wt = torch.empty((6 * D, D), dtype=torch.bfloat16, device=w[0].device)
+        eo_col = torch.empty((D,), dtype=torch.bfloat16, device=w[0].device)
+        lib = kernels.library("nerf_mlp")
+        _bind(lib)
+        kernels.check(lib.nerf_mlp_weights(*(t.data_ptr() for t in src), D,
+                                           int(src[0].dtype == torch.float32), wt.data_ptr(),
+                                           eo_col.data_ptr(), kernels.stream_ptr(w[0])),
+                      "nerf_mlp_weights")
+    else:
+        wt = torch.empty((6 * D, D), dtype=torch.bfloat16)
+        for i, t in enumerate(w):
+            wt[i * D:(i + 1) * D].copy_(t[:, :D].t())
+        eo_col = w[2][:, D].to(torch.bfloat16)
+    with _cache_lock:
+        _weight_cache[key] = (tuple(w), wt, eo_col)
+        while len(_weight_cache) > _CACHE_SIZE:
+            _weight_cache.popitem(last=False)
+    return wt, eo_col
 
 
 def nerf_mlp_cuda(x: torch.Tensor, *w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch kernel C (``csrc/nerf_mlp.cu``) on CUDA tensors.
 
-    The weights are rounded to bf16 here (as the TPU kernel's wrapper does)
-    and EO is split into its ``[D, D]`` body and its density column."""
+    ``x`` goes in as it is when f32 or bf16 (the kernel rounds it to bf16);
+    the weights through :func:`kernel_weights`."""
     _check_args(x, w)
     N, D = x.shape
+    kernels.require(all(t.is_cuda and t.device == x.device for t in (x, *w)),
+                    "nerf_mlp: every tensor must be on the same CUDA device")
     kernels.require(D % 128 == 0 and 128 <= D <= 1024,
                     "nerf_mlp: the kernel takes D = 128..1024 in steps of 128")
-    xb = x.to(torch.bfloat16).contiguous()
-    e1, e2, eo, d1, d2, do = (t.to(torch.bfloat16) for t in w)
-    eo_body, eo_col = eo[:, :D].contiguous(), eo[:, D].contiguous()
-    ws = [t.contiguous() for t in (e1, e2, eo_body, d1, d2, do)]
-    kernels.require_cuda([xb, eo_col, *ws], "nerf_mlp")
-    for t in (xb, *ws):
-        kernels.require(t.data_ptr() % 16 == 0, "nerf_mlp: tensors must be 16-byte aligned")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        x = x.to(torch.float32)
+    x = x.contiguous()
+    kernels.require(x.data_ptr() % 16 == 0, "nerf_mlp: x must be 16-byte aligned")
+    wt, eo_col = kernel_weights(w)
     lib = kernels.library("nerf_mlp")
     _bind(lib)
     out = torch.empty((N, D), dtype=torch.bfloat16, device=x.device)
     density = torch.empty((N,), dtype=torch.bfloat16, device=x.device)
-    rc = lib.nerf_mlp(xb.data_ptr(), N, D, ws[0].data_ptr(), ws[1].data_ptr(),
-                      ws[2].data_ptr(), eo_col.data_ptr(), ws[3].data_ptr(),
-                      ws[4].data_ptr(), ws[5].data_ptr(), out.data_ptr(),
-                      density.data_ptr(), kernels.stream_ptr(x))
+    rc = lib.nerf_mlp(x.data_ptr(), int(x.dtype == torch.float32), N, D, wt.data_ptr(),
+                      eo_col.data_ptr(), out.data_ptr(), density.data_ptr(),
+                      kernels.stream_ptr(x))
     kernels.check(rc, "nerf_mlp")
     kernels.count(kernels.launches, "nerf_mlp")
     return out, density

@@ -19,9 +19,10 @@ Every variant runs in a process of its own, in the order asis, nomath,
 nostream, asis (the repeat shows the spread).  Each prints one JSON line:
 the mean device ms of kernel A at the lm_head (3072 x 32064), o (3072 x
 3072) and down (8192 x 3072) shapes at 1, 8 and 16 rows and of kernel F at
-Phi-3-mini widths at 12 rows, each call after a 96 MB L2 flush, by CUDA
-events, the flushes subtracted (the timing of ``chip_smoke.py``).  The first line is the card's name and
-power limit.  Without a card it raises.
+Phi-3-mini widths at 12 rows, each call after a 96 MB L2 flush (a read),
+by CUDA events, the flushes subtracted (the timing of ``chip_smoke.py``).
+The first line is the card's name and power limit.  Without a card it
+raises.
 """
 
 from __future__ import annotations
@@ -59,28 +60,41 @@ PATCHES = {
 }
 
 
-def _variant(name: str) -> Path:
-    """A copy of the package with ``name``'s patch applied; raises when the
-    header no longer holds the patched text."""
-    dst = WORK / name
+def _variant(name: str, work: Path = WORK, source: str = "int4_mma.cuh",
+             patches: dict = PATCHES) -> Path:
+    """A copy of the package under ``work / name`` with ``name``'s patch of
+    ``csrc/<source>`` applied; raises when the source no longer holds the
+    patched text."""
+    dst = work / name
     shutil.rmtree(dst, ignore_errors=True)
     dst.mkdir(parents=True)
     shutil.copytree(PACKAGE, dst / PACKAGE.name,
                     ignore=shutil.ignore_patterns("__pycache__"))
-    if name in PATCHES:
-        hdr = dst / PACKAGE.name / "csrc" / "int4_mma.cuh"
-        old, new = PATCHES[name]
-        text = hdr.read_text()
+    if name in patches:
+        src = dst / PACKAGE.name / "csrc" / source
+        old, new = patches[name]
+        text = src.read_text()
         if old not in text:
-            raise RuntimeError(f"decompose: the {name} patch no longer applies to int4_mma.cuh")
-        hdr.write_text(text.replace(old, new))
+            raise RuntimeError(f"decompose: the {name} patch no longer applies to {source}")
+        src.write_text(text.replace(old, new))
     return dst
 
 
-def _time_ms(fn, flush: torch.Tensor, iters: int = 20) -> float:
-    """Mean device ms of ``fn`` after an L2 flush, flushes subtracted.  A
-    GPU sleep ahead of each window holds the card while the host enqueues
-    the window, so the wrapper's host time opens no gaps on the device."""
+def read_flush():
+    """An L2 flush that reads a 96 MB buffer (a sum whose result is dropped),
+    leaving no dirty lines behind (``chip_smoke.py``'s timer)."""
+    buf = torch.zeros(24 * 2**20, dtype=torch.float32, device="cuda")
+    out = torch.zeros((), dtype=torch.float32, device="cuda")
+    torch.sum(buf, 0, out=out)   # the reduction's first launch loads its module
+    torch.cuda.synchronize()
+    return lambda: torch.sum(buf, 0, out=out)
+
+
+def _time_ms(fn, flush, iters: int = 20) -> float:
+    """Mean device ms of ``fn`` after each call of ``flush``, flushes
+    subtracted.  A GPU sleep ahead of each window holds the card while the
+    host enqueues the window, so the wrapper's host time opens no gaps on
+    the device."""
     import time
 
     host_s = 0.0
@@ -97,7 +111,7 @@ def _time_ms(fn, flush: torch.Tensor, iters: int = 20) -> float:
         torch.cuda._sleep(sleep_cycles)
         a.record()
         for _ in range(iters):
-            flush.zero_()
+            flush()
             if call is not None:
                 call()
         b.record()
@@ -116,7 +130,7 @@ def measure() -> dict:
         raise RuntimeError("decompose: the variant did not import its own copy of the package")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")
+    flush = read_flush()
     out = {}
     for name, d, n in (("lm_head", 3072, 32064), ("o", 3072, 3072), ("down", 8192, 3072)):
         w = pack_int4(torch.randn(d, n, generator=gen, device="cuda") * 0.02)

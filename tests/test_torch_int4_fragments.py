@@ -1,5 +1,6 @@
-"""The tensor-core body of kernels A and F (``csrc/int4_mma.cuh``), emulated
-lane by lane on the CPU, since the kernel itself runs only on the card.
+"""The tensor-core body of kernels A, E and F (``csrc/int4_mma.cuh``),
+emulated lane by lane on the CPU, since the kernel itself runs only on the
+card.
 
 The emulation follows the kernel's steps with its constants: the 32-bit
 words a lane reads (columns 4g..4g+3 at K rows 2t, 2t+1, 2t+8, 2t+9 of a
@@ -133,8 +134,9 @@ def words(q4p, k, col):
 
 
 def emulated_matvec(x_bf16, q4, s_lo, s_hi, dblk, rows):
-    """Kernel A's tensor-core body at ks = dblk (one scale group per block),
-    store epilogue, f32 out [rows, 2 * n2]."""
+    """The tensor-core body at ks = dblk (one scale group per block: kernel
+    E's plan, and kernel A's wherever A takes whole groups), store
+    epilogue, f32 out [rows, 2 * n2]."""
     dp, n2 = q4.shape
     nt_count = 1 if rows <= 8 else 2
     tiles = -(-n2 // COLS)
@@ -247,5 +249,27 @@ def test_emulated_tensor_core_matvec(rows):
     plain = T.int4_matvec_plain(torch.from_numpy(x), tw).numpy()
     xp = jnp.pad(jnp.asarray(x, jnp.bfloat16), ((0, 16 - rows), (0, jw.dp - d)))
     ref_k = np.asarray(P._pallas_int4_matmul(xp, jw, interpret=True))[:rows, :n]
+    np.testing.assert_allclose(got, plain, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got, ref_k, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("rows", [1, 8, 9, 16])
+def test_emulated_grid2d_plan(rows):
+    """Kernel E: g = 3 scale groups of dblk = 128 rows (two kKc stages each),
+    a block per (128-column tile, group), the groups summed in order;
+    rows 1 and 8 take one n8 tile, 9 and 16 two."""
+    rng = np.random.default_rng(70 + rows)
+    d, n, dblk, nblk = 384, 300, 128, 64
+    w = rng.normal(scale=0.02, size=(d, n)).astype(np.float32)
+    x = rng.normal(size=(rows, d)).astype(np.float32)
+    tw = T.pack_int4(torch.from_numpy(w), dblk=dblk, nblk=nblk)
+    jw = P.pack_int4(jnp.asarray(w), dblk=dblk, nblk=nblk)
+    assert tw.dp // dblk == 3 and dblk % KC == 0 and tw.n2 % COLS != 0
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    got = emulated_matvec(xb.float().numpy(), tw.q4.numpy(), tw.s_lo.numpy(), tw.s_hi.numpy(),
+                          dblk, rows)[:, :n]
+    plain = T.int4_matvec2d_plain(torch.from_numpy(x), tw).numpy()
+    xp = jnp.pad(jnp.asarray(x, jnp.bfloat16), ((0, 16 - rows), (0, 0)))
+    ref_k = np.asarray(P._pallas_int4_matmul2d(xp, jw, interpret=True))[:rows, :n]
     np.testing.assert_allclose(got, plain, rtol=0, atol=1e-5)
     np.testing.assert_allclose(got, ref_k, rtol=0, atol=1e-5)
