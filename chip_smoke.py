@@ -12,8 +12,8 @@ Phases, each printed as it finishes:
 1. the card's name and power limit (``nvidia-smi``);
 2. ``build``: compile every CUDA kernel of the port at once (one ``nvcc``
    per source, into ``build/dynam3d_torch/``), print the registers and
-   spills ``ptxas -v`` reports for each instantiation of kernels A, E, F
-   and C, and every warning or performance note of any build;
+   spills ``ptxas -v`` reports for each instantiation of kernels A, E, F,
+   C, I and J, and every warning or performance note of any build;
 3. ``matvec``: kernel A (``csrc/int4_matvec.cu``) against its plain PyTorch
    version at the main path's shapes (lm_head, qkv, o, gate_up + SwiGLU,
    down at 1, 8, 12 and 16 rows), with its time, the plain version's time,
@@ -82,11 +82,12 @@ Phases, each printed as it finishes:
    ms per view, and the launches of the NMS loop;
 17. ``stream``: kernels I and J (``csrc/int4_stream.cu``) against their plain
    versions at the int4 tools' shapes (4 weights of 3072 x 16384), every
-   ring variant of I and every body of J, then both tools' sweeps
-   (``dynam3d_torch.tools.bench_int4_stream`` / ``bench_int4_unpack``) with
-   the launch counters reset just before and read just after, the bytes
-   bound and a bf16 ``torch.matmul`` on the dequantized weights as the
-   yardstick.
+   ring variant of I and every body of J, each with its work items, blocks
+   per SM, dynamic shared memory and share of the bytes bound, then both
+   tools' sweeps (``dynam3d_torch.tools.bench_int4_stream`` /
+   ``bench_int4_unpack``) with the launch counters reset just before and
+   read just after, the bytes bound and a bf16 ``torch.matmul`` on the
+   dequantized weights as the yardstick.
 
 Any failure exits non-zero.  The line before the last is the kernels' JSON
 record; the last line is ``{"ok": true, "device": {...}}``.
@@ -199,7 +200,7 @@ def phase_build(ctx):
         kernels.library(name)
     log(f"[build] kernels {list(kernels.SOURCES)} built in "
         f"{time.perf_counter() - t0:.2f} s")
-    for name in ("int4_matvec", "int4_matvec2d", "int4_mlp", "nerf_mlp"):
+    for name in ("int4_matvec", "int4_matvec2d", "int4_mlp", "nerf_mlp", "int4_stream"):
         for fn, regs, st, ld in kernels.ptxas_summary(name):
             log(f"[build] ptxas {name}.cu {fn}: {regs} registers, spill stores {st} B, "
                 f"spill loads {ld} B")
@@ -1399,17 +1400,24 @@ def phase_stream(ctx):
     def tol(ref, rel=1e-5):
         return rel * max(1.0, ref.abs().max().item())
 
+    def plan_row(body, Sv, nblk):
+        """The launch plan of (body, S, nblk): kc, kslice, work items, and the
+        card's blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+        and dynamic shared memory of a block, from which the plan is made."""
+        p = S.plan(q4, body, Sv, nblk, dblk)
+        return dict(S=Sv, nblk=nblk, kc=S.KC, kslice=p.kslice, items=p.items,
+                    blocks_per_sm=p.blocks_per_sm, smem=p.smem)
+
     rows, entries = [], {}
     for Sv, nblk in S.STREAM_VARIANTS:
-        kc, kslice = S.plan(q4, Sv, nblk, dblk)
         yk = S.int4_stream_matvec_cuda(x, q4, sl, sh, S=Sv, nblk=nblk, dblk=dblk)
         yp = S.int4_stream_matvec_plain(x, q4, sl, sh, dblk=dblk)
         torch.cuda.synchronize()
         err = _check(f"int4_stream_matvec S={Sv} nblk={nblk}", yk, yp, tol(yp))
         ms = timer(lambda: S.int4_stream_matvec_cuda(x, q4, sl, sh, S=Sv, nblk=nblk, dblk=dblk))
-        row = dict(kernel="int4_stream_matvec", S=Sv, nblk=nblk, kc=kc, kslice=kslice,
-                   blocks=nw * (n2 // nblk) * (d // kslice), max_abs_err=err, tol=tol(yp), ms=ms,
-                   bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, bytes=nbytes)
+        row = dict(kernel="int4_stream_matvec", **plan_row("andtrick", Sv, nblk),
+                   max_abs_err=err, tol=tol(yp), ms=ms, bound_ms=b_ms, bound_by=b_by,
+                   bound_share=b_ms / ms, library_ms=lib_ms, bytes=nbytes)
         if (Sv, nblk) == (2, 512):
             row["plain_ms"] = timer(lambda: S.int4_stream_matvec_plain(x, q4, sl, sh, dblk=dblk),
                                     iters=3, warmup=1)
@@ -1433,8 +1441,10 @@ def phase_stream(ctx):
             err = _check(f"int4_unpack_matvec {body}", yk, yp, t)
         outs[body] = yk
         ms = timer(lambda: S.int4_unpack_matvec_cuda(xb, qb, sl, sh, body=body, dblk=dblk))
-        row = dict(kernel="int4_unpack_matvec", body=body, max_abs_err=err, tol=t, ms=ms,
-                   bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, bytes=nbytes)
+        row = dict(kernel="int4_unpack_matvec", body=body,
+                   **plan_row(body, S.UNPACK_S, S.UNPACK_NBLK), max_abs_err=err, tol=t, ms=ms,
+                   bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms, library_ms=lib_ms,
+                   bytes=nbytes)
         if body == "andtrick":
             row["plain_ms"] = timer(lambda: S.int4_unpack_matvec_plain(xb, qb, sl, sh, body=body,
                                                                        dblk=dblk),

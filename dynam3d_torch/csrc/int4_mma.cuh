@@ -3,7 +3,9 @@
 // counterpart of the TPU's nibble_matvec_acc (dynam3d_tpu/ops/pallas_int4.py),
 // two matrix-unit dots per scale group.  A and E are one kernel here
 // (matvec_kernel) launched with two plans: A cuts K into slices that fill
-// the card, E takes one slice per scale group.
+// the card, E takes one slice per scale group.  Kernels I and J
+// (int4_stream.cu) run the same ring and fragments in a loop of their own
+// over stages of several boxes.
 //
 // Operand roles.  mma.sync m16n8k16 (bf16 in, f32 accumulate) with the
 // weight's output columns on the M side and the activation rows on N: a
@@ -14,8 +16,8 @@
 // M row -> packed column.  Lane (g = lane / 4, t = lane % 4) reads the
 // 32-bit words of columns 4g..4g+3 at K rows 2t, 2t+1, 2t+8, 2t+9 of a
 // k16 step.  M tile j (0, 1) maps row g to column 4g + 2j and row g + 8 to
-// column 4g + 2j + 1, so a 4x4 byte transpose of those four words (the job
-// of int4_stream.cu's transpose4) leaves in each register the two K
+// column 4g + 2j + 1, so a 4x4 byte transpose of those four words (the
+// first half of transpose4 below) leaves in each register the two K
 // neighbours of one column that the A fragment wants (PTX ISA, m16n8k16 A
 // layout: a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 = (g, 2t+8..), a3 =
 // (g+8, 2t+8..)).  The C fragment then holds, per lane, lo and hi of the
@@ -126,16 +128,19 @@ __device__ __forceinline__ void ring_init(const Ring& r) {
 }
 
 // Producer warp: ring stage `it` (a running count over the block's life)
-// <- the box of weight rows k .. k + kKc, columns col0 .. col0 + kCols.
+// <- the boxes of weight rows k .. k + kKc, columns col0 + b * kCols ..
+// + kCols for b < boxes, in a ring of `stages` slots of boxes * kSlotBytes
+// (kernels I and J: S slots of nblk / 128 boxes; A, E, F, G: the defaults).
 __device__ __forceinline__ void produce(const Ring& r, int it, const CUtensorMap* map, int k,
-                                        int col0) {
-  const int slot = it % kStages;
-  if (it >= kStages) mbar_wait(&r.empty[slot], (uint32_t)((it / kStages - 1) & 1));
+                                        int col0, int stages = kStages, int boxes = 1) {
+  const int slot = it % stages;
+  if (it >= stages) mbar_wait(&r.empty[slot], (uint32_t)((it / stages - 1) & 1));
   if ((threadIdx.x & 31) == 0) {
-    mbar_expect_tx(&r.full[slot], (uint32_t)kSlotBytes);
+    mbar_expect_tx(&r.full[slot], (uint32_t)(boxes * kSlotBytes));
     // order the consumers' generic reads of the slot before the async write
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    tma_box(r.buf + slot * kSlotBytes, map, col0, k, &r.full[slot]);
+    for (int b = 0; b < boxes; ++b)
+      tma_box(r.buf + (slot * boxes + b) * kSlotBytes, map, col0 + b * kCols, k, &r.full[slot]);
   }
   __syncwarp();
 }
@@ -163,15 +168,20 @@ __device__ __forceinline__ uint32_t minus136(uint32_t v) {
 }
 
 // bytes (sel picks two bytes of p into the halves' low bytes) -> bf16x2 lo
-// and hi nibbles of those two bytes
+// and hi nibbles of those two bytes.  kSignedLo: the low nibble holds lo
+// itself (lo & 15, kernel J's signed-lo bytes, q4 ^ 8), so it takes the
+// ^ 8 the signed hi nibble takes.
+template <bool kSignedLo = false>
 __device__ __forceinline__ void nibbles(uint32_t p, uint32_t sel, uint32_t& lo, uint32_t& hi) {
   const uint32_t s = __byte_perm(p, 0u, sel);
-  lo = minus136((s & 0x000F000Fu) | 0x43004300u);
+  if constexpr (kSignedLo) lo = minus136((s & 0x000F000Fu) ^ 0x43084308u);
+  else lo = minus136((s & 0x000F000Fu) | 0x43004300u);
   hi = minus136(((s >> 4) & 0x000F000Fu) ^ 0x43084308u);
 }
 
 // A fragments of one k16 step for the warp's four M tiles, from the words
 // at K rows 2t, 2t+1 (w0, w1) and 2t+8, 2t+9 (w2, w3), columns 4g..4g+3
+template <bool kSignedLo = false>
 __device__ __forceinline__ void a_frags(uint32_t w0, uint32_t w1, uint32_t w2, uint32_t w3,
                                         uint32_t a[4][4]) {
   // p01: columns 4g, 4g+1 (bytes: c0k0 c0k1 c1k0 c1k1); p23: columns 4g+2, 4g+3
@@ -179,14 +189,28 @@ __device__ __forceinline__ void a_frags(uint32_t w0, uint32_t w1, uint32_t w2, u
   const uint32_t q01 = __byte_perm(w2, w3, 0x5140), q23 = __byte_perm(w2, w3, 0x7362);
   // M tile j (lo: j, hi: 2 + j): a0 = column 4g+2j rows 2t.., a1 = 4g+2j+1,
   // a2 / a3 the same at rows 2t+8..
-  nibbles(p01, 0x4140, a[0][0], a[2][0]);
-  nibbles(p01, 0x4342, a[0][1], a[2][1]);
-  nibbles(q01, 0x4140, a[0][2], a[2][2]);
-  nibbles(q01, 0x4342, a[0][3], a[2][3]);
-  nibbles(p23, 0x4140, a[1][0], a[3][0]);
-  nibbles(p23, 0x4342, a[1][1], a[3][1]);
-  nibbles(q23, 0x4140, a[1][2], a[3][2]);
-  nibbles(q23, 0x4342, a[1][3], a[3][3]);
+  nibbles<kSignedLo>(p01, 0x4140, a[0][0], a[2][0]);
+  nibbles<kSignedLo>(p01, 0x4342, a[0][1], a[2][1]);
+  nibbles<kSignedLo>(q01, 0x4140, a[0][2], a[2][2]);
+  nibbles<kSignedLo>(q01, 0x4342, a[0][3], a[2][3]);
+  nibbles<kSignedLo>(p23, 0x4140, a[1][0], a[3][0]);
+  nibbles<kSignedLo>(p23, 0x4342, a[1][1], a[3][1]);
+  nibbles<kSignedLo>(q23, 0x4140, a[1][2], a[3][2]);
+  nibbles<kSignedLo>(q23, 0x4342, a[1][3], a[3][3]);
+}
+
+// 4x4 byte transpose: w[i] holds byte j of K row i at bits 8j; col[j] holds
+// rows 0..3 of column j at bits 0, 8, 16, 24 (K along the word, as the s8
+// A fragment of m16n8k32 wants it)
+__device__ __forceinline__ void transpose4(const uint32_t w[4], uint32_t col[4]) {
+  const uint32_t a = __byte_perm(w[0], w[1], 0x5140);   // r0b0 r1b0 r0b1 r1b1
+  const uint32_t b = __byte_perm(w[2], w[3], 0x5140);   // r2b0 r3b0 r2b1 r3b1
+  const uint32_t c = __byte_perm(w[0], w[1], 0x7362);   // r0b2 r1b2 r0b3 r1b3
+  const uint32_t d = __byte_perm(w[2], w[3], 0x7362);
+  col[0] = __byte_perm(a, b, 0x5410);
+  col[1] = __byte_perm(a, b, 0x7632);
+  col[2] = __byte_perm(c, d, 0x5410);
+  col[3] = __byte_perm(c, d, 0x7632);
 }
 
 __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
@@ -217,31 +241,48 @@ __device__ __forceinline__ void b_frags(const __nv_bfloat16* xs, int k, uint32_t
   }
 }
 
+// The swizzled byte offsets of the lane's words (columns 4g..4g+3 of the
+// warp's 32) in rows 2t and 2t + 1 of a box; rows 8m + 2t (+1) repeat them,
+// since the swizzle depends on the row mod 8
+struct BoxOffsets {
+  int off0, off1;
+};
+
+__device__ __forceinline__ BoxOffsets box_offsets() {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int chunk = 2 * warp + (g >> 2), in_chunk = 4 * (g & 3);
+  return BoxOffsets{2 * t * kCols + ((chunk ^ (2 * t)) << 4) + in_chunk,
+                    (2 * t + 1) * kCols + ((chunk ^ (2 * t + 1)) << 4) + in_chunk};
+}
+
+// The lane's words at K rows 2t, 2t+1, 2t+8, 2t+9 of the 16 box rows at p
+__device__ __forceinline__ void step_words(const unsigned char* p, const BoxOffsets& o,
+                                           uint32_t w[4]) {
+  w[0] = *reinterpret_cast<const uint32_t*>(p + o.off0);
+  w[1] = *reinterpret_cast<const uint32_t*>(p + o.off1);
+  w[2] = *reinterpret_cast<const uint32_t*>(p + 8 * kCols + o.off0);
+  w[3] = *reinterpret_cast<const uint32_t*>(p + 8 * kCols + o.off1);
+}
+
 // Consumer warp: wait for ring stage `it`, multiply its kKc rows (x columns
 // kx .. kx + kKc of the staged slice) into the accumulators, release it.
 template <int NT>
 __device__ __forceinline__ void consume(const Ring& r, int it, const __nv_bfloat16* xs, int kx,
                                         Acc<NT>& acc) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3, slot = it % kStages;
+  const int lane = threadIdx.x & 31, slot = it % kStages;
   mbar_wait(&r.full[slot], (uint32_t)((it / kStages) & 1));
-  // the swizzled offsets of the lane's words in rows 2t and 2t + 1 (rows
-  // 16q + 8 + ... repeat them: 16q and 8 are multiples of 8)
-  const int chunk = 2 * warp + (g >> 2), in_chunk = 4 * (g & 3);
-  const int off0 = 2 * t * kCols + ((chunk ^ (2 * t)) << 4) + in_chunk;
-  const int off1 = (2 * t + 1) * kCols + ((chunk ^ (2 * t + 1)) << 4) + in_chunk;
+  const BoxOffsets o = box_offsets();
   const unsigned char* base = r.buf + slot * kSlotBytes;
 #pragma unroll
   for (int q = 0; q < kKc / 16; ++q) {
     const unsigned char* p = base + q * 16 * kCols;
-    const uint32_t w0 = *reinterpret_cast<const uint32_t*>(p + off0);
-    const uint32_t w1 = *reinterpret_cast<const uint32_t*>(p + off1);
-    const uint32_t w2 = *reinterpret_cast<const uint32_t*>(p + 8 * kCols + off0);
-    const uint32_t w3 = *reinterpret_cast<const uint32_t*>(p + 8 * kCols + off1);
+    uint32_t w[4];
+    step_words(p, o, w);
     uint32_t b[NT][2];
     b_frags<NT>(xs, kx + q * 16, b);
     uint32_t a[4][4];
-    a_frags(w0, w1, w2, w3, a);
+    a_frags(w[0], w[1], w[2], w[3], a);
 #pragma unroll
     for (int n = 0; n < NT; ++n)
 #pragma unroll
@@ -413,16 +454,11 @@ __device__ __forceinline__ void stage_x(__nv_bfloat16* xs, const void* x, int x_
 // After the slice's sums are scaled: move them from the fragments to one
 // column per consumer thread (thread t: packed column col0 + t, tot[r][0]
 // lo and tot[r][1] hi), through red (shared, [8*NT][256] f32; it may alias
-// the staged x slice: the caller syncs the consumers first).  With K split
-// across blocks (nsplit > 1) the slice's sums go to ws [nsplit][rows][2*n2]
-// and the block that takes the column tile's last ticket sums the slices in
-// order 0..nsplit-1 (at one n8 tile two slices' loads in flight at a time,
-// at two one, to keep three blocks' registers on an SM), rearms the ticket
-// and returns true; the others return false.
+// the staged x slice: the caller syncs the consumers first).  A, E, F and
+// G take it with split_sum() of one tile through finish(); I and J gather
+// each 128-column tile of an item and take one split_sum() for them all.
 template <int NT>
-__device__ __forceinline__ bool finish(Acc<NT>& a, float* red, int col0, int rows, int split,
-                                       int nsplit, int n2, float* ws, unsigned int* ticket,
-                                       int* is_last, float tot[8 * NT][2]) {
+__device__ __forceinline__ void gather(Acc<NT>& a, float* red, int col0, float tot[8 * NT][2]) {
   constexpr int NR = 8 * NT;
   const LaneCols lc = lane_cols(col0);
 #pragma unroll
@@ -434,21 +470,41 @@ __device__ __forceinline__ bool finish(Acc<NT>& a, float* red, int col0, int row
         red[lane_row(lc, rs) * 2 * kCols + half * kCols + (lc.col - col0) + jj] =
             acc_at(a, half, rs, jj);
   consumer_sync();
-  const int t = threadIdx.x, c = col0 + t;
-  const bool ok = c < n2;
+  const int t = threadIdx.x;
 #pragma unroll
   for (int r = 0; r < NR; ++r)
 #pragma unroll
     for (int half = 0; half < 2; ++half) tot[r][half] = red[r * 2 * kCols + half * kCols + t];
+}
+
+// With K split across blocks (nsplit > 1), the slice's sums of a work item
+// of NC 128-column tiles (thread t: columns col0 + b * kCols + t, b < NC,
+// in tot[b]; where NC > 1, n2 is a multiple of the item's width) go to ws
+// [nsplit][rows][2*n2], and the block that takes the item's last ticket
+// sums the slices in order 0..nsplit-1 into tot (at one tile and one n8
+// tile two slices' loads in flight at a time, else one, to keep three
+// blocks' registers on an SM), rearms the ticket and returns true; the
+// others return false.  One fence and one ticket per item, however many
+// tiles it has.
+template <int NR, int NC>
+__device__ __forceinline__ bool split_sum(float tot[NC][NR][2], int col0, int rows, int split,
+                                          int nsplit, int n2, float* ws, unsigned int* ticket,
+                                          int* is_last) {
   if (nsplit == 1) return true;
+  const int t = threadIdx.x;
+  const bool ok = col0 + t < n2;
   const long n_pack = 2L * n2;
   if (ok) {
 #pragma unroll
-    for (int r = 0; r < NR; ++r)
-      if (r < rows)
+    for (int b = 0; b < NC; ++b) {
+      const int c = col0 + b * kCols + t;
 #pragma unroll
-        for (int half = 0; half < 2; ++half)
-          ws[((long)split * rows + r) * n_pack + half * n2 + c] = tot[r][half];
+      for (int r = 0; r < NR; ++r)
+        if (r < rows)
+#pragma unroll
+          for (int half = 0; half < 2; ++half)
+            ws[((long)split * rows + r) * n_pack + half * n2 + c] = tot[b][r][half];
+    }
   }
   __threadfence();
   consumer_sync();
@@ -458,29 +514,48 @@ __device__ __forceinline__ bool finish(Acc<NT>& a, float* red, int col0, int row
   __threadfence();
   if (ok) {
 #pragma unroll
-    for (int r = 0; r < NR; ++r) tot[r][0] = tot[r][1] = 0.f;
-    constexpr int kPer = NT == 1 ? 2 : 1;   // slices per round
+    for (int b = 0; b < NC; ++b)
+#pragma unroll
+      for (int r = 0; r < NR; ++r) tot[b][r][0] = tot[b][r][1] = 0.f;
+    constexpr int kPer = NR == 8 && NC == 1 ? 2 : 1;   // slices per round
     for (int sp0 = 0; sp0 < nsplit; sp0 += kPer) {
-      float p[kPer][NR][2];
+      float p[kPer][NC][NR][2];
 #pragma unroll
       for (int q = 0; q < kPer; ++q)
 #pragma unroll
-        for (int r = 0; r < NR; ++r)
+        for (int b = 0; b < NC; ++b)
 #pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const long o = ((long)(sp0 + q) * rows + r) * n_pack + half * n2 + c;
-            p[q][r][half] = r < rows && sp0 + q < nsplit ? __ldcg(ws + o) : 0.f;
-          }
+          for (int r = 0; r < NR; ++r)
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              const int c = col0 + b * kCols + t;
+              const long o = ((long)(sp0 + q) * rows + r) * n_pack + half * n2 + c;
+              p[q][b][r][half] = r < rows && sp0 + q < nsplit ? __ldcg(ws + o) : 0.f;
+            }
 #pragma unroll
       for (int q = 0; q < kPer; ++q)
 #pragma unroll
-        for (int r = 0; r < NR; ++r)
+        for (int b = 0; b < NC; ++b)
 #pragma unroll
-          for (int half = 0; half < 2; ++half) tot[r][half] += p[q][r][half];
+          for (int r = 0; r < NR; ++r)
+#pragma unroll
+            for (int half = 0; half < 2; ++half) tot[b][r][half] += p[q][b][r][half];
     }
   }
   if (t == 0) *ticket = 0u;   // ready for the next launch on this stream
   return true;
+}
+
+// gather() then, with K split across blocks (nsplit > 1), split_sum() of
+// the one 128-column tile: true in the block that holds the tile's ordered
+// sum in tot, false in the others.
+template <int NT>
+__device__ __forceinline__ bool finish(Acc<NT>& a, float* red, int col0, int rows, int split,
+                                       int nsplit, int n2, float* ws, unsigned int* ticket,
+                                       int* is_last, float tot[8 * NT][2]) {
+  gather<NT>(a, red, col0, tot);
+  return split_sum<8 * NT, 1>(reinterpret_cast<float(*)[8 * NT][2]>(tot), col0, rows, split,
+                              nsplit, n2, ws, ticket, is_last);
 }
 
 // K rows per slice: the largest power-of-two divisor of dblk up to

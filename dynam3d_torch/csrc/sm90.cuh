@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the kernels that stream tiles
 // with the Tensor Memory Accelerator: cuTensorMapEncodeTiled (a libcuda
 // entry point) found through the runtime, mbarrier waits and arrivals (in
-// the block and across a thread-block cluster), and the 2-D TMA box copy.
+// the block and across a thread-block cluster), the 2-D TMA box copy and
+// the 1-D bulk copy.
 
 #pragma once
 
@@ -108,6 +109,24 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
                "r"(bytes)
                : "memory");
+}
+
+// Raise bar's expected transaction bytes of the current phase without
+// arriving (copies of a phase that another thread's arrive completes)
+__device__ __forceinline__ void mbar_add_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// bytes (a multiple of 16) from global src into shared dst, both 16-byte
+// aligned, by the bulk copy engine, completing on bar
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
 // TMA: the box of `map` at (column x, row y) into shared dst, completing

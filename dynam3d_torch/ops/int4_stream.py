@@ -4,27 +4,35 @@ Port of the two Pallas kernels of ``tools/bench_int4_stream.py`` (I) and
 ``tools/bench_int4_unpack.py`` (J): for each of ``NW`` stacked packed weights
 ``q4 [NW, D, N2]`` (``pack_int4``'s flat layout, scales ``[NW, D/dblk, N2]``)
 and 8 activation rows ``x [8, D]``, ``y[w] = x @ dequant(q4[w])`` as
-``[8, 2*N2]`` (lo half | hi half), the weight streamed through a ring of ``S``
-slots of ``nblk`` packed columns (``csrc/int4_stream.cu``).
+``[8, 2*N2]`` (lo half | hi half), on the tensor-core body of kernels A, E, F
+and G (``csrc/int4_stream.cu`` on ``csrc/int4_mma.cuh``): a producer warp
+streams the weight through a ring of ``S`` slots, each a stage of
+``nblk / 128`` TMA boxes of ``[KC, 128]`` bytes, and four consumer warps run
+``mma.sync`` on fragments built from the packed bytes.
 
-* I :func:`int4_stream_matvec`: the body of ``nibble_matvec_acc``, the
-  biased-lo AND form; ``S`` and ``nblk`` are the swept ring depth and tile
-  width.
+* I :func:`int4_stream_matvec`: the body of ``nibble_matvec_acc`` (exact
+  nibbles of the biased-lo bytes, bf16 mma, f32 sums); ``S`` and ``nblk``
+  are the swept ring depth and tile width.
 * J :func:`int4_unpack_matvec`: ``S = 2``, ``nblk = 512`` and one of four
   bodies: ``dma-floor`` (``y[w, r, c] = q4[w, r, c]`` for the lo half, zero
-  hi half), ``current`` (signed-lo bytes, ``q4 ^ 8``, shift unpack),
-  ``andtrick`` (I's body), ``w4a8`` (int8 ``x``, int32 sums).
+  hi half: the ring alone), ``current`` (signed-lo bytes, ``q4 ^ 8``),
+  ``andtrick`` (I's body), ``w4a8`` (int8 ``x``, s8 mma, exact int32 sums).
 
-The TPU kernels leave the last weight's result in one ``[8, N]`` output; here
-``y`` has all ``NW``, and the tools read ``y[NW - 1]``.  Each kernel has a
-plain PyTorch version of the same arithmetic; the dispatchers launch the
-kernel on a CUDA tensor and run the plain version on a CPU tensor.
+A work item is (weight, column tile of ``nblk``, K slice of ``kslice``
+rows); a ring slot holds ``KC`` weight rows.  :func:`plan` checks the
+shapes (:func:`check_stages`), asks the card how many blocks an SM holds
+and how much shared memory a block takes, and splits K (:func:`split_rows`)
+until the work items (:func:`work_items`) fill the resident blocks.  The
+TPU kernels leave the last weight's result in one ``[8, N]`` output; here
+``y`` has all ``NW``, and the tools read ``y[NW - 1]``.  Each kernel has a plain PyTorch
+version of the same arithmetic; the dispatchers launch the kernel on a CUDA
+tensor and run the plain version on a CPU tensor.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -35,27 +43,40 @@ ROWS = 8                       # activation rows (the tools' BP)
 STREAM_VARIANTS = ((2, 512), (3, 512), (4, 512), (4, 256), (6, 256), (8, 128))  # (S, nblk)
 UNPACK_BODIES = ("dma-floor", "current", "andtrick", "w4a8")
 UNPACK_S, UNPACK_NBLK = 2, 512
-RING_BYTES = 64 * 1024         # a block's ring: two blocks fit on an SM
+KC = 64                        # weight rows of a ring slot (the tools' kc): the body's box
+NBLKS = (128, 256, 512)        # stage widths the kernels take: nblk / 128 boxes a stage
+MAX_SLOTS = 8                  # ring slots the kernels take
+MAX_SLICE = 1024               # K rows of x a block stages (int4_mma.cuh kMaxSlice)
 _BODY_IDS = {"andtrick": 0, "dma-floor": 1, "current": 2, "w4a8": 3}
 
 
-def stage_rows(S: int, nblk: int, dblk: int) -> int:
-    """kc, the weight rows of one ring slot: the largest power of two that
-    divides ``dblk`` with ``S * kc * nblk <= RING_BYTES``."""
-    kc = 1
-    while S * 2 * kc * nblk <= RING_BYTES and dblk % (2 * kc) == 0:
-        kc *= 2
-    kernels.require(kc >= ROWS, f"int4_stream: S={S}, nblk={nblk} leave a slot under 8 rows")
-    return kc
+def check_stages(S: int, nblk: int, dblk: int) -> None:
+    """Raises unless the kernels take ``S`` slots of stages ``nblk`` wide and
+    ``KC`` rows divide ``dblk`` (else a stage would straddle a scale
+    group).  Whether the slots fit shared memory is the card's answer
+    (:func:`plan`)."""
+    kernels.require(nblk in NBLKS, f"int4_stream: nblk must be one of {NBLKS}")
+    kernels.require(1 <= S <= MAX_SLOTS, f"int4_stream: S must be 1..{MAX_SLOTS}")
+    kernels.require(dblk % KC == 0, f"int4_stream: dblk={dblk} is not a multiple of {KC}")
 
 
-def split_rows(nw: int, d: int, n2: int, dblk: int, nblk: int, kc: int, sms: int) -> int:
-    """kslice, the weight rows of one block: ``dblk`` halved while the grid
-    of (weight, column tile, K slice) blocks has fewer than two per SM."""
+def split_rows(nw: int, d: int, n2: int, dblk: int, nblk: int, kc: int, slots: int) -> int:
+    """kslice, the weight rows of one work item: ``dblk`` (at most
+    ``MAX_SLICE``) halved while the (weight, column tile, K slice) work
+    items do not fill the card's ``slots`` resident blocks (SMs x blocks per
+    SM).  Each further split adds a round of workspace writes and reads to
+    every item's ordered sum."""
     ks = dblk
-    while nw * (n2 // nblk) * (d // ks) < 2 * sms and ks % (2 * kc) == 0:
+    while ks > MAX_SLICE and ks % 2 == 0:
+        ks //= 2
+    while work_items(nw, d, n2, nblk, ks) < slots and ks % (2 * kc) == 0:
         ks //= 2
     return ks
+
+
+def work_items(nw: int, d: int, n2: int, nblk: int, kslice: int) -> int:
+    """Blocks of a launch: weights x column tiles x K slices."""
+    return nw * (n2 // nblk) * (d // kslice)
 
 
 def _check(x, q4, s_lo, s_hi, dblk, nblk, name):
@@ -132,41 +153,62 @@ def _bind(lib) -> None:
     if getattr(lib, "_d3_bound", False):
         return
     P, I = ctypes.c_void_p, ctypes.c_int
-    tail = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P]
+    tail = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P]
     lib.int4_stream_matvec.argtypes = tail
     lib.int4_stream_matvec.restype = I
     lib.int4_unpack_matvec.argtypes = [I] + tail
     lib.int4_unpack_matvec.restype = I
+    lib.int4_stream_smem.argtypes = [I, I]
+    lib.int4_stream_smem.restype = I
+    lib.int4_stream_blocks_per_sm.argtypes = [I, I, I, P]
+    lib.int4_stream_blocks_per_sm.restype = I
     lib._d3_bound = True
 
 
-_sms: Dict[torch.device, int] = {}
+class Plan(NamedTuple):
+    """A launch's plan: K rows per work item, the work items, and the card's
+    blocks per SM and dynamic shared memory per block at its (S, nblk)."""
+    kslice: int
+    items: int
+    blocks_per_sm: int
+    smem: int
 
 
-def plan(q4: torch.Tensor, S: int, nblk: int, dblk: int):
-    """``(kc, kslice)`` of a launch on ``q4``'s card."""
+# (device, body, S, nblk) -> (SMs, blocks per SM, shared memory of a block)
+_card: Dict[Tuple[torch.device, str, int, int], Tuple[int, int, int]] = {}
+
+
+def plan(q4: torch.Tensor, body: str, S: int, nblk: int, dblk: int) -> Plan:
+    """The plan of ``body``'s kernel on ``q4``'s card: K is split until the
+    work items fill SMs x the blocks an SM holds (the card's occupancy
+    query, cached per device and kernel)."""
+    check_stages(S, nblk, dblk)
+    key = (q4.device, body, S, nblk)
+    if key not in _card:
+        with torch.cuda.device(q4.device):
+            sms = torch.cuda.get_device_properties(q4.device).multi_processor_count
+            _card[key] = (sms, blocks_per_sm(body, S, nblk), library().int4_stream_smem(S, nblk))
+    sms, per_sm, smem = _card[key]
+    kernels.require(per_sm >= 1, f"int4_stream: S={S} slots of {KC} x {nblk} bytes and the "
+                                 f"x slice ({smem} B) do not fit a block's shared memory")
     nw, d, n2 = q4.shape
-    sms = _sms.get(q4.device)
-    if sms is None:
-        sms = _sms[q4.device] = torch.cuda.get_device_properties(q4.device).multi_processor_count
-    kc = stage_rows(S, nblk, dblk)
-    return kc, split_rows(nw, d, n2, dblk, nblk, kc, sms)
+    kslice = split_rows(nw, d, n2, dblk, nblk, KC, sms * per_sm)
+    return Plan(kslice, work_items(nw, d, n2, nblk, kslice), per_sm, smem)
 
 
 def _launch(name, body, x, q4, s_lo, s_hi, S, nblk, dblk):
     kernels.require_cuda([x, q4, s_lo, s_hi], name)
     nw, d, n2 = q4.shape
-    kc, kslice = plan(q4, S, nblk, dblk)
+    kslice = plan(q4, body, S, nblk, dblk).kslice
     nsplit = d // kslice
     y = torch.empty((nw, ROWS, 2 * n2), dtype=torch.float32, device=q4.device)
     ws = (torch.empty((nw, nsplit, ROWS, 2 * n2), dtype=torch.float32, device=q4.device)
           if nsplit > 1 and body != "dma-floor" else None)
     tickets = _ticket_buffer(q4.device, nw * (n2 // nblk))
-    lib = kernels.library("int4_stream")
-    _bind(lib)
+    lib = library()
     args = (x.data_ptr(), q4.data_ptr(), s_lo.data_ptr(), s_hi.data_ptr(), y.data_ptr(),
             ws.data_ptr() if ws is not None else None, tickets.data_ptr(), nw, d, n2, dblk,
-            nblk, S, kc, kslice, kernels.stream_ptr(x))
+            nblk, S, kslice, kernels.stream_ptr(x))
     if name == "int4_stream_matvec":
         rc = lib.int4_stream_matvec(*args)
     else:
@@ -174,6 +216,24 @@ def _launch(name, body, x, q4, s_lo, s_hi, S, nblk, dblk):
     kernels.check(rc, name)
     kernels.count(kernels.launches, name)
     return y
+
+
+def library():
+    """The kernels' library (``csrc/int4_stream.cu``), built at first use."""
+    lib = kernels.library("int4_stream")
+    _bind(lib)
+    return lib
+
+
+def blocks_per_sm(body: str, S: int, nblk: int) -> int:
+    """Blocks of ``body``'s kernel at ``(S, nblk)`` one SM of the current
+    card holds (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; 0 where
+    a block's shared memory exceeds what a block may take)."""
+    count = ctypes.c_int(0)
+    kernels.check(library().int4_stream_blocks_per_sm(_BODY_IDS[body], S, nblk,
+                                                      ctypes.byref(count)),
+                  "int4_stream_blocks_per_sm")
+    return count.value
 
 
 def int4_stream_matvec_cuda(x, q4, s_lo, s_hi, *, S: int, nblk: int,
@@ -191,6 +251,7 @@ def int4_unpack_matvec_cuda(x, q4, s_lo, s_hi, *, body: str, dblk: int = 1024,
     _check(x, q4, s_lo, s_hi, dblk, nblk, "int4_unpack_matvec")
     want = torch.int8 if body == "w4a8" else torch.bfloat16
     kernels.require(x.dtype == want, f"int4_unpack_matvec: {body} takes {want} x")
+    kernels.require(nblk == UNPACK_NBLK, f"int4_unpack_matvec: the kernel takes nblk={UNPACK_NBLK}")
     return _launch("int4_unpack_matvec", body, x, q4, s_lo, s_hi, UNPACK_S, nblk, dblk)
 
 

@@ -11,9 +11,13 @@ between steps.  The time per matvec is the slope between chains of 32 and
 the chain's own small ops per step stay in it.  Each chain is captured as a
 CUDA graph (the counterpart of the TPU tool's jitted chain: the host
 launches it once) and its replays are timed by CUDA events.
-A line per variant: the slice rows kc of a ring slot, microseconds per
-matvec, the weight bytes per second, and their share of the card's
-data-sheet memory rate.
+
+Kernel I runs on the tensor-core body of the int4 decode kernels
+(``csrc/int4_mma.cuh``) fed the way the decode feeds it: ``S`` is the depth
+of the producer warp's TMA ring, ``nblk`` the packed columns of a stage and
+of a work item (``nblk / 128`` boxes of ``kc`` = 64 weight rows each).  A
+line per variant: kc, microseconds per matvec, the weight bytes per second,
+and their share of the card's data-sheet memory rate.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import torch
 
 from dynam3d_torch.device import DeviceLike, mem_rate, resolve_device
 from dynam3d_torch.ops.int4 import pack_int4
-from dynam3d_torch.ops.int4_stream import ROWS, STREAM_VARIANTS, int4_stream_matvec, plan
+from dynam3d_torch.ops.int4_stream import KC, ROWS, STREAM_VARIANTS, int4_stream_matvec, plan
 
 D, N, NW, DBLK = 3072, 16384, 4, 1024
 
@@ -122,11 +126,11 @@ def sweep(variants=STREAM_VARIANTS, d: int = D, n: int = N, nw: int = NW, dblk: 
     nbytes = d * (n // 2)                      # one weight's packed bytes
     rows = []
     for S, nblk in variants:
-        kc, kslice = plan(q4, S, nblk, dblk)
+        kslice = plan(q4, "andtrick", S, nblk, dblk).kslice
         us = slope_us(lambda k, S=S, nblk=nblk: make_chain(k, S=S, nblk=nblk, dblk=dblk),
                       (x, q4, sl, sh), nw)
-        log(rate_line(f"S={S} nblk={nblk:4d} kc={kc:3d}", us, nbytes, rate))
-        rows.append(dict(S=S, nblk=nblk, kc=kc, kslice=kslice, us_per_mv=us,
+        log(rate_line(f"S={S} nblk={nblk:4d} kc={KC:3d}", us, nbytes, rate))
+        rows.append(dict(S=S, nblk=nblk, kc=KC, kslice=kslice, us_per_mv=us,
                          gb_per_s=nbytes / us / 1e3, peak_share=nbytes / us * 1e6 / rate))
     return rows
 

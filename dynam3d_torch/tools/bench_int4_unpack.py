@@ -6,12 +6,16 @@
 Port of ``tools/bench_int4_unpack.py``, timed as ``bench_int4_stream`` times
 (NW = 4 weights per chain step, slope of 32 vs 160 steps):
 
-  dma-floor : wait on every stage, write the first 8 weight rows: the
-              streaming ceiling
-  current   : shift unpack of signed-lo bytes, 2 FMAs per byte and row
-  andtrick  : the biased-lo AND form of ``nibble_matvec_acc``
-  w4a8      : int8 activations x int8 bytes, int32 sums (dp4a); the chain
-              quantises each row of x once per step, in PyTorch
+  dma-floor : the same TMA ring; wait on every stage, write the first 8
+              weight rows: the ring's streaming ceiling
+  current   : signed-lo bytes: the exact nibbles (the low one takes the
+              ^ 8 of the high one), bf16 mma.sync, f32 sums
+  andtrick  : biased-lo bytes: the same fragments, which in exact
+              arithmetic are the AND form of ``nibble_matvec_acc`` (kernel
+              I's body)
+  w4a8      : int8 activations x the raw bytes and their low nibbles, s8
+              mma.sync m16n8k32, int32 sums (the AND form literally); the
+              chain quantises each row of x once per step, in PyTorch
 
 Each body is fed the byte format it decodes: ``pack_int4`` writes biased-lo
 bytes ``16*hi + (lo+8)``, which andtrick and w4a8 read as they are; current

@@ -1,34 +1,49 @@
-"""Where kernels A and F spend their time: the tensor-core body
-(``csrc/int4_mma.cuh``) timed as it is, without its math and without its
-weight stream, on the card.
+"""Where kernels A, F, G, I and J spend their time: the tensor-core body
+(``csrc/int4_mma.cuh``, and I and J's loop in ``csrc/int4_stream.cu``)
+timed as it is, without its math, without its weight stream and without
+the ordered sum of its K slices, on the card.
 
     python -m dynam3d_torch.tools.decompose_int4_mma
+    python -m dynam3d_torch.tools.decompose_int4_mma --parent DIR
 
 Each variant is a copy of the package under ``build/decompose/<variant>/``
 (gitignored; each copy builds its kernels into its own ``build/``) whose
-``int4_mma.cuh`` is patched:
+sources are patched:
 
   asis      : unchanged;
   nomath    : the consumer warps wait for each stage and release it without
-              building fragments or running mma (an xor of the four loaded
-              words stands in, so the shared loads stay);
+              building fragments or running mma (an xor of the loaded
+              words stands in, so the shared loads stay); in I and J the
+              bf16 bodies' loop;
   nostream  : the producer arrives on each stage's full barrier without
-              copying; the consumers multiply whatever the slots hold.
+              copying; the consumers multiply whatever the slots hold;
+  nosum     : every kernel skips the ordered sum of its K slices
+              (``split_sum``, which A, E, F and G reach through
+              ``finish``): each block returns its slice's sums as the
+              item's; no workspace, no ticket, no last-block sum; y is
+              wrong.
 
 Every variant runs in a process of its own, in the order asis, nomath,
-nostream, asis (the repeat shows the spread).  Each prints one JSON line:
+nostream, nosum, asis (the repeat shows the spread).  With ``--parent
+DIR`` the tool instead times the package of the checkout ``DIR`` beside
+this one, both unpatched, in the order parent, asis, asis, parent (this
+file's timings run against either package).  Each prints one JSON line:
 the mean device ms of kernel A at the lm_head (3072 x 32064), o (3072 x
-3072) and down (8192 x 3072) shapes at 1, 8 and 16 rows and of kernel F at
-Phi-3-mini widths at 12 rows, each call after a 96 MB L2 flush (a read),
-by CUDA events, the flushes subtracted (the timing of ``chip_smoke.py``).
-The first line is the card's name and power limit.  Without a card it
-raises.
+3072) and down (8192 x 3072) shapes at 1, 8 and 16 rows, of kernel F at
+Phi-3-mini widths at 12 rows and of G at 1 row, of kernel I at the int4 tools' shapes (4
+weights of 3072 x 16384, 8 rows) for every ``STREAM_VARIANTS`` entry and
+of kernel J's dma-floor and current bodies at S = 2, nblk = 512 (w4a8's
+loop is not patched: its nomath line is as is), each call after a 96 MB
+L2 flush (a read), by CUDA events, the flushes subtracted (the timing of
+``chip_smoke.py``).  The first line is the card's name and power limit.
+Without a card it raises.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -39,40 +54,48 @@ import torch
 PACKAGE = Path(__file__).resolve().parents[1]
 ROOT = PACKAGE.parent
 WORK = ROOT / "build" / "decompose"
-ORDER = ("asis", "nomath", "nostream", "asis")
+ORDER = ("asis", "nomath", "nostream", "nosum", "asis")
+PARENT_ORDER = ("parent", "asis", "asis", "parent")
 
-# (the text the variant replaces, its replacement) in csrc/int4_mma.cuh
+# (source in csrc/, the text the variant replaces, its replacement)
 PATCHES = {
-    "nomath": ("""    uint32_t b[NT][2];
+    "nomath": [("int4_mma.cuh", """    uint32_t b[NT][2];
     b_frags<NT>(xs, kx + q * 16, b);
     uint32_t a[4][4];
-    a_frags(w0, w1, w2, w3, a);
+    a_frags(w[0], w[1], w[2], w[3], a);
 #pragma unroll
     for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int m = 0; m < 4; ++m) mma_bf16(acc.c[n][m], a[m], b[n][0], b[n][1]);""",
-               """    acc.c[0][0][0] += __uint_as_float((w0 ^ w1 ^ w2 ^ w3) & 0x3f800000u);"""),
-    "nostream": ("""    mbar_expect_tx(&r.full[slot], (uint32_t)kSlotBytes);
+                """    acc.c[0][0][0] += __uint_as_float((w[0] ^ w[1] ^ w[2] ^ w[3]) & 0x3f800000u);"""),
+               ("int4_stream.cu", """          a_frags<BODY == kCurrent>(wv[0], wv[1], wv[2], wv[3], a);
+#pragma unroll
+          for (int m = 0; m < 4; ++m) mma_bf16(acc[b].c[0][m], a[m], bf[0][0], bf[0][1]);""",
+                """          acc[b].c[0][0][0] +=
+              __uint_as_float((wv[0] ^ wv[1] ^ wv[2] ^ wv[3] ^ bf[0][0]) & 0x3f800000u);""")],
+    "nostream": [("int4_mma.cuh", """    mbar_expect_tx(&r.full[slot], (uint32_t)(boxes * kSlotBytes));
     // order the consumers' generic reads of the slot before the async write
     asm volatile("fence.proxy.async.shared::cta;\\n" ::: "memory");
-    tma_box(r.buf + slot * kSlotBytes, map, col0, k, &r.full[slot]);""",
-                 """    mbar_arrive(&r.full[slot]);"""),
+    for (int b = 0; b < boxes; ++b)
+      tma_box(r.buf + (slot * boxes + b) * kSlotBytes, map, col0 + b * kCols, k, &r.full[slot]);""",
+                  """    mbar_arrive(&r.full[slot]);""")],
+    "nosum": [("int4_mma.cuh", """                                          int* is_last) {
+  if (nsplit == 1) return true;""", """                                          int* is_last) {
+  return true;""")],
 }
 
 
-def _variant(name: str, work: Path = WORK, source: str = "int4_mma.cuh",
-             patches: dict = PATCHES) -> Path:
-    """A copy of the package under ``work / name`` with ``name``'s patch of
-    ``csrc/<source>`` applied; raises when the source no longer holds the
-    patched text."""
+def _variant(name: str, work: Path = WORK, patches: dict = PATCHES,
+             package: Path = PACKAGE) -> Path:
+    """A copy of ``package`` under ``work / name`` with ``name``'s patches
+    applied; raises when a source no longer holds the patched text."""
     dst = work / name
     shutil.rmtree(dst, ignore_errors=True)
     dst.mkdir(parents=True)
-    shutil.copytree(PACKAGE, dst / PACKAGE.name,
+    shutil.copytree(package, dst / PACKAGE.name,
                     ignore=shutil.ignore_patterns("__pycache__"))
-    if name in patches:
+    for source, old, new in patches.get(name, ()):
         src = dst / PACKAGE.name / "csrc" / source
-        old, new = patches[name]
         text = src.read_text()
         if old not in text:
             raise RuntimeError(f"decompose: the {name} patch no longer applies to {source}")
@@ -124,7 +147,14 @@ def _time_ms(fn, flush, iters: int = 20) -> float:
 def measure() -> dict:
     """This process's package (a variant's copy) on the card."""
     import dynam3d_torch
-    from dynam3d_torch.ops.int4 import int4_matvec_cuda, int4_mlp_cuda, pack_int4
+    from dynam3d_torch.ops.int4 import (
+        int4_matvec_cuda, int4_mlp_block_cuda, int4_mlp_cuda, pack_int4,
+    )
+    from dynam3d_torch.ops.int4_stream import (
+        STREAM_VARIANTS, int4_stream_matvec_cuda, int4_unpack_matvec_cuda,
+    )
+    from dynam3d_torch.tools.bench_int4_stream import DBLK, make_weights
+    from dynam3d_torch.tools.bench_int4_unpack import feed
 
     if Path(dynam3d_torch.__file__).resolve().parents[1] != Path.cwd().resolve():
         raise RuntimeError("decompose: the variant did not import its own copy of the package")
@@ -141,12 +171,26 @@ def measure() -> dict:
     dn = pack_int4(torch.randn(8192, 3072, generator=gen, device="cuda") * 0.02)
     x = torch.randn(12, 3072, generator=gen, device="cuda").to(torch.bfloat16)
     out["F rows=12"] = _time_ms(lambda: int4_mlp_cuda(x, gu, dn), flush)
+    x1, ln_w = x[:1].contiguous(), 1.0 + 0.1 * torch.randn(3072, generator=gen, device="cuda")
+    out["G rows=1"] = _time_ms(
+        lambda: int4_mlp_block_cuda(x1, ln_w, gu, dn, 1e-5, out_dtype=torch.bfloat16), flush)
+    del gu, dn
+    x, q4, sl, sh = make_weights(device="cuda")
+    for S, nblk in STREAM_VARIANTS:
+        out[f"I S={S} nblk={nblk}"] = _time_ms(
+            lambda: int4_stream_matvec_cuda(x, q4, sl, sh, S=S, nblk=nblk, dblk=DBLK), flush)
+    for body in ("dma-floor", "current"):
+        qb = feed(body, q4)
+        out[f"J {body}"] = _time_ms(
+            lambda: int4_unpack_matvec_cuda(x, qb, sl, sh, body=body, dblk=DBLK), flush)
     return out
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--measure", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="a checkout whose package is timed beside this one, unpatched")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("decompose_int4_mma times the card: it needs a CUDA device")
@@ -155,10 +199,19 @@ def main(argv=None) -> None:
         return
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True).stdout.strip(), flush=True)
-    dirs = {name: _variant(name) for name in dict.fromkeys(ORDER)}
-    for name in ORDER:
-        subprocess.run([sys.executable, "-m", "dynam3d_torch.tools.decompose_int4_mma",
-                        "--measure", name], cwd=dirs[name], check=True)
+    if args.parent is not None:
+        order = PARENT_ORDER
+        dirs = {"parent": _variant("parent", package=args.parent.resolve() / PACKAGE.name),
+                "asis": _variant("asis")}
+    else:
+        order = ORDER
+        dirs = {name: _variant(name) for name in dict.fromkeys(ORDER)}
+    for name in order:
+        # this file's measure() against the copy's package
+        subprocess.run([sys.executable, str(Path(__file__).resolve()), "--measure", name],
+                       cwd=dirs[name], env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+                           [str(dirs[name])] + [p for p in [os.environ.get("PYTHONPATH")] if p])),
+                       check=True)
 
 
 if __name__ == "__main__":

@@ -42,16 +42,16 @@ from dynam3d_torch.tools.decompose_int4_mma import ROOT, _time_ms, _variant, rea
 WORK = ROOT / "build" / "decompose_nerf"
 ORDER = ("asis", "nomma", "noexchange", "nostream", "asis")
 
-# (the text the variant replaces, its replacement) in csrc/nerf_mlp.cu
+# (source in csrc/, the text the variant replaces, its replacement)
 PATCHES = {
-    "nomma": ("""        wgmma_tile<WN>(acc, desc(act_s + kt * kKBlockBytes + k * 2 * kKStep),
+    "nomma": [("nerf_mlp.cu", """        wgmma_tile<WN>(acc, desc(act_s + kt * kKBlockBytes + k * 2 * kKStep),
                        desc(b_s + slot * kSlotBytes + k * 2 * kKStep), kt > 0 || k > 0);""",
-              """        ;"""),
-    "noexchange": ("""        for (int dst = 0; dst < CL; ++dst) *reinterpret_cast<uint4*>(tiles[dst] + off) = chunk;""",
-                   """        for (int dst = 0; dst < 1; ++dst) *reinterpret_cast<uint4*>(act + off) = chunk;"""),
-    "nostream": ("""        mbar_expect_tx(&full[slot], (uint32_t)kSlotBytes);
+               """        ;""")],
+    "noexchange": [("nerf_mlp.cu", """        for (int dst = 0; dst < CL; ++dst) *reinterpret_cast<uint4*>(tiles[dst] + off) = chunk;""",
+                    """        for (int dst = 0; dst < 1; ++dst) *reinterpret_cast<uint4*>(act + off) = chunk;""")],
+    "nostream": [("nerf_mlp.cu", """        mbar_expect_tx(&full[slot], (uint32_t)kSlotBytes);
         tma_box(ring + slot * kSlotBytes, &wmap, (t % KB) * kBK, (t / KB) * D + c0, &full[slot]);""",
-                 """        mbar_arrive(&full[slot]);"""),
+                  """        mbar_arrive(&full[slot]);""")],
 }
 
 
@@ -88,7 +88,7 @@ def main(argv=None) -> None:
         return
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True).stdout.strip(), flush=True)
-    dirs = {name: _variant(name, WORK, "nerf_mlp.cu", PATCHES) for name in dict.fromkeys(ORDER)}
+    dirs = {name: _variant(name, WORK, PATCHES) for name in dict.fromkeys(ORDER)}
     for name in ORDER:
         subprocess.run([sys.executable, "-m", "dynam3d_torch.tools.decompose_nerf_mlp",
                         "--measure", name], cwd=dirs[name], check=True)

@@ -284,14 +284,29 @@ def test_tool_chains_and_check_run_on_the_plain_versions():
 
 
 def test_stage_and_split_rows():
-    """kc keeps a block's ring within 64 KB; kslice splits D until the grid
-    has two blocks per SM, at the tools' full shapes on 132 SMs."""
+    """A ring slot is the body's 64-row box; check_stages raises for stage
+    widths, slot counts and scale groups the kernels do not take; kslice
+    splits D until the work items fill the card's resident blocks, at the
+    tools' full shapes on 132 SMs (blocks per SM as an NVIDIA H100 80GB
+    HBM3 reports them for each variant)."""
+    per_sm = {(2, 512): 2, (3, 512): 1, (4, 512): 1, (4, 256): 2, (6, 256): 1, (8, 128): 2}
     for S, nblk in T.STREAM_VARIANTS:
-        kc = T.stage_rows(S, nblk, 1024)
-        assert S * kc * nblk <= T.RING_BYTES < 2 * S * kc * nblk and 1024 % kc == 0
-        ks = T.split_rows(4, 3072, 8192, 1024, nblk, kc, 132)
-        assert 4 * (8192 // nblk) * (3072 // ks) >= 264 and 1024 % ks == 0 and ks % kc == 0
-    assert T.split_rows(4, 3072, 8192, 1024, 512, 64, 132) == 512
+        T.check_stages(S, nblk, 1024)
+        kc = T.KC
+        assert 1024 % kc == 0
+        slots = 132 * per_sm[(S, nblk)]
+        ks = T.split_rows(4, 3072, 8192, 1024, nblk, kc, slots)
+        assert T.work_items(4, 3072, 8192, nblk, ks) >= slots and 1024 % ks == 0
+        assert ks == 1024 or T.work_items(4, 3072, 8192, nblk, 2 * ks) < slots
+        assert ks % kc == 0
+    assert T.split_rows(4, 3072, 8192, 1024, 512, 64, 264) == 512
+    assert T.split_rows(4, 3072, 8192, 1024, 512, 64, 132) == 1024
+    with pytest.raises(ValueError, match="nblk must be"):
+        T.check_stages(2, 384, 1024)
+    with pytest.raises(ValueError, match="S must be"):
+        T.check_stages(9, 512, 1024)
+    with pytest.raises(ValueError, match="multiple"):
+        T.check_stages(2, 512, 96)
 
 
 def test_slope_timing_needs_the_card():
