@@ -13,7 +13,7 @@ Phases, each printed as it finishes:
 2. ``build``: compile every CUDA kernel of the port at once (one ``nvcc``
    per source, into ``build/dynam3d_torch/``), print the registers and
    spills ``ptxas -v`` reports for each instantiation of kernels A, E, F,
-   C, I and J, and every warning or performance note of any build;
+   C, I, J, B and H, and every warning or performance note of any build;
 3. ``matvec``: kernel A (``csrc/int4_matvec.cu``) against its plain PyTorch
    version at the main path's shapes (lm_head, qkv, o, gate_up + SwiGLU,
    down at 1, 8, 12 and 16 rows), with its time, the plain version's time,
@@ -23,7 +23,8 @@ Phases, each printed as it finishes:
    (five launches) against the plain versions at Phi-3-mini widths,
    Tmax=1024 with ~900 valid rows, in the plain B=1, shared-cache k=8 and
    grouped B=4/g=2 modes, with SDPA (kernel B) and the layer as library
-   calls on dequantized weights as yardsticks;
+   calls on dequantized weights as yardsticks, and kernel B's work items,
+   sequence splits and waves in each mode;
 5. ``parity``: a small config (its tiny YOLOv8-seg at conf 0.1) through the
    port on the card and on the CPU (plain versions) with the same int4
    weights: identical ids per step;
@@ -65,7 +66,7 @@ Phases, each printed as it finishes:
 13. ``attn``: kernel H (``csrc/decode_attn_layer.cu``) against its plain
    version at Phi-3-mini widths, Tmax=1024, ~870 valid rows with holes, with
    dequantized bf16 matmuls plus ``scaled_dot_product_attention`` as the
-   yardstick;
+   yardstick, and its cooperative grid and sequence splits;
 14. ``routes``: the small config on the card and on the CPU through every
    decode route of this slice (B=1 split, B=1 unfused speculation with and
    without ``DYNAM3D_INT4_GRID2D``, B=3 grouped speculation, B=12 unfused):
@@ -200,7 +201,8 @@ def phase_build(ctx):
         kernels.library(name)
     log(f"[build] kernels {list(kernels.SOURCES)} built in "
         f"{time.perf_counter() - t0:.2f} s")
-    for name in ("int4_matvec", "int4_matvec2d", "int4_mlp", "nerf_mlp", "int4_stream"):
+    for name in ("int4_matvec", "int4_matvec2d", "int4_mlp", "nerf_mlp", "int4_stream",
+                 "decode_attn", "decode_attn_layer"):
         for fn, regs, st, ld in kernels.ptxas_summary(name):
             log(f"[build] ptxas {name}.cu {fn}: {regs} registers, spill stores {st} B, "
                 f"spill loads {ld} B")
@@ -303,7 +305,7 @@ def phase_ring(ctx):
     """Kernel B and the five-launch decode layer vs the plain versions."""
     torch = ctx["torch"]
     from dynam3d_torch.ops.decode import (
-        decode_attn_cuda, decode_attn_plain, decode_layer_ring_cuda,
+        attn_plan, decode_attn_cuda, decode_attn_plain, decode_layer_ring_cuda,
         decode_layer_ring_plain, scan_length,
     )
     from dynam3d_torch.ops.int4 import int4_matvec_plain, pack_int4
@@ -374,12 +376,15 @@ def phase_ring(ctx):
                       for k in ("qkv", "o", "gate_up", "down"))
         l_b_ms, l_b_by = bound(w_bytes + a_bytes, a_ops + 2.0 * B * (D * 3 * D + D * D + D * 2 * I + I * D),
                                ctx["card"])
+        pl = attn_plan(y.device, hd, H, B // group, t_scan)
         row = dict(mode=mode, B=B, group=group, t_scan=t_scan, valid_rows=valid_rows,
                    layer_err=max(errs), layer_tol=min(tols), layer_ms=layer_ms,
                    layer_plain_ms=layer_plain_ms, layer_library_ms=layer_lib_ms,
-                   layer_bound_ms=l_b_ms, attn_err=a_err, attn_tol=a_tol, attn_ms=a_ms,
-                   attn_plain_ms=a_plain_ms, attn_library_ms=lib_ms, attn_bound_ms=a_b_ms,
-                   attn_bound_by=a_b_by)
+                   layer_bound_ms=l_b_ms, layer_bytes=w_bytes + a_bytes, attn_err=a_err,
+                   attn_tol=a_tol, attn_ms=a_ms, attn_plain_ms=a_plain_ms,
+                   attn_library_ms=lib_ms, attn_bound_ms=a_b_ms, attn_bound_by=a_b_by,
+                   attn_bytes=a_bytes, items=pl.items, splits=pl.nsplit, tiles_per_split=pl.tps,
+                   blocks_per_sm=pl.blocks_per_sm, waves=pl.waves)
         out.append(row)
         log(f"[ring] {json.dumps(row)}")
         max_err = max(max_err, a_err)
@@ -683,10 +688,11 @@ def phase_attn(ctx):
     slot 900 with holes, with dequantized bf16 matmuls plus SDPA as the
     yardstick."""
     torch = ctx["torch"]
+    from dynam3d_torch.ops import kernels
     from dynam3d_torch.ops.decode import (
-        decode_attn_layer_cuda, decode_attn_layer_plain, scan_length,
+        attn_splits, decode_attn_layer_cuda, decode_attn_layer_plain, scan_length,
     )
-    from dynam3d_torch.ops.int4 import pack_int4
+    from dynam3d_torch.ops.int4 import pack_int4, plan
 
     gen, timer = ctx["gen"], ctx["timer"]
     D, H, hd, tmax, pos, li = 3072, 32, 96, 1024, 900, 1
@@ -730,9 +736,13 @@ def phase_attn(ctx):
               + x.numel() * 2 + mask.numel() + 2 * cos.numel() * 4 + 3 * D * 2)
     ops = 2.0 * (D * 3 * D + D * D) + 4.0 * valid_rows * D
     b_ms, b_by = bound(nbytes, ops, ctx["card"])
+    grid, ks1, ks3 = plan(kernels.library("decode_attn_layer"), "decode_attn_layer_plan",
+                          x.device, hd, qkv.dp, qkv.n2, o.dp, o.n2, qkv.dblk)
+    nsplit, tps = attn_splits(grid, H, t_scan)
     row = dict(D=D, heads=H, hd=hd, tmax=tmax, pos=pos, valid_rows=valid_rows, max_abs_err=err,
                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-               bytes=nbytes)
+               bytes=nbytes, grid=grid, ks1=ks1, ks3=ks3, splits=nsplit, tiles_per_split=tps,
+               items=H * nsplit)
     log(f"[attn] {json.dumps(row)}")
     ctx["attn"] = row
 

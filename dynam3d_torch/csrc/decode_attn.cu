@@ -1,5 +1,6 @@
-// Decode-step attention for Hopper (sm_90a): RoPE + cached attention with
-// the in-flight rows of a group folded in, one block per (row, head).
+// Kernel B: decode-step attention for Hopper (sm_90a): RoPE + attention
+// over the cache rows of the live prefix with the in-flight rows of a group
+// folded in, on the tensor cores, split along the sequence.
 //
 // Together with int4_matvec.cu this replaces the TPU kernel
 // dynam3d_tpu/ops/pallas_decode.py::decode_layer_ring (_decode_ring_kernel):
@@ -10,203 +11,134 @@
 // Inputs: qkv [rows, 3D] f32 (the qkv matvec output, q | k | v), cos/sin
 // [rows, hd/2] f32, the flat bf16 caches [L, Bc, Tmax, D], a per-row byte mask
 // [rows, Tmax] (row stride 0 broadcasts one mask), the scan length t_scan and
-// the group size.  Row r belongs to group r / group, streams cache row
+// the group size.  Row r belongs to group r / group, attends cache row
 // r / group and folds the new k/v of rows g0..r (g0 = first row of its group)
 // after the cache: group = 1 is the plain mode (each row folds only itself),
 // group = rows is the shared-cache verify mode (k drafts of one sequence),
 // anything between is the grouped mode.  Outputs: ctx [rows, D] bf16 and the
 // roped k_new / v_new [rows, D] bf16 for the caller's cache write.
 //
-// Bound: the cache rows of the live prefix are read once per (row, head)
-// block (2 * t_scan * hd * 2 bytes), a handful of operations per byte, so
-// the kernel is bound by bytes.  Each thread owns whole cache rows (16-byte
-// loads along the head slice, many rows in flight per warp) and keeps its own
-// f32 online-softmax state; the block merges the per-thread states once at
-// the end.  All softmax and context arithmetic is f32; q and k are rounded to
-// bf16 after RoPE as the cache stores them.
+// Bound: the live cache rows of each (head, group) are read once (2 *
+// t_scan * hd * 2 bytes per head and group), about 4 * group operations per
+// cache byte, so bytes bound it.  Design (decode_attn.cuh): a block per work
+// item (head, cache group, sequence split), a producer warp streaming [64,
+// hd] K and V tiles by TMA into a two-slot ring, four consumer warps scoring
+// all rows of the group at once on mma.sync with P split hi/lo, and the
+// (head, group)'s last block merging the splits in order.  One block per SM
+// (the plan keeps the items to one per SM): the body then holds its state
+// in registers without spilling at hd 96, which two blocks per SM did not
+// allow (168 registers, 68 B of spills, 13% slower at k = 8).  The first
+// design ran a block per (row, head) on the CUDA cores, each thread owning
+// whole cache rows, so the 8 rows of shared-cache verify each streamed the
+// same slice: 0.0444 ms at k = 8 (chip_smoke.py on an NVIDIA H100 80GB HBM3
+// at 700 W; PERF.md section 6).
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "decode_attn.cuh"
+
+namespace da = d3attn;
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxRows = 8;
+struct Params {
+  da::Args a;
+  CUtensorMap k_map;   // the layer's caches [Bc, t_scan, D]
+  CUtensorMap v_map;
+};
 
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16(v));
+template <int HD>
+__global__ void __launch_bounds__(da::kThreads, 1) decode_attn_kernel(
+    const __grid_constant__ Params p) {
+  extern __shared__ __align__(128) unsigned char smem_dyn[];
+  const uint32_t a0 = d3sm90::smem_u32(smem_dyn);
+  unsigned char* base = smem_dyn + (((a0 + da::kAlign - 1) & ~(uint32_t)(da::kAlign - 1)) - a0);
+  const da::Smem s = da::smem_at<HD, da::kMaxRows>(base);
+  const int items = p.a.heads * p.a.groups * p.a.nsplit;
+  if (threadIdx.x == 0) da::ring_init(s);
+  __syncthreads();
+  if (threadIdx.x >= da::kConsumers) {   // the producer warp
+    da::produce_tiles<HD>(s, p.a, &p.k_map, &p.v_map, items, 0, da::block_tiles(p.a, items));
+    return;
+  }
+  int it = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x)
+    da::consume_item<HD, da::kMaxRows>(s, p.a, item, it);
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads) decode_attn_kernel(
-    const float* __restrict__ qkv, int rows, int D,
-    const float* __restrict__ cos_t, const float* __restrict__ sin_t, int cs_stride,
-    const __nv_bfloat16* __restrict__ cache_k, const __nv_bfloat16* __restrict__ cache_v,
-    int n_cache, int tmax, int li, const uint8_t* __restrict__ mask, int mask_stride,
-    int t_scan, int group, float scale,
-    __nv_bfloat16* __restrict__ ctx, __nv_bfloat16* __restrict__ k_new,
-    __nv_bfloat16* __restrict__ v_new) {
-  constexpr int half = HD / 2;
-  __shared__ float q_s[HD];
-  __shared__ float kf_s[kMaxRows][HD];
-  __shared__ float vf_s[kMaxRows][HD];
-  __shared__ float red_m[kWarps], red_l[kWarps];
-  __shared__ float red_acc[kWarps][HD];
-  __shared__ float s_fold[kMaxRows];
+constexpr int smem_bytes() {
+  return da::kAlign + da::Layout<HD, da::kMaxRows>::kBytes;
+}
 
-  const int h = blockIdx.x, r = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g0 = (r / group) * group;
-  const int c = r / group;
-  const int nf = r - g0 + 1;   // in-flight rows folded after the cache
+// The kernel at head dim hd with its shared-memory opt-in raised (once per
+// process), or nullptr for a head dim it does not take
+template <int HD>
+void* prepared() {
+  static const cudaError_t e = cudaFuncSetAttribute(
+      decode_attn_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<HD>());
+  return e == cudaSuccess ? reinterpret_cast<void*>(decode_attn_kernel<HD>) : nullptr;
+}
 
-  // ---- prologue: RoPE (rotate-half inside the head) for q_r and k_j, j in g0..r ----
-  for (int i = tid; i < nf * HD; i += kThreads) {
-    const int jr = i / HD, e = i - jr * HD, j = g0 + jr;
-    const float* row = qkv + (long)j * 3 * D;
-    const float* cs = cos_t + (long)j * cs_stride;
-    const float* sn = sin_t + (long)j * cs_stride;
-    const int f = e < half ? e : e - half;
-    const float kx = row[D + h * HD + e];
-    const float kp = row[D + h * HD + (e < half ? e + half : e - half)];
-    const float kr = e < half ? kx * cs[f] - kp * sn[f] : kx * cs[f] + kp * sn[f];
-    kf_s[jr][e] = bf16_round(kr);
-    vf_s[jr][e] = bf16_round(row[2 * D + h * HD + e]);
-    if (j == r) {
-      const float qx = row[h * HD + e];
-      const float qp = row[h * HD + (e < half ? e + half : e - half)];
-      const float qr = e < half ? qx * cs[f] - qp * sn[f] : qx * cs[f] + qp * sn[f];
-      q_s[e] = bf16_round(qr);
-      k_new[(long)r * D + h * HD + e] = __float2bfloat16(kr);
-      v_new[(long)r * D + h * HD + e] = __float2bfloat16(row[2 * D + h * HD + e]);
-    }
-  }
-  __syncthreads();
-
-  // ---- stream the cache: thread owns rows t = tid, tid + 128, ... ----
-  float m = -1e30f, l = 0.f;
-  float acc[HD];
-#pragma unroll
-  for (int e = 0; e < HD; ++e) acc[e] = 0.f;
-  const long base = ((long)li * n_cache + c) * tmax * D + (long)h * HD;
-  const uint8_t* mrow = mask + (long)r * mask_stride;
-  for (int t = tid; t < t_scan; t += kThreads) {
-    if (!mrow[t]) continue;
-    const uint4* kp = reinterpret_cast<const uint4*>(cache_k + base + (long)t * D);
-    float s = 0.f;
-#pragma unroll
-    for (int v8 = 0; v8 < HD / 8; ++v8) {
-      const uint4 w = __ldg(kp + v8);
-      const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&w);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float2 f2 = __bfloat1622float2(p2[u]);
-        s = fmaf(q_s[v8 * 8 + 2 * u], f2.x, s);
-        s = fmaf(q_s[v8 * 8 + 2 * u + 1], f2.y, s);
-      }
-    }
-    s *= scale;
-    float alpha = 1.f, p;
-    if (s > m) { alpha = expf(m - s); m = s; p = 1.f; }
-    else { p = expf(s - m); }
-    l = l * alpha + p;
-    const uint4* vp = reinterpret_cast<const uint4*>(cache_v + base + (long)t * D);
-#pragma unroll
-    for (int v8 = 0; v8 < HD / 8; ++v8) {
-      const uint4 w = __ldg(vp + v8);
-      const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&w);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float2 f2 = __bfloat1622float2(p2[u]);
-        acc[v8 * 8 + 2 * u] = fmaf(acc[v8 * 8 + 2 * u], alpha, p * f2.x);
-        acc[v8 * 8 + 2 * u + 1] = fmaf(acc[v8 * 8 + 2 * u + 1], alpha, p * f2.y);
-      }
-    }
-  }
-
-  // ---- merge the per-thread states: block max, then rescaled sums ----
-  float mw = m;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) mw = fmaxf(mw, __shfl_xor_sync(0xffffffffu, mw, o));
-  if (lane == 0) red_m[warp] = mw;
-  __syncthreads();
-  float M = red_m[0];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) M = fmaxf(M, red_m[w]);
-  const float f = expf(m - M);
-  float lw = l * f;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) lw += __shfl_xor_sync(0xffffffffu, lw, o);
-  if (lane == 0) red_l[warp] = lw;
-#pragma unroll
-  for (int e = 0; e < HD; ++e) {
-    float a = acc[e] * f;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
-    if (lane == 0) red_acc[warp][e] = a;
-  }
-  // fold scores of the in-flight rows: warp w takes rows w, w+4, ...
-  for (int jr = warp; jr < nf; jr += kWarps) {
-    float s = 0.f;
-    for (int e = lane; e < HD; e += 32) s = fmaf(q_s[e], kf_s[jr][e], s);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (lane == 0) s_fold[jr] = s * scale;
-  }
-  __syncthreads();
-
-  // ---- fold rows g0..r in order after the cache, normalize, write ctx ----
-  float L = 0.f;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) L += red_l[w];
-  for (int e = tid; e < HD; e += kThreads) {
-    float a = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) a += red_acc[w][e];
-    float Mr = M, Lr = L;
-    for (int jr = 0; jr < nf; ++jr) {
-      const float s = s_fold[jr];
-      const float mn = fmaxf(Mr, s);
-      const float al = expf(Mr - mn), p = expf(s - mn);
-      Lr = Lr * al + p;
-      a = a * al + p * vf_s[jr][e];
-      Mr = mn;
-    }
-    ctx[(long)r * D + h * HD + e] = __float2bfloat16(a / fmaxf(Lr, 1e-30f));
+void* kernel_for_hd(int hd, int* smem) {
+  switch (hd) {
+    case 32: *smem = smem_bytes<32>(); return prepared<32>();
+    case 64: *smem = smem_bytes<64>(); return prepared<64>();
+    case 96: *smem = smem_bytes<96>(); return prepared<96>();
+    case 128: *smem = smem_bytes<128>(); return prepared<128>();
+    default: return nullptr;
   }
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch; 1 (cudaErrorInvalidValue) for
-// an unsupported head size or row count.
+// out2 = {SMs, blocks of the kernel an SM holds} at head dim hd, from which
+// the caller splits the sequence (ops/decode.py: attn_plan).  Returns 0, a
+// CUDA error code, or 1 for a head dim it does not take.
+extern "C" int decode_attn_occupancy(int hd, int* out2) {
+  int smem = 0;
+  void* k = kernel_for_hd(hd, &smem);
+  if (k == nullptr) return 1;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&out2[0], cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out2[1], k, da::kThreads, smem);
+  return (int)e;
+}
+
+// Kernel B over heads * (rows / group) * nsplit work items, tps tiles of 64
+// cache rows each (the last split may have fewer).  ws: f32 [items][16 +
+// 8 * hd]; tickets: zeroed uint32 [heads * rows / group], left zeroed.
+// Returns cudaGetLastError() after the launch; 1 (cudaErrorInvalidValue)
+// for arguments it does not take.
 extern "C" int decode_attn(const float* qkv, int rows, int D, int heads, int hd,
                            const float* cos_t, const float* sin_t, int cs_stride,
                            const void* cache_k, const void* cache_v, int n_cache,
                            int tmax, int li, const uint8_t* mask, int mask_stride,
                            int t_scan, int group, float scale, void* ctx,
-                           void* k_new, void* v_new, void* stream) {
-  if (rows < 1 || rows > kMaxRows || group < 1 || group > kMaxRows) return 1;
-  dim3 grid(heads, rows);
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const auto* ck = reinterpret_cast<const __nv_bfloat16*>(cache_k);
-  const auto* cv = reinterpret_cast<const __nv_bfloat16*>(cache_v);
-  auto* co = reinterpret_cast<__nv_bfloat16*>(ctx);
-  auto* kn = reinterpret_cast<__nv_bfloat16*>(k_new);
-  auto* vn = reinterpret_cast<__nv_bfloat16*>(v_new);
-#define D3_LAUNCH(HD)                                                           \
-  decode_attn_kernel<HD><<<grid, kThreads, 0, st>>>(                            \
-      qkv, rows, D, cos_t, sin_t, cs_stride, ck, cv, n_cache, tmax, li, mask,   \
-      mask_stride, t_scan, group, scale, co, kn, vn)
-  switch (hd) {
-    case 32: D3_LAUNCH(32); break;
-    case 64: D3_LAUNCH(64); break;
-    case 96: D3_LAUNCH(96); break;
-    case 128: D3_LAUNCH(128); break;
-    default: return 1;
-  }
-#undef D3_LAUNCH
+                           void* k_new, void* v_new, int nsplit, int tps, float* ws,
+                           unsigned int* tickets, void* stream) {
+  const int ntiles = (t_scan + da::kTile - 1) / da::kTile;
+  if (rows < 1 || rows > da::kMaxRows || group < 1 || rows % group != 0 ||
+      rows / group > n_cache || heads * hd != D || nsplit < 1 || nsplit > da::kMaxSplits ||
+      t_scan < 0 || t_scan > tmax || (long)nsplit * tps < ntiles || D % 8 != 0)
+    return 1;
+  int smem = 0;
+  void* k = kernel_for_hd(hd, &smem);
+  if (k == nullptr) return 1;
+  Params p{da::Args{qkv, D, cos_t, sin_t, cs_stride, mask, mask_stride, t_scan, group,
+                    rows / group, heads, nsplit, tps, scale,
+                    reinterpret_cast<__nv_bfloat16*>(ctx), reinterpret_cast<__nv_bfloat16*>(k_new),
+                    reinterpret_cast<__nv_bfloat16*>(v_new), ws, tickets},
+           {}, {}};
+  const long layer = (long)li * n_cache * tmax * D * 2;
+  int rc = da::cache_map(&p.k_map, static_cast<const char*>(cache_k) + layer, D, tmax, n_cache,
+                         t_scan);
+  if (rc == 0)
+    rc = da::cache_map(&p.v_map, static_cast<const char*>(cache_v) + layer, D, tmax, n_cache,
+                       t_scan);
+  if (rc != 0) return rc;
+  void* args[] = {&p};
+  cudaLaunchKernel(k, dim3(heads * (rows / group) * nsplit), dim3(da::kThreads), args, smem,
+                   reinterpret_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }

@@ -26,8 +26,8 @@
 // for bf16 torch.matmul on the dequantized weight, and 0.0256 ms at the
 // lm_head, 1 row (384 items, A's own plan there), so no finer grid is kept.
 // The first design ran one f32 FMA per nibble and row on the CUDA cores
-// (int4_tile.cuh): 0.0601 and 0.0502 ms (chip_smoke.py on an NVIDIA H100
-// 80GB HBM3 at 700 W; PERF.md section 6).
+// (a shared tile loop, since removed): 0.0601 and 0.0502 ms (chip_smoke.py
+// on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md section 6).
 
 #include "int4_mma.cuh"
 

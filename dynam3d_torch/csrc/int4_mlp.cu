@@ -75,26 +75,6 @@ struct Params {
   CUtensorMap dn_map;
 };
 
-// The producer warp's walk over one phase: the stages of this block's work
-// items (item = blockIdx.x + i * gridDim.x), from stage j0 up to j1.
-__device__ __forceinline__ int produce_phase(const mm::Ring& ring, int it, const CUtensorMap* map,
-                                             int dp, int ks, int j0, int j1) {
-  const int ns = dp / ks, nst = ks / mm::kKc;
-  for (int j = j0; j < j1; ++j) {
-    const int item = blockIdx.x + (j / nst) * gridDim.x, s = j - (j / nst) * nst;
-    const int tile = item / ns, split = item - tile * ns;
-    mm::produce(ring, it++, map, split * ks + s * mm::kKc, tile * mm::kCols);
-  }
-  return it;
-}
-
-// stages of this block in a phase of `items` work items of nst stages
-__device__ __forceinline__ int block_stages(int items, int nst) {
-  const int b = (int)blockIdx.x, n = (int)gridDim.x;
-  const int mine = items > b ? (items - 1 - b) / n + 1 : 0;
-  return mine * nst;
-}
-
 // NT n8 tiles of x rows: 1-8 rows (NT = 1) or 9-16 (NT = 2); three blocks
 // per SM
 template <int NT>
@@ -114,13 +94,14 @@ __global__ void __launch_bounds__(mm::kThreads, 3) int4_mlp_kernel(
   __syncthreads();
 
   if (threadIdx.x >= mm::kConsumers) {   // the producer warp
-    const int total1 = block_stages(tiles1 * ns1, nst1), total2 = block_stages(tiles2 * ns2, nst2);
-    int it = produce_phase(ring, 0, &p.gu_map, p.gu_dp, p.ks1, 0, total1);
+    const int total1 = mm::block_stages(tiles1 * ns1, nst1);
+    const int total2 = mm::block_stages(tiles2 * ns2, nst2);
+    int it = mm::produce_phase(ring, 0, &p.gu_map, p.gu_dp, p.ks1, 0, total1);
     // the first down stages do not depend on h: fetch them before the barrier
     const int pre = min(mm::kStages, total2);
-    it = produce_phase(ring, it, &p.dn_map, p.dn_dp, p.ks2, 0, pre);
+    it = mm::produce_phase(ring, it, &p.dn_map, p.dn_dp, p.ks2, 0, pre);
     grid.sync();
-    produce_phase(ring, it, &p.dn_map, p.dn_dp, p.ks2, pre, total2);
+    mm::produce_phase(ring, it, &p.dn_map, p.dn_dp, p.ks2, pre, total2);
     return;
   }
 

@@ -145,6 +145,28 @@ __device__ __forceinline__ void produce(const Ring& r, int it, const CUtensorMap
   __syncwarp();
 }
 
+// The producer warp's walk over a matvec phase of a persistent grid (the
+// cooperative kernels F, G and H): the stages of this block's work items
+// (item = blockIdx.x + i * gridDim.x, nst = ks / kKc stages each), from
+// stage j0 up to j1; returns the ring's running count.
+__device__ __forceinline__ int produce_phase(const Ring& ring, int it, const CUtensorMap* map,
+                                             int dp, int ks, int j0, int j1) {
+  const int ns = dp / ks, nst = ks / kKc;
+  for (int j = j0; j < j1; ++j) {
+    const int item = blockIdx.x + (j / nst) * gridDim.x, s = j - (j / nst) * nst;
+    const int tile = item / ns, split = item - tile * ns;
+    produce(ring, it++, map, split * ks + s * kKc, tile * kCols);
+  }
+  return it;
+}
+
+// stages of this block in a phase of `items` work items of nst stages
+__device__ __forceinline__ int block_stages(int items, int nst) {
+  const int b = (int)blockIdx.x, n = (int)gridDim.x;
+  const int mine = items > b ? (items - 1 - b) / n + 1 : 0;
+  return mine * nst;
+}
+
 template <int NT>
 struct Acc {
   float c[NT][4][4];   // [n8 tile][M tile: lo0, lo1, hi0, hi1][C register]

@@ -21,15 +21,24 @@ folds the rows of its group up to itself).
 Numerics (kernels B and H): all attention arithmetic is f32 (the TPU
 kernels' bf16 roundings of ``k*q`` products and of the rescale lanes are not
 reproduced); q/k/v and the context are rounded to bf16 as the cache stores
-them.  The ring's residual between the attention and MLP halves stays f32;
-kernel H rounds its output to bf16, as the split route's reference does.
+them.  On the tensor cores (``csrc/decode_attn.cuh``) the scores are exact
+products of bf16 values summed in f32, and the probabilities P enter the
+context product split in two bf16 parts, P = P_hi + P_lo (relative error
+about 2^-17), each multiplied by V in its own mma.  The ring's residual
+between the attention and MLP halves stays f32; kernel H rounds its output
+to bf16, as the split route's reference does.
+
+Both kernels split each (head, cache group)'s scan into work items of 64-row
+tiles (:func:`attn_splits`, :func:`attn_plan`); every query row of the group
+is scored against one pass over the item's rows, and the splits are merged
+in order.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Sequence, Tuple, Union
+from typing import Dict, NamedTuple, Sequence, Tuple, Union
 
 import torch
 
@@ -41,6 +50,8 @@ from dynam3d_torch.ops.int4 import (
 
 ROWS = 512        # cache rows per scan block (Tmax must be a multiple)
 MAX_ROWS = 8      # batch rows per decode layer
+TILE = 64         # cache rows per tile of the attention body (csrc/decode_attn.cuh)
+MAX_SPLITS = 32   # sequence splits per (head, group) the body merges
 
 
 def scan_length(pos: Union[int, Sequence[int]], tmax: int) -> int:
@@ -49,6 +60,61 @@ def scan_length(pos: Union[int, Sequence[int]], tmax: int) -> int:
     must be False beyond the write slots."""
     p = max(pos) if isinstance(pos, (list, tuple)) else int(pos)
     return min(tmax, -(-p // ROWS) * ROWS)
+
+
+def attn_splits(slots: int, pairs: int, t_scan: int) -> Tuple[int, int]:
+    """``(nsplit, tps)``: the sequence splits of each of ``pairs`` (head,
+    cache group) pairs and the 64-row tiles per split.  As many splits as
+    keep the work items (pairs x splits) within ``slots`` (at least one),
+    but no more than the tiles or MAX_SPLITS; then as few splits as that
+    many tiles per split needs (the last split may have fewer tiles).  No
+    rows: one empty split."""
+    tiles = -(-t_scan // TILE)
+    if tiles == 0:
+        return 1, 0
+    want = min(max(1, slots // pairs), tiles, MAX_SPLITS)
+    tps = -(-tiles // want)
+    return -(-tiles // tps), tps
+
+
+class AttnPlan(NamedTuple):
+    """Kernel B's launch: splits, tiles per split and work items (one block
+    each), the card's SMs and blocks per SM, and the waves the items make."""
+    nsplit: int
+    tps: int
+    items: int
+    sms: int
+    blocks_per_sm: int
+    waves: float
+
+
+_attn_card: Dict[tuple, Tuple[int, int]] = {}   # (device, hd) -> (SMs, blocks per SM)
+_attn_plans: Dict[tuple, AttnPlan] = {}
+
+
+def attn_plan(device: torch.device, hd: int, heads: int, groups: int, t_scan: int) -> AttnPlan:
+    """Kernel B's plan: as many splits as keep the work items to one per SM
+    (the kernel takes one block per SM, registers for no spills at hd 96);
+    at Phi-3-mini widths and 1024 cache rows that is 4 / 4 / 2 splits in
+    the plain / shared-cache / grouped modes, the fastest of 1-16 in each
+    (``tools/decompose_decode_attn``).  Cached per shape and device, the
+    card's answers per (device, hd)."""
+    key = (device, hd, heads, groups, t_scan)
+    got = _attn_plans.get(key)
+    if got is None:
+        card = _attn_card.get((device, hd))
+        if card is None:
+            lib = kernels.library("decode_attn")
+            _bind(lib)
+            out = (ctypes.c_int * 2)()
+            kernels.check(lib.decode_attn_occupancy(hd, out), "decode_attn_occupancy")
+            card = _attn_card[(device, hd)] = (out[0], out[1])
+        sms, per_sm = card
+        nsplit, tps = attn_splits(sms, heads * groups, t_scan)
+        items = heads * groups * nsplit
+        got = _attn_plans[key] = AttnPlan(nsplit, tps, items, sms, per_sm,
+                                          items / (sms * per_sm))
+    return got
 
 
 def _rows2d(t: torch.Tensor, rows: int) -> Tuple[torch.Tensor, int]:
@@ -128,9 +194,11 @@ def _bind(lib) -> None:
         return
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.decode_attn.argtypes = [
-        P, I, I, I, I, P, P, I, P, P, I, I, I, P, I, I, I, F, P, P, P, P,
+        P, I, I, I, I, P, P, I, P, P, I, I, I, P, I, I, I, F, P, P, P, I, I, P, P, P,
     ]
     lib.decode_attn.restype = I
+    lib.decode_attn_occupancy.argtypes = [I, P]
+    lib.decode_attn_occupancy.restype = I
     lib._d3_bound = True
 
 
@@ -160,15 +228,19 @@ def decode_attn_cuda(
     kernels.require_cuda([qkv, cache_k, cache_v, cos, sin, mask], "decode_attn")
     lib = kernels.library("decode_attn")
     _bind(lib)
-    ctx = torch.empty((B, D), dtype=torch.bfloat16, device=qkv.device)
+    dev = qkv.device
+    pl = attn_plan(dev, hd, heads, B // group, int(t_scan))
+    ctx = torch.empty((B, D), dtype=torch.bfloat16, device=dev)
     k_new = torch.empty_like(ctx)
     v_new = torch.empty_like(ctx)
+    ws = torch.empty(pl.items * MAX_ROWS * (2 + hd), dtype=torch.float32, device=dev)
+    tickets = _ticket_buffer(dev, heads * (B // group))
     rc = lib.decode_attn(
         qkv.data_ptr(), B, D, heads, hd, cos2.data_ptr(), sin2.data_ptr(),
         cs_stride, cache_k.data_ptr(), cache_v.data_ptr(), cache_k.shape[1],
         tmax, int(li), mask2.data_ptr(), m_stride, int(t_scan), int(group),
         1.0 / math.sqrt(hd), ctx.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-        kernels.stream_ptr(qkv),
+        pl.nsplit, pl.tps, ws.data_ptr(), tickets.data_ptr(), kernels.stream_ptr(qkv),
     )
     kernels.check(rc, "decode_attn")
     kernels.count(kernels.launches, "decode_attn")
@@ -302,7 +374,7 @@ def _bind_attn_layer(lib) -> None:
     lib.decode_attn_layer_plan.restype = I
     lib.decode_attn_layer.argtypes = [
         P, I, P, F, P, P, P, I, I, P, P, P, I, I, I, I, I, I, P, P, P, P, I, I, I, P, I, I,
-        I, F, P, P, P, P, P, P, P, P, P,
+        I, F, I, I, P, P, P, P, P, P, P, P, P, P,
     ]
     lib.decode_attn_layer.restype = I
     lib._d3_bound = True
@@ -332,23 +404,26 @@ def decode_attn_layer_cuda(x, ln_w, qkv, o, cache_k, cache_v, li, pos, mask, cos
     dev = x.device
     grid, ks1, ks3 = plan(lib, "decode_attn_layer_plan", dev, hd, qkv.dp, qkv.n2, o.dp, o.n2,
                           qkv.dblk)
+    t_scan = scan_length(pos, cache_k.shape[2])
+    nsplit, tps = attn_splits(grid, heads, t_scan)
     y = torch.empty(3 * D, dtype=torch.float32, device=dev)
     ctx = torch.empty(D, dtype=torch.bfloat16, device=dev)
     out = torch.empty((1, 1, D), dtype=torch.bfloat16, device=dev)
     k_new = torch.empty((1, D), dtype=torch.bfloat16, device=dev)
     v_new = torch.empty_like(k_new)
     ws1 = torch.empty((qkv.dp // ks1) * 2 * qkv.n2, dtype=torch.float32, device=dev)
+    ws2 = torch.empty(heads * nsplit * (2 + hd), dtype=torch.float32, device=dev)
     ws3 = torch.empty((o.dp // ks3) * 2 * o.n2, dtype=torch.float32, device=dev)
-    tickets = _ticket_buffer(dev, _tiles(qkv.n2) + _tiles(o.n2))
+    tickets = _ticket_buffer(dev, _tiles(qkv.n2) + _tiles(o.n2) + heads)
     rc = lib.decode_attn_layer(
         x.data_ptr(), D, ln_w.data_ptr(), float(eps), qkv.q4.data_ptr(), qkv.s_lo.data_ptr(),
         qkv.s_hi.data_ptr(), qkv.dp, qkv.n2, o.q4.data_ptr(), o.s_lo.data_ptr(),
         o.s_hi.data_ptr(), o.dp, o.n2, qkv.dblk, grid, ks1, ks3, cos.data_ptr(),
         sin.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), cache_k.shape[1],
-        cache_k.shape[2], int(li), mask.data_ptr(), scan_length(pos, cache_k.shape[2]), heads,
-        hd, 1.0 / math.sqrt(hd), y.data_ptr(), ctx.data_ptr(), out.data_ptr(),
-        k_new.data_ptr(), v_new.data_ptr(), ws1.data_ptr(), ws3.data_ptr(),
-        tickets.data_ptr(), kernels.stream_ptr(x),
+        cache_k.shape[2], int(li), mask.data_ptr(), t_scan, heads, hd, 1.0 / math.sqrt(hd),
+        nsplit, tps, y.data_ptr(), ctx.data_ptr(), out.data_ptr(), k_new.data_ptr(),
+        v_new.data_ptr(), ws1.data_ptr(), ws2.data_ptr(), ws3.data_ptr(), tickets.data_ptr(),
+        kernels.stream_ptr(x),
     )
     kernels.check(rc, "decode_attn_layer")
     kernels.count(kernels.launches, "decode_attn_layer")
