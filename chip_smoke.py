@@ -13,7 +13,8 @@ Phases, each printed as it finishes:
 2. ``build``: compile every CUDA kernel of the port at once (one ``nvcc``
    per source, into ``build/dynam3d_torch/``), print the registers and
    spills ``ptxas -v`` reports for each instantiation of kernels A, E, F,
-   C, I, J, B and H, and every warning or performance note of any build;
+   C, I, J, B, H and D (any spill in D fails), and every warning or
+   performance note of any build;
 3. ``matvec``: kernel A (``csrc/int4_matvec.cu``) against its plain PyTorch
    version at the main path's shapes (lm_head, qkv, o, gate_up + SwiGLU,
    down at 1, 8, 12 and 16 rows), with its time, the plain version's time,
@@ -43,8 +44,13 @@ Phases, each printed as it finishes:
    as its yardstick;
 8. ``knn``: kernel D (``csrc/knn_topk.cu``) against its plain version at
    the renderer's stage-1 shape (72,144 ray samples, a 32,768-slot table of
-   35 walk frames x 576 patches, k = 4), with a chunked ``torch.matmul``
-   + ``torch.topk`` as its yardstick;
+   35 walk frames x 576 patches, k = 4), then on hard tables (dead slots
+   interleaved, exact duplicate points in different pieces with ids equal
+   to the plain version's, fewer than k live points over three or four
+   pieces, none live, k = 1 and 8, ragged query counts), the live count
+   its prologue wrote, its plan (queries a thread, tiles, grid, blocks per
+   SM, pieces a tile), its bound over the live pairs and over every slot, with
+   a chunked ``torch.matmul`` + ``torch.topk`` as its yardstick;
 9. ``render``: one full-width ``render_view`` on that table under the
    default flags (banded k-NN, kernel C) and under
    ``DYNAM3D_DISABLE_BANDED_KNN=1 DYNAM3D_ENABLE_PALLAS_KNN=1`` (kernel D,
@@ -202,10 +208,12 @@ def phase_build(ctx):
     log(f"[build] kernels {list(kernels.SOURCES)} built in "
         f"{time.perf_counter() - t0:.2f} s")
     for name in ("int4_matvec", "int4_matvec2d", "int4_mlp", "nerf_mlp", "int4_stream",
-                 "decode_attn", "decode_attn_layer"):
+                 "decode_attn", "decode_attn_layer", "knn_topk"):
         for fn, regs, st, ld in kernels.ptxas_summary(name):
             log(f"[build] ptxas {name}.cu {fn}: {regs} registers, spill stores {st} B, "
                 f"spill loads {ld} B")
+            if name == "knn_topk" and (st or ld):
+                raise AssertionError(f"knn_topk.cu {fn} spills")
     for name in kernels.SOURCES:
         for line in kernels.build_warnings(name):
             log(f"[build] {name}.cu: {line}")
@@ -995,81 +1003,36 @@ def phase_nerf(ctx):
     ctx["nerf"] = dict(entry, max_abs_err=max(r["max_abs_err"] for r in rows), rows=rows)
 
 
-def _walk_table(torch, cfg, seed=0, frames=35):
-    """A patch table filled the way a walk fills it: 576 frustum-clustered
-    patches per frame around a drifting position."""
-    import numpy as np
+def _knn_agree(torch, label, q, pts, valid, K, dk, ik, exact_ids=False):
+    """Kernel D's (dk, ik) against ``knn_topk_plain`` on the same inputs:
+    the same (1e10, -1) tails, distances within 1e-4, every id a live point
+    once per row at the distance reported, ids equal where the distances are
+    separated (all of them with ``exact_ids``), few ids differing."""
+    from dynam3d_torch.ops.knn import knn_tiled, knn_topk_plain
 
-    rng = np.random.default_rng(seed)
-    pts, pos = [], np.array([0.0, 0.0, 1.3])
-    for _ in range(frames):
-        heading = rng.uniform(0, 2 * np.pi)
-        depth = rng.uniform(0.5, 6.0, 576)
-        ang = rng.uniform(-0.7, 0.7, 576)
-        pts.append(np.stack([pos[0] + depth * np.cos(heading + ang),
-                             pos[1] + depth * np.sin(heading + ang),
-                             rng.uniform(0, 2.5, 576)], 1))
-        pos[:2] += rng.uniform(-0.5, 0.5, 2)
-    walk = np.concatenate(pts).astype(np.float32)
-    n, P = walk.shape[0], cfg.patch_capacity
-    table = np.full((P, 3), -10000.0, np.float32)
-    table[:n] = walk
-    valid = np.zeros(P, bool)
-    valid[:n] = True
-    return (torch.from_numpy(table).cuda(), torch.from_numpy(valid).cuda(),
-            torch.from_numpy(rng.normal(size=(n, cfg.fts_dim)).astype(np.float32)).cuda(),
-            torch.from_numpy(rng.uniform(0, 2 * np.pi, n).astype(np.float32)).cuda(),
-            torch.from_numpy(rng.uniform(0.01, 0.1, n).astype(np.float32)).cuda())
-
-
-def _ray_samples(torch, cfg, position=(0.3, -0.2, 1.25), heading=0.7):
-    """World ray samples [R, NS, 3] of one habitat-camera novel view."""
-    import math
-
-    from dynam3d_torch.geom.projection import ray_grid_habitat
-
-    (rx, ry, rz), _, _ = ray_grid_habitat(
-        height=cfg.view_height, width=cfg.view_width, hfov_deg=cfg.view_hfov,
-        vfov_deg=cfg.view_vfov, near=cfg.near, far=cfg.far, n_samples=cfg.n_samples)
-    ch, sh = math.cos(heading), math.sin(heading)
-    xyz = [rx * ch - ry * sh + position[0], rx * sh + ry * ch + position[1], rz + position[2]]
-    return torch.stack([torch.from_numpy(a) for a in xyz], -1).cuda()
-
-
-def phase_knn(ctx):
-    """Kernel D vs its plain version at the render stage-1 shape."""
-    torch = ctx["torch"]
-    from dynam3d_torch.config import FieldsConfig
-    from dynam3d_torch.ops.knn import knn_topk_cuda, knn_topk_plain
-
-    timer = ctx["timer"]
-    cfg = FieldsConfig()
-    K = cfg.search_num
-    pts, valid = _walk_table(torch, cfg)[:2]
-    q = _ray_samples(torch, cfg).reshape(-1, 3).contiguous()
-    dk, ik = knn_topk_cuda(q, pts, valid, K)
     dp, ip = knn_topk_plain(q, pts, valid, K)
     # one neighbour more, only to know how far the k-th stands from the next
-    d_next = knn_topk_plain(q, pts, valid, K + 1)[0][:, K]
+    d_next = knn_tiled(q, pts, valid, K + 1)[0][:, K]
     torch.cuda.synchronize()
     live = dp < 1e10
     if not torch.equal(live, dk < 1e10) or not torch.equal(ik[~live], ip[~live]):
-        raise AssertionError("knn_topk: the (1e10, -1) tails differ")
-    # f32 expansion, products rounded one by one vs the fused multiply-adds of
-    # the matmul: a few float32 steps of |q|^2 + |p|^2 (coordinates ~10 m)
-    err = (dk[live] - dp[live]).abs().max().item()
+        raise AssertionError(f"knn_topk {label}: the (1e10, -1) tails differ")
+    # f32 expansion, d' = |p|^2 - 2 q.p by three FMAs plus |q|^2, vs the
+    # matmul's q.p added to |q|^2 + |p|^2: a few float32 steps of |q|^2 +
+    # |p|^2 (coordinates ~10 m)
+    err = (dk[live] - dp[live]).abs().max().item() if bool(live.any()) else 0.0
     tol = 1e-4
     if not err <= tol:
-        raise AssertionError(f"knn_topk: distance err {err} > {tol}")
+        raise AssertionError(f"knn_topk {label}: distance err {err} > {tol}")
     # the kernel's ids name live points, once each per row, at the distances
     # it reports: recompute them in float64 from the table
     lid = ik[live]
     if not (bool((lid >= 0).all()) and bool((lid < pts.shape[0]).all())
             and bool(valid[lid.clamp(0, pts.shape[0] - 1)].all())):
-        raise AssertionError("knn_topk: a live entry names a dead or out-of-range point")
+        raise AssertionError(f"knn_topk {label}: a live entry names a dead or out-of-range point")
     srt = ik.sort(dim=1).values
     if bool(((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)).any()):
-        raise AssertionError("knn_topk: a point appears twice in one row")
+        raise AssertionError(f"knn_topk {label}: a point appears twice in one row")
     # (the f32 expansion is good to a few float32 steps of |q|^2 + |p|^2; a
     # wrong id lands metres away)
     q64, p64 = q.double()[:, None, :], pts.double()[ik.clamp(min=0)]
@@ -1077,18 +1040,105 @@ def phase_knn(ctx):
     id_tol = 2e-6 * ((q64 ** 2).sum(-1) + (p64 ** 2).sum(-1)) + 1e-6
     off = torch.maximum((d_at_ids - dk.double()).abs(), (d_at_ids - dp.double()).abs())
     if bool((off > id_tol)[live].any()):
-        raise AssertionError("knn_topk: the distance at a kernel id is not the one reported")
-    id_err = off[live].max().item()
+        raise AssertionError(f"knn_topk {label}: the distance at a kernel id is not the one reported")
+    id_err = off[live].max().item() if bool(live.any()) else 0.0
     # where a distance stands more than 2 tol from its neighbours in the list
     # (and from the next point beyond it), its rank is fixed: the ids agree
     ext = torch.cat([torch.full_like(dp[:, :1], -float("inf")), dp, d_next[:, None]], 1)
     separated = live & (ext[:, 1:-1] - ext[:, :-2] > 2 * tol) & (ext[:, 2:] - ext[:, 1:-1] > 2 * tol)
     if not torch.equal(ik[separated], ip[separated]):
-        raise AssertionError("knn_topk: ids differ where the distances are separated")
+        raise AssertionError(f"knn_topk {label}: ids differ where the distances are separated")
     n_diff = int((ik != ip).sum().item())
-    n_diff_limit = max(8, ik.numel() // 10_000)
+    n_diff_limit = 0 if exact_ids else max(8, ik.numel() // 10_000)
     if n_diff > n_diff_limit:
-        raise AssertionError(f"knn_topk: {n_diff} ids differ (limit {n_diff_limit})")
+        raise AssertionError(f"knn_topk {label}: {n_diff} ids differ (limit {n_diff_limit})")
+    return dict(max_abs_err=err, tol=tol, max_dist_err_at_ids=id_err,
+                ids_separated=int(separated.sum().item()), ids_differing=n_diff,
+                ids_differing_limit=n_diff_limit, rows_with_tail=int((~live).any(1).sum().item()))
+
+
+def _knn_hard_tables(torch, walk_pts, walk_valid, rays):
+    """(label, queries, points, valid, k, forced grid or None, exact ids)
+    of the tables that hold kernel D's edges: dead slots interleaved with
+    the live ones, exact duplicate points whose copies lie in different
+    pieces (ties must go to the smaller id), fewer than k live points
+    spread over the pieces (the (1e10, -1) tail must survive the merge), no
+    live point at all, k = 1 and 8, and query counts no tile divides."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    out = []
+    # interleaved dead slots: every third slot and 10% more of the walk
+    valid = walk_valid.clone()
+    valid[::3] = False
+    valid &= torch.from_numpy(rng.uniform(size=valid.shape[0]) > 0.1).cuda()
+    for k in (1, 8):
+        out.append((f"interleaved_dead k={k} Q=10007", rays[:10007].contiguous(), walk_pts, valid,
+                    k, None, False))
+    # exact duplicates: a 16 x 16 x 8 grid of positions 1 m apart, three
+    # copies each (copy c of position j at slot c * 2048 + j; 12 tiles of
+    # 256 queries on 36 blocks cut each tile's table into its three
+    # copies); queries near grid points at offsets whose three nearest
+    # positions stand >= 0.1 m^2 apart
+    g = np.stack(np.meshgrid(np.arange(16), np.arange(16), np.arange(8), indexing="ij"),
+                 -1).reshape(-1, 3).astype(np.float32)
+    dup = torch.from_numpy(np.concatenate([g, g, g])).cuda()
+    dup_valid = torch.ones(dup.shape[0], dtype=torch.bool, device="cuda")
+    at = g[rng.integers(0, g.shape[0], 3001)]
+    qd = at + np.array([0.05, 0.15, 0.30], np.float32) + rng.uniform(-0.01, 0.01, (3001, 3))
+    qd = torch.from_numpy(qd.astype(np.float32)).cuda()
+    for k in (1, 8):
+        out.append((f"duplicates k={k} Q=3001", qd, dup, dup_valid, k, 36, True))
+    # fewer than k live points: 20 tiles on 60 blocks, three or four pieces
+    # a tile
+    few = torch.zeros_like(walk_valid)
+    few[[5, 3000, 6000, 9000, 12000, 15000, 20159]] = True
+    out.append(("seven_live k=8 Q=5003", rays[:5003].contiguous(), walk_pts, few, 8, 60, True))
+    out.append(("no_live k=4 Q=1001", rays[:1001].contiguous(), walk_pts,
+                torch.zeros_like(walk_valid), 4, None, True))
+    return out
+
+
+def _knn_launch_checked(torch, label, q, pts, valid, k, plan):
+    """Kernel D with ``plan``; the live count its prologue wrote must be
+    the table's.  Returns (dist, idx, the pieces of each tile)."""
+    from dynam3d_torch.ops.knn import knn_launch, knn_pieces
+
+    d, i, n_live = knn_launch(q, pts, valid, k, plan)
+    want = int(valid.sum().item())
+    if int(n_live.item()) != want:
+        raise AssertionError(f"knn_topk {label}: the prologue counted {int(n_live.item())} "
+                             f"live points, not {want}")
+    return d, i, [len(p) for p in knn_pieces(plan, want)]
+
+
+def phase_knn(ctx):
+    """Kernel D vs its plain version at the render stage-1 shape, then on
+    the hard tables; the plan, the pieces a tile, the live count the
+    prologue wrote, the bounds over the live pairs and over every slot."""
+    torch = ctx["torch"]
+    from dynam3d_torch.config import FieldsConfig
+    from dynam3d_torch.ops.knn import card_plan, knn_topk_cuda, knn_topk_plain
+    from dynam3d_torch.tools.decompose_knn import ray_samples, walk_table
+
+    timer = ctx["timer"]
+    cfg = FieldsConfig()
+    K = cfg.search_num
+    pts, valid = walk_table(cfg)[:2]
+    q = ray_samples(cfg).reshape(-1, 3).contiguous()
+    Q, P = q.shape[0], pts.shape[0]
+    n_live = int(valid.sum().item())
+    plan = card_plan(q.device, Q, K)
+    dk, ik, pieces = _knn_launch_checked(torch, "stage-1", q, pts, valid, K, plan)
+    check = _knn_agree(torch, "stage-1", q, pts, valid, K, dk, ik)
+    log(f"[knn] plan {json.dumps(dict(r=plan.r, tile_q=plan.tile_q, tiles=plan.tiles, grid=plan.grid, sms=plan.sms, blocks_per_sm=plan.blocks_per_sm, waves=plan.grid / (plan.sms * plan.blocks_per_sm), pieces_per_tile=[min(pieces), max(pieces)], live_points_per_block=plan.tiles * n_live / plan.grid))}")
+
+    for label, hq, hp, hv, hk, hgrid, exact in _knn_hard_tables(torch, pts, valid, q):
+        hplan = card_plan(hq.device, hq.shape[0], hk, grid=hgrid)
+        d, i, hpieces = _knn_launch_checked(torch, label, hq, hp, hv, hk, hplan)
+        got = _knn_agree(torch, label, hq, hp, hv, hk, d, i, exact_ids=exact)
+        log(f"[knn] hard table {label}: grid {hplan.grid}, pieces a tile "
+            f"{min(hpieces, default=0)}-{max(hpieces, default=0)} {json.dumps(got)}")
 
     def library():
         outs = []
@@ -1101,13 +1151,16 @@ def phase_knn(ctx):
     ms = timer(lambda: knn_topk_cuda(q, pts, valid, K))
     plain_ms = timer(lambda: knn_topk_plain(q, pts, valid, K), iters=3, warmup=1)
     lib_ms = timer(library, iters=5, warmup=1)
-    Q, P = q.shape[0], pts.shape[0]
     nbytes = Q * 12 + P * 12 + P + Q * K * (4 + 8)
-    b_ms, b_by = bound(nbytes, 8.0 * Q * P, ctx["card"], FP32_PEAK)
-    row = dict(Q=Q, P=P, k=K, live_points=int(valid.sum().item()), max_abs_err=err, tol=tol,
-               max_dist_err_at_ids=id_err, ids_separated=int(separated.sum().item()),
-               ids_differing=n_diff, ids_differing_limit=n_diff_limit, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-               bound_ms=b_ms, bound_by=b_by, bytes=nbytes)
+    # dead slots need no distance: the bound counts the live pairs; the
+    # bound over every slot (the design before this one scanned them all)
+    # is printed beside it
+    b_ms, b_by = bound(nbytes, 8.0 * Q * n_live, ctx["card"], FP32_PEAK)
+    b_all_ms, _ = bound(nbytes, 8.0 * Q * P, ctx["card"], FP32_PEAK)
+    row = dict(Q=Q, P=P, k=K, live_points=n_live, **check, ms=ms, plain_ms=plain_ms,
+               library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, bound_all_slots_ms=b_all_ms,
+               share_of_bound=b_ms / ms, share_of_bound_all_slots=b_all_ms / ms, bytes=nbytes,
+               r=plan.r, grid=plan.grid)
     log(f"[knn] {json.dumps(row)}")
     ctx["knn"] = row
 
@@ -1115,7 +1168,9 @@ def phase_knn(ctx):
 def _render_state(torch, cfg):
     from dynam3d_torch.models.memory3d.state import init_state
 
-    pts, valid, fts, pdir, pscale = _walk_table(torch, cfg)
+    from dynam3d_torch.tools.decompose_knn import walk_table
+
+    pts, valid, fts, pdir, pscale = walk_table(cfg)
     n = fts.shape[0]
     st = init_state(cfg, "cuda")
     patch_fts = st.patch_fts.clone()
@@ -1550,7 +1605,7 @@ def main(argv=None) -> int:
             replaces="dynam3d_tpu/ops/pallas_knn.py:92", launches=pre.get("knn_topk", 0),
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
-            work="render stage 1: Q=72144, P=32768, k=4"))
+            work="render stage 1: Q=72144, P=32768 (20160 live), k=4; bound over live pairs"))
     bat = ctx.get("batched_launches", {})
     new = [("int4_matvec2d", ctx.get("matvec2d"), "int4_matvec2d.cu", "pallas_int4.py:283",
             "qkv 3072x9216 at 8 rows"),

@@ -22,12 +22,14 @@ Two orders of ties:
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from dynam3d_torch import flags
 from dynam3d_torch.ops import kernels
+from dynam3d_torch.ops.int4 import _ticket_buffer
 
 BIG = 1e10
 MAX_K = 8
@@ -131,34 +133,134 @@ def _check_knn_args(queries, points, valid, k: int) -> None:
     kernels.require(1 <= k <= MAX_K, f"knn_topk: k must be 1..{MAX_K}")
 
 
+# ---------------------------------------------------------------------------
+# kernel D: plan and launch
+
+KNN_THREADS = 128          # consumer threads a block (csrc/knn_topk.cu kConsumers)
+KNN_R = 2                  # queries a thread
+
+
+@dataclass(frozen=True)
+class KnnPlan:
+    """Kernel D's launch: ``tiles`` query tiles of ``tile_q = 128 r``
+    queries (``r`` a thread), their work (tiles x the live points) cut
+    into ``grid`` equal contiguous ranges, one a block: the SMs x the
+    blocks an SM holds, one wave."""
+    r: int
+    tile_q: int
+    tiles: int
+    grid: int
+    sms: int
+    blocks_per_sm: int
+
+
+def knn_plan(nq: int, k: int, num_sms: int, blocks_per_sm: int = 1,
+             r: Optional[int] = None, grid: Optional[int] = None) -> KnnPlan:
+    """Kernel D's plan, fixed from the query count and the card (the table
+    is cut on the card, from its live count): ``r`` queries a thread
+    (default ``KNN_R``), a grid of ``num_sms * blocks_per_sm`` blocks;
+    ``r`` and ``grid`` force a plan."""
+    kernels.require(1 <= k <= MAX_K, f"knn_topk: k must be 1..{MAX_K}")
+    r = KNN_R if r is None else r
+    kernels.require(r == 2 or (k == 4 and r in (4, 8)),
+                    "knn_topk: r is 2, or 4 or 8 at k = 4 (the kernels built)")
+    tile_q = KNN_THREADS * r
+    grid = num_sms * blocks_per_sm if grid is None else grid
+    kernels.require(grid >= 1, "knn_topk: the grid needs a block")
+    return KnnPlan(r, tile_q, max(1, -(-nq // tile_q)), grid, num_sms, blocks_per_sm)
+
+
+def knn_pieces(plan: KnnPlan, n_live: int) -> List[List[Tuple[int, int, int]]]:
+    """Each tile's pieces, ``(block, p0, p1)`` over the staged table (the
+    live points in id order), in order: the cut ``knn_topk_kernel`` makes
+    on the card from the live count.  The work, tiles x ``n_live``, is cut
+    into ``min(grid, work)`` ranges ``[b W / G, (b + 1) W / G)``,
+    tile-major."""
+    W = plan.tiles * n_live
+    G = min(plan.grid, W)
+    pieces: List[List[Tuple[int, int, int]]] = [[] for _ in range(plan.tiles)]
+    for b in range(G):
+        u, u1 = b * W // G, (b + 1) * W // G
+        while u < u1:
+            t = u // n_live
+            p1 = min(n_live, u - t * n_live + (u1 - u))
+            pieces[t].append((b, u - t * n_live, p1))
+            u = t * n_live + p1
+    return pieces
+
+
 def _bind(lib) -> None:
     if getattr(lib, "_d3_bound", False):
         return
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.knn_topk.argtypes = [P, I, P, P, I, I, P, P, P]
+    lib.knn_topk.argtypes = [P, I, P, P, I, I, I, I, P, P, P, P, P, P, P, P, P]
     lib.knn_topk.restype = I
+    lib.knn_topk_occupancy.argtypes = [I, I, P]
+    lib.knn_topk_occupancy.restype = I
     lib._d3_bound = True
 
 
-def knn_topk_cuda(queries: torch.Tensor, points: torch.Tensor, valid: torch.Tensor,
-                  k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch kernel D (``csrc/knn_topk.cu``) on CUDA tensors."""
+_knn_card: Dict[tuple, Tuple[int, int]] = {}   # (device, k, r) -> (SMs, blocks per SM)
+
+
+def card_plan(device: torch.device, nq: int, k: int, r: Optional[int] = None,
+              grid: Optional[int] = None) -> KnnPlan:
+    """:func:`knn_plan` with the card's SMs and the blocks an SM holds
+    (asked once per device, k and r)."""
+    r = KNN_R if r is None else r
+    key = (device, k, r)
+    card = _knn_card.get(key)
+    if card is None:
+        lib = kernels.library("knn_topk")
+        _bind(lib)
+        out = (ctypes.c_int * 2)()
+        with torch.cuda.device(device):
+            kernels.check(lib.knn_topk_occupancy(k, r, out), "knn_topk_occupancy")
+        card = _knn_card[key] = (out[0], out[1])
+    return knn_plan(nq, k, card[0], card[1], r=r, grid=grid)
+
+
+def knn_launch(queries: torch.Tensor, points: torch.Tensor, valid: torch.Tensor, k: int,
+               plan: KnnPlan) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch kernel D with ``plan`` (from :func:`card_plan`) on CUDA
+    tensors: ``(dist, idx, n_live)``, ``n_live`` the live count the
+    prologue wrote (int32 [1])."""
     _check_knn_args(queries, points, valid, k)
     kernels.require_cuda([queries, points, valid], "knn_topk")
     kernels.require(queries.dtype == torch.float32 and points.dtype == torch.float32,
                     "knn_topk: queries and points must be f32")
     kernels.require(not (queries.requires_grad or points.requires_grad),
                     "knn_topk: the kernel has no gradient")
+    nq, np_ = queries.shape[0], points.shape[0]
+    kernels.require(plan.tile_q * plan.tiles >= nq, "knn_topk: the plan does not cover the queries")
     lib = kernels.library("knn_topk")
     _bind(lib)
-    nq, np_ = queries.shape[0], points.shape[0]
-    dist = torch.empty((nq, k), dtype=torch.float32, device=queries.device)
-    idx = torch.empty((nq, k), dtype=torch.int64, device=queries.device)
+    dev = queries.device
+    staged = torch.empty((np_ + 4, 4), dtype=torch.float32, device=dev)
+    sid = torch.empty(np_ + 8, dtype=torch.int32, device=dev)
+    n_live = torch.empty(1, dtype=torch.int32, device=dev)
+    n_part = 2 * plan.grid * plan.tile_q * k
+    part_d = torch.empty(n_part, dtype=torch.float32, device=dev)
+    part_i = torch.empty(n_part, dtype=torch.int32, device=dev)
+    tickets = _ticket_buffer(dev, plan.tiles)
+    dist = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((nq, k), dtype=torch.int64, device=dev)
     rc = lib.knn_topk(queries.data_ptr(), nq, points.data_ptr(), valid.data_ptr(), np_, k,
-                      dist.data_ptr(), idx.data_ptr(), kernels.stream_ptr(queries))
+                      plan.r, plan.grid, staged.data_ptr(), sid.data_ptr(), n_live.data_ptr(),
+                      part_d.data_ptr(), part_i.data_ptr(), tickets.data_ptr(), dist.data_ptr(),
+                      idx.data_ptr(), kernels.stream_ptr(queries))
     kernels.check(rc, "knn_topk")
     kernels.count(kernels.launches, "knn_topk")
-    return dist, idx
+    return dist, idx, n_live
+
+
+def knn_topk_cuda(queries: torch.Tensor, points: torch.Tensor, valid: torch.Tensor,
+                  k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch kernel D (``csrc/knn_topk.cu``) on CUDA tensors, with the
+    card's plan."""
+    kernels.require(queries.is_cuda, "knn_topk: queries must be on a CUDA device")
+    plan = card_plan(queries.device, queries.shape[0], k)
+    return knn_launch(queries, points, valid, k, plan)[:2]
 
 
 def knn_topk(queries: torch.Tensor, points: torch.Tensor, valid: torch.Tensor,
