@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases build,nerf,knn,render,pretrain
     python3 chip_smoke.py --phases build,mlp,attn,matvec2d,routes,batched
     python3 chip_smoke.py --phases build,yolo,stream
+    python3 chip_smoke.py --phases build,vln
 
 Phases, each printed as it finishes:
 
@@ -94,7 +95,25 @@ Phases, each printed as it finishes:
    tools' sweeps (``dynam3d_torch.tools.bench_int4_stream`` /
    ``bench_int4_unpack``) with the launch counters reset just before and
    read just after, the bytes bound and a bf16 ``torch.matmul`` on the
-   dequantized weights as the yardstick.
+   dequantized weights as the yardstick;
+18. ``vln``: the VLN second stage at full width — policy parameters with
+   Phi-3-mini in bf16 at the default config, the ResNet-50 depth encoder
+   (``input_size`` 256) and the TRM waypoint predictor from a
+   ``torch.Generator``; ``VLNTrainer.run`` (``cfg.train``: one iteration,
+   saved) training one episode of 3 steps on a 12-view
+   ``SyntheticRoomFeed`` (336² RGB, 256² depth), printing per step the
+   loss, grad norm, skip flag, ms (synchronized), peak memory and the
+   predictor's candidates, the ``save_checkpoint`` time, and how many
+   tensors moved in the five projector trees and in Phi-3; a second
+   trainer's requeued ``run`` resumes from that checkpoint (identical
+   tensors, no episode left); one more IL step profiled on its own (device
+   busy time over that step's wall time); then ``quantize_phi3(bits=4)``
+   of the trained tree and ``evaluate`` (2 feeds of 3 steps,
+   ``ignore_stop``) and ``inference`` (r2r and rxr) with the launch
+   counters reset just before and read just after (kernels A and B, no
+   plain version); then one ``VLNTrainer`` step of a small config on the
+   card and on the CPU with the same weights: loss, updated trainable
+   tensors, waypoint heatmaps and candidates within the stated tolerances.
 
 Any failure exits non-zero.  The line before the last is the kernels' JSON
 record; the last line is ``{"ok": true, "device": {...}}``.
@@ -113,7 +132,7 @@ import sys
 import time
 
 PHASES = ("build", "matvec", "ring", "parity", "episode", "nerf", "knn", "render", "pretrain",
-          "matvec2d", "mlp", "attn", "routes", "batched", "yolo", "stream")
+          "matvec2d", "mlp", "attn", "routes", "batched", "yolo", "stream", "vln")
 
 # the dense bf16 tensor-core peak and the float32 peak outside the tensor
 # cores (H100 SXM); memory rates are dynam3d_torch.device.MEM_RATES
@@ -425,7 +444,8 @@ def _library_layer(torch, ctx, c, dense, q, kc, vc, am):
 def _tiny_config():
     """A few-layer, narrow config (the CPU tests' slice config)."""
     from dynam3d_torch.config import (
-        CLIPConfig, Dynam3DConfig, FieldsConfig, LLaVAConfig, Phi3Config, SegmenterConfig,
+        CLIPConfig, DepthEncoderConfig, Dynam3DConfig, FieldsConfig, LLaVAConfig, Phi3Config,
+        SegmenterConfig, WaypointConfig,
     )
 
     return Dynam3DConfig(
@@ -442,6 +462,8 @@ def _tiny_config():
         # the CPU tests' tiny YOLOv8-seg, at a conf that keeps several masks
         segmenter=SegmenterConfig(provider="yolov8", imgsz=32, width_mult=0.125,
                                   depth_mult=0.34, num_protos=8, max_masks=8, conf=0.1),
+        depth=DepthEncoderConfig(input_size=64, output_size=32, base_planes=8, ngroups=4),
+        waypoint=WaypointConfig(hidden_dim=64, trm_layers=1, num_attention_heads=4),
     )
 
 
@@ -1542,6 +1564,341 @@ def phase_stream(ctx):
     ctx["stream"] = entries
 
 
+def _nms_rounds(torch, cfg, heatmap):
+    """The waypoint NMS of ``extract_candidates`` round by round on one
+    heatmap ``[1, 120, 12]``: each round's flat pick in the wrapped map and
+    its margin (the gap from the pick to the next value of the suppressed
+    map; a margin below the heatmaps' disagreement can pick another peak)."""
+    wc = cfg.waypoint
+    probs = torch.softmax(heatmap.float().reshape(1, -1), dim=1).reshape(1, wc.num_angles,
+                                                                        wc.n_classes)
+    supp = torch.cat([probs[:, -1:], probs, probs[:, :1]], dim=1)[0]
+    H, W = supp.shape
+    xs = torch.arange(W, dtype=torch.float32, device=supp.device)[None, :]
+    ys = torch.arange(H, dtype=torch.float32, device=supp.device)[:, None]
+    picks, margins = [], []
+    for _ in range(wc.max_candidates):
+        top2 = torch.topk(supp.reshape(-1), 2)
+        ix = int(torch.argmax(supp.reshape(-1)))
+        picks.append(ix)
+        margins.append(float(top2.values[0] - top2.values[1]))
+        dx = xs - float(ix % W)
+        dx = torch.minimum(dx.abs(), (dx + W).abs())
+        dy = ys - ix / W
+        g = ((dx.abs() <= wc.nms_sigma[0]) & (dy.abs() <= wc.nms_sigma[1])).float()
+        supp = supp * (1.0 - g)
+    return picks, margins, float(probs.max())
+
+
+def _vln_card_vs_cpu(torch, devices=("cpu", "cuda")):
+    """One ``VLNTrainer`` step of the small config (float32 Phi-3, lr 1e-3,
+    a 12-view feed) on the CPU and on the card from the same weights."""
+    import dataclasses
+
+    from dynam3d_torch.models import policy
+    from dynam3d_torch.models.encoders.depth_resnet import feature_dim, init_depth_params
+    from dynam3d_torch.models.waypoint.trm import init_waypoint_params
+    from dynam3d_torch.runtime.feed import SyntheticRoomFeed
+    from dynam3d_torch.runtime.trainer_vln import split_params
+    from dynam3d_torch.runtime.vln_loop import VLNTrainer
+    from dynam3d_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = _tiny_config()
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, lr=1e-3))
+    gen = torch.Generator().manual_seed(11)
+    base = policy.init_policy_params(gen, cfg, llm_dtype=torch.float32, device="cpu")
+    dep = init_depth_params(gen, cfg.depth, device="cpu")
+    wp = init_waypoint_params(gen, cfg.waypoint, feature_dim(cfg.depth), device="cpu")
+    before = [t.clone() for t in tree_leaves(split_params(base)[0])]
+    runs = []
+    for dev in devices:
+        # each trainer updates its own copy of the weights in place
+        feed = SyntheticRoomFeed(rgb_size=56, depth_size=64, views=12, seed=3)
+        tr = VLNTrainer(tree_map(lambda t: t.to(dev, copy=True), base), cfg, lambda: feed,
+                        waypoint_params=_to_device(torch, wp, dev),
+                        depth_enc_params=_to_device(torch, dep, dev), device=dev)
+        dep12 = torch.from_numpy(feed.reset().depth[None]).to(dev)
+        heat = tr.waypoint_heatmap(dep12).cpu()
+        cands = tr._waypoint_candidates(dep12)
+        tr.train_episode(feed, max_steps=1)
+        runs.append(dict(heat=heat, cands=[c[0].cpu() for c in cands], log=tr.step_log[0],
+                         leaves=[t.cpu() for t in tree_leaves(tr.trainable)],
+                         picks=_nms_rounds(torch, cfg, heat)))
+    c, g = runs
+    loss_err = abs(g["log"]["loss"] - c["log"]["loss"]) / abs(c["log"]["loss"])
+    heat_err = float((g["heat"] - c["heat"]).abs().max() / c["heat"].abs().max())
+    worst_flip, worst_err = 0.0, 0.0
+    for p0, tc, tg in zip(before, c["leaves"], g["leaves"]):
+        uc, ug = (tc - p0).double(), (tg - p0).double()
+        size = float(uc.abs().max())
+        flipped = (torch.sign(uc) * torch.sign(ug)) < 0
+        worst_flip = max(worst_flip, float(flipped.float().mean()))
+        if size > 0 and bool((~flipped).any()):
+            worst_err = max(worst_err, float((ug - uc)[~flipped].abs().max()) / size)
+    picks_c, margins, pmax = c["picks"]
+    picks_g = g["picks"][0]
+    # heatmap logits agree within heat_tol of their scale; a probability
+    # then moves by at most ~pmax * 2 * heat_tol * scale
+    heat_tol = 5e-4
+    prob_tol = pmax * 2 * heat_tol * float(c["heat"].abs().max())
+    sure = 0
+    while sure < len(margins) and margins[sure] > prob_tol:
+        sure += 1
+    rec = dict(loss_cpu=c["log"]["loss"], loss_cuda=g["log"]["loss"], loss_rel_err=loss_err,
+               grad_norm_cpu=c["log"]["grad_norm"], grad_norm_cuda=g["log"]["grad_norm"],
+               update_max_err_of_size=worst_err, update_flipped_share=worst_flip,
+               heatmap_rel_err=heat_err, nms_margins=margins, prob_tol=prob_tol,
+               picks_cpu=picks_c, picks_cuda=picks_g, rounds_beyond_tol=sure,
+               gt=[c["log"]["gt"], g["log"]["gt"]])
+    log(f"[vln] card vs cpu {json.dumps(rec)}")
+    if not (loss_err <= 1e-3 and heat_err <= heat_tol and worst_flip <= 5e-3
+            and worst_err <= 1e-3):
+        raise AssertionError(f"vln card vs cpu step disagrees: {rec}")
+    if picks_g[:sure] != picks_c[:sure]:
+        raise AssertionError(f"vln: NMS picks differ beyond the tolerance margin: {rec}")
+    if sure == len(margins):
+        # the same picks give the same distances, views and mask; an angle
+        # (3-degree bins) may round an f32 ulp apart
+        angles_c, dists_c, views_c, mask_c = c["cands"]
+        angles_g, dists_g, views_g, mask_g = g["cands"]
+        if not (torch.equal(dists_c, dists_g) and torch.equal(views_c, views_g)
+                and torch.equal(mask_c, mask_g)
+                and torch.allclose(angles_c, angles_g, rtol=1e-6, atol=0)):
+            raise AssertionError(f"vln: candidates differ with every margin clear: {rec}")
+        if c["log"]["gt"] != g["log"]["gt"]:
+            raise AssertionError(f"vln: gt texts differ: {rec}")
+    return rec
+
+
+def phase_vln(ctx):
+    """The VLN second stage at full width: IL training with the waypoint
+    predictor, a checkpoint round trip, then eval and inference on the
+    int4-quantized trained weights, and a small card-vs-CPU step."""
+    torch = ctx["torch"]
+    import dataclasses
+    import tempfile
+
+    from dynam3d_torch.config import Dynam3DConfig
+    from dynam3d_torch.models import policy
+    from dynam3d_torch.models.encoders.depth_resnet import feature_dim, init_depth_params
+    from dynam3d_torch.models.vlm.phi3 import quantize_phi3
+    from dynam3d_torch.models.waypoint.trm import init_waypoint_params
+    from dynam3d_torch.ops import kernels
+    from dynam3d_torch.runtime import checkpoint as ckpt_mod
+    from dynam3d_torch.runtime import vln_loop
+    from dynam3d_torch.runtime.feed import SyntheticRoomFeed
+    from dynam3d_torch.runtime.trainer_vln import merge_params
+    from dynam3d_torch.utils.tree import tree_leaves, tree_map
+
+    ckdir = tempfile.TemporaryDirectory()
+    cfg = Dynam3DConfig()
+    # one episode of 3 steps, saved; the requeued trainer resumes from it
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, max_traj_len=3, iters=1, log_every=1, ckpt_dir=ckdir.name))
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = policy.init_policy_params(gen, cfg, device="cuda")        # Phi-3 in bf16
+    dep = init_depth_params(gen, cfg.depth, device="cuda")
+    wp = init_waypoint_params(gen, cfg.waypoint, feature_dim(cfg.depth), device="cuda")
+    torch.cuda.synchronize()
+    log(f"[vln] params built in {time.perf_counter() - t0:.1f} s; phi3 "
+        f"{params['llava']['phi3']['layers'][0]['qkv'].dtype}, depth features "
+        f"{feature_dim(cfg.depth)}")
+
+    def feed12():
+        return SyntheticRoomFeed(rgb_size=336, depth_size=256, views=12, seed=0)
+
+    trainer = vln_loop.VLNTrainer(params, cfg, feed12, waypoint_params=wp,
+                                  depth_enc_params=dep, device="cuda")
+    calls = {"n": 0}
+    predictor = trainer._waypoint_fn
+
+    def counted(d):
+        calls["n"] += 1
+        return predictor(d)
+
+    trainer._waypoint_fn = counted
+    groups = {k: tree_leaves(v) for k, v in trainer.trainable.items()}
+    before = {k: [t.clone() for t in v] for k, v in groups.items()}
+    save = ckpt_mod.save_checkpoint
+    save_s = []
+
+    def timed_save(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = save(*args, **kw)
+        save_s.append(time.perf_counter() - t0)
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    ckpt_mod.save_checkpoint = timed_save
+    try:
+        t0 = time.perf_counter()
+        start = trainer.run()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    finally:
+        ckpt_mod.save_checkpoint = save
+    train_counts, train_plain = dict(kernels.launches), dict(kernels.plain_calls)
+    for st in trainer.step_log:
+        log(f"[vln] train step {json.dumps(st)}")
+    moved = {k: sum(int(not torch.equal(a, b)) for a, b in zip(before[k], groups[k]))
+             for k in groups}
+    del before
+    log(f"[vln] run() s={train_s:.1f} (from step {start}; save_checkpoint s={save_s}) "
+        f"predictor_calls={calls['n']} tensors moved "
+        f"{json.dumps({k: f'{moved[k]}/{len(groups[k])}' for k in groups})} launches "
+        f"{json.dumps(train_counts)} plain calls {json.dumps(train_plain)}")
+    log_ = trainer.step_log
+    if (len(log_) != 3 or any(st["skipped"] or not math.isfinite(st["loss"])
+                              or not math.isfinite(st["grad_norm"]) for st in log_)):
+        raise AssertionError(f"vln: the IL episode is not 3 finite, unskipped steps: {log_}")
+    if calls["n"] < 1 or not any(st["from_predictor"] for st in log_):
+        raise AssertionError("vln: the waypoint predictor gave no candidates")
+    if any(moved[k] == 0 for k in groups if k != "phi3"):
+        raise AssertionError(f"vln: a projector tree did not move: {moved}")
+    if any(train_plain.values()):
+        raise AssertionError(f"vln: plain kernel versions ran in training: {train_plain}")
+
+    # the checkpoint run() wrote, resumed by a requeued run() of a second
+    # trainer, which then has no episode left to train
+    blank = merge_params(tree_map(torch.zeros_like, trainer.trainable), trainer.frozen)
+    requeued = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, is_requeue=True))
+    second = vln_loop.VLNTrainer(blank, requeued, feed12, waypoint_params=wp,
+                                 depth_enc_params=dep, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = second.run()
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(trainer.trainable),
+                                                 tree_leaves(second.trainable)))
+    same_opt = second.opt_state["count"] == trainer.opt_state["count"] and all(
+        torch.equal(a, b) for key in ("v_row", "v_col", "v")
+        for a, b in zip(tree_leaves(trainer.opt_state[key]), tree_leaves(second.opt_state[key])))
+    ck_bytes = sum(os.path.getsize(os.path.join(ckdir.name, f)) for f in os.listdir(ckdir.name))
+    log(f"[vln] checkpoint {sorted(os.listdir(ckdir.name))} {ck_bytes / 2**30:.2f} GiB; "
+        f"requeued run() resumed step={step} in {resume_s:.1f} s, episodes trained "
+        f"{second._episodes_done}, identical_params={same} identical_opt_state={same_opt}")
+    n_second = second._episodes_done
+    del second, blank
+    ckdir.cleanup()
+    if start != 0 or len(save_s) != 1 or step != 1 or n_second != 0 or not same or not same_opt:
+        raise AssertionError("vln: the resumed trainer differs from the saved one")
+    steady = sum(st["ms"] for st in log_[1:]) / (len(log_) - 1)
+    dep12 = torch.from_numpy(feed12().reset().depth[None]).to("cuda")
+    trainer._waypoint_fn(dep12)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        trainer._waypoint_fn(dep12)
+    torch.cuda.synchronize()
+    log(f"[vln] waypoint predictor (12 x 256^2 depth -> candidates): "
+        f"{(time.perf_counter() - t0) * 1e3 / 5:.2f} ms a call (host clock, synchronized)")
+    _profile_train_step(torch, trainer, feed12(), steady)
+
+    # eval and inference on the int4-quantized trained tree
+    trained = trainer.params()
+    trained["llava"] = dict(trained["llava"], phi3=quantize_phi3(trained["llava"]["phi3"], bits=4,
+                                                                   consume=True))
+    del trainer, groups
+    torch.cuda.empty_cache()
+    outdir = tempfile.TemporaryDirectory()
+    gt_paths = _gt_paths()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    agg = vln_loop.evaluate(trained, cfg, [SyntheticRoomFeed(rgb_size=336, depth_size=256,
+                                                             seed=20 + i) for i in range(2)],
+                            gt_paths, out_dir=outdir.name, ckpt_name="vln", ignore_stop=True,
+                            device="cuda")
+    eval_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    paths = {}
+    for fmt in ("r2r", "rxr"):
+        paths[fmt] = vln_loop.inference(
+            trained, cfg, [SyntheticRoomFeed(rgb_size=336, depth_size=256, seed=30 + i)
+                           for i in range(2)], ["ep0", "ep1"],
+            out_path=os.path.join(outdir.name, f"preds_{fmt}.json"), fmt=fmt, device="cuda")
+    torch.cuda.synchronize()
+    infer_s = time.perf_counter() - t0
+    counts, plain = dict(kernels.launches), dict(kernels.plain_calls)
+    files = sorted(os.listdir(outdir.name))
+    per_ep = json.load(open(os.path.join(outdir.name, "stats_ep_vln_r0_w1.json")))
+    rxr = [json.loads(r) for r in open(os.path.join(outdir.name, "preds_rxr.json"))]
+    outdir.cleanup()
+    eval_steps = int(sum(e["steps_taken"] for e in per_ep.values()))
+    log(f"[vln] evaluate {json.dumps(agg)} in {eval_s:.1f} s ({eval_steps} steps, "
+        f"{eval_s * 1e3 / eval_steps:.1f} ms a step); inference r2r+rxr in {infer_s:.1f} s, "
+        f"poses {[len(p) for p in paths['r2r'].values()]}; files {files}")
+    log(f"[vln] eval+inference launches {json.dumps(counts)} plain calls {json.dumps(plain)}")
+    if any(counts[k] < 1 for k in ("int4_matvec", "decode_attn")):
+        raise AssertionError("vln: kernels A and B did not both launch in eval and inference")
+    if any(plain.values()):
+        raise AssertionError(f"vln: plain kernel versions ran in eval / inference: {plain}")
+    if (sorted(per_ep) != ["0", "1"] or any(e["steps_taken"] != 3.0 for e in per_ep.values())
+            or not all(math.isfinite(v) for v in agg.values())
+            or [r["instruction_id"] for r in rxr] != ["ep0", "ep1"]
+            or any(p[-1]["stop"] is not True for p in paths["r2r"].values())):
+        raise AssertionError(f"vln: eval / inference output malformed: {agg} {per_ep} {rxr}")
+    ctx["vln_launches"] = counts
+    del trained
+    torch.cuda.empty_cache()
+    ctx["vln"] = _vln_card_vs_cpu(torch)
+
+
+def _profile_train_step(torch, trainer, feed, steady_ms):
+    """One more 1-step episode of ``trainer`` (outside the counted window)
+    with its IL step alone under ``torch.profiler`` (the waypoint predictor
+    and the host's feed and tokenizer work stay outside): that step's device
+    busy time, its own wall time (host clock, synchronized at both ends,
+    the profiler on), the idle share of that wall time, and the top
+    kernels.  ``steady_ms``, the un-profiled steps' mean, is printed
+    beside it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step_fn = trainer._step_fn
+    seen = {}
+
+    def profiled(*args):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = step_fn(*args)
+            torch.cuda.synchronize()
+            seen["ms"] = (time.perf_counter() - t0) * 1e3
+        seen["prof"] = prof
+        return out
+
+    trainer._step_fn = profiled
+    try:
+        trainer.train_episode(feed, max_steps=1)
+    finally:
+        trainer._step_fn = step_fn
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    rows = sorted(((e.key, dev_us(e), e.count) for e in seen["prof"].key_averages()
+                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0), key=lambda r: -r[1])
+    if not rows:
+        log("[profile] device time not measured (the profiler saw no kernels)")
+        return
+    busy = sum(r[1] for r in rows) / 1e3
+    log(f"[profile] vln_train step device_busy_ms={busy:.1f} step_wall_ms={seen['ms']:.1f} "
+        f"idle_share={max(0.0, 1 - busy / seen['ms']):.3f} (steady un-profiled "
+        f"step_ms={steady_ms:.1f}) kernels={len(rows)} launches={sum(r[2] for r in rows)}")
+    for key, us, n in rows[:12]:
+        log(f"[profile] {us / 1e3:9.3f} ms  x{n:<6d} {key[:100]}")
+
+
+def _gt_paths():
+    import numpy as np
+
+    return [np.float32([[2.0, 1.25, 2.0], [4.0, 1.25, 4.0], [6.0, 1.25, 6.0]])] * 2
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -1589,6 +1946,11 @@ def main(argv=None) -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             work="shared-cache verify, 8 rows, Tmax 1024"))
+    if "vln_launches" in ctx:
+        # eval + inference launches, only when the vln phase ran
+        for rec in kernels_rec:
+            if rec["name"] in ctx["vln_launches"]:
+                rec["launches_vln"] = ctx["vln_launches"][rec["name"]]
     pre = ctx.get("pretrain_launches", {})
     if "nerf" in ctx:
         r = ctx["nerf"]

@@ -1,16 +1,17 @@
 """Configuration of the PyTorch port: the dataclasses its paths read.
 
 An own copy of the reference package's config tree (same field names and
-defaults), restricted to the sections the RGB-D -> action step and the 3DFF
-pretraining path use.  The
-port never imports the JAX package, so these classes are kept here.
+defaults), restricted to the sections the RGB-D -> action step, imitation
+learning with the waypoint predictor, eval and inference, and the 3DFF
+pretraining path use.  The port never imports the JAX package, so these
+classes are kept here.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -86,6 +87,17 @@ class CLIPConfig:
 
 
 @dataclass(frozen=True)
+class DepthEncoderConfig:
+    """DDPPO GroupNorm ResNet-50 depth encoder of the waypoint predictor."""
+
+    input_size: int = 256
+    output_size: int = 128
+    base_planes: int = 32
+    ngroups: int = 16
+    spatial_output: bool = True
+
+
+@dataclass(frozen=True)
 class SegmenterConfig:
     """FastSAM / YOLOv8-seg "segment everything".
 
@@ -108,6 +120,23 @@ class SegmenterConfig:
         return tuple(
             max(1, round(n * self.depth_mult)) for n in (3, 6, 6, 3)
         )
+
+
+@dataclass(frozen=True)
+class WaypointConfig:
+    """Frozen TRM waypoint predictor: 12 views -> 120 angles x 12 distance
+    bins, at most ``max_candidates`` NMS peaks."""
+
+    hidden_dim: int = 768
+    num_angles: int = 120
+    num_imgs: int = 12
+    n_classes: int = 12
+    trm_layers: int = 2
+    trm_neighbor: int = 1
+    heatmap_offset: int = 5
+    num_attention_heads: int = 12
+    max_candidates: int = 5
+    nms_sigma: Tuple[float, float] = (7.0, 5.0)
 
 
 @dataclass(frozen=True)
@@ -150,14 +179,26 @@ class ActionConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """``max_traj_len`` caps a serving episode; ``pretrain_lr`` and
-    ``grad_clip_value`` set the 3DFF pretraining optimizer (AdamW after a
-    per-value gradient clip)."""
+    """``lr`` and ``grad_clip_norm`` set the VLN imitation-learning
+    optimizer (Adafactor after a clip to global norm); ``pretrain_lr`` and
+    ``grad_clip_value`` the 3DFF pretraining one (AdamW after a per-value
+    clip).  ``max_traj_len`` caps an episode.  ``iters``, ``ckpt_dir``,
+    ``log_every`` and ``is_requeue`` set ``VLNTrainer.run``."""
 
+    lr: float = 1e-6
     pretrain_lr: float = 1e-5
+    grad_clip_norm: float = 10.0
     grad_clip_value: float = 10.0
     max_traj_len: int = 50
+    iters: int = 100000
+    log_every: int = 500
     seed: int = 0
+    ckpt_dir: str = "data/checkpoints"
+    is_requeue: bool = False        # resume from the newest checkpoint by mtime
+    ml_weight: float = 1.0          # weight of the logged IL loss
+    max_text_len: int = 2000        # instruction character cap
+    recycle_every: int = 20         # episodes between feed rebuilds
+    use_waypoint_predictor: bool = True  # teacher candidates from the TRM
 
 
 @dataclass(frozen=True)
@@ -173,7 +214,9 @@ class EvalConfig:
 class Dynam3DConfig:
     fields: FieldsConfig = field(default_factory=FieldsConfig)
     clip: CLIPConfig = field(default_factory=CLIPConfig)
+    depth: DepthEncoderConfig = field(default_factory=DepthEncoderConfig)
     segmenter: SegmenterConfig = field(default_factory=SegmenterConfig)
+    waypoint: WaypointConfig = field(default_factory=WaypointConfig)
     llava: LLaVAConfig = field(default_factory=LLaVAConfig)
     action: ActionConfig = field(default_factory=ActionConfig)
     train: TrainConfig = field(default_factory=TrainConfig)

@@ -6,7 +6,10 @@ side) — nested dicts and lists of arrays, packed int4 weights as objects
 with ``q4``/``s_lo``/``s_hi``/``d``/``n``/``dblk``/``nblk`` attributes, flat
 or block-major —
 and returns the same tree of torch tensors on ``device``, so that both
-packages compute the same function on the same weights.  ``state_from_jax``
+packages compute the same function on the same weights.  The waypoint
+predictor's tree converts through the same walk; the trees of
+convolutional networks (the YOLOv8-seg segmenter, the depth encoder)
+through ``conv_params_from_jax``, which lays their weights out OIHW.  ``state_from_jax``
 does the same for a memory state, so both packages can start from one
 memory.  Nothing of JAX is imported: the trees are read by duck typing.
 """
@@ -41,9 +44,10 @@ def _int4(w, device: torch.device) -> Int4Weight:
                       int(w.nblk))
 
 
-def yolo_params_from_jax(tree: Any, device: DeviceLike = None) -> Any:
-    """A reference YOLOv8-seg tree (numpy leaves, HWIO convolution weights,
-    in dicts and lists) -> the port's, with the weights laid out OIHW once."""
+def conv_params_from_jax(tree: Any, device: DeviceLike = None) -> Any:
+    """A reference tree of a convolutional network (numpy leaves, HWIO
+    convolution weights, in dicts and lists: YOLOv8-seg, the depth
+    encoder) -> the port's, with the weights laid out OIHW once."""
     device = resolve_device(device)
 
     def conv(node):
@@ -59,12 +63,12 @@ def yolo_params_from_jax(tree: Any, device: DeviceLike = None) -> Any:
 
 def params_from_jax(tree: Any, device: DeviceLike = None) -> Any:
     """Convert a reference parameter tree (numpy leaves) to torch; a
-    ``yolo`` subtree goes through :func:`yolo_params_from_jax`."""
+    ``yolo`` subtree goes through :func:`conv_params_from_jax`."""
     device = resolve_device(device)
 
     def conv(node):
         if isinstance(node, dict):
-            return {k: yolo_params_from_jax(v, device) if k == "yolo" else conv(v)
+            return {k: conv_params_from_jax(v, device) if k == "yolo" else conv(v)
                     for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return type(node)(conv(v) for v in node)

@@ -1,8 +1,9 @@
 """Dynam3D VLN policy: RGB-D -> layered 3D tokens -> LLaVA action ids.
 
-Port of ``models/policy.py`` for the serving step: ``init_policy_params``,
-``perceive``, ``generate_action_ids`` (with ``prev_gen`` draft priming),
-``full_step``, ``batched_init_state`` and ``pop_state``.
+Port of ``models/policy.py``: ``init_policy_params``, ``perceive``,
+``generate_action_ids`` (with ``prev_gen`` draft priming), the
+teacher-forced ``train_loss``, ``full_step``, ``batched_init_state`` and
+``pop_state``.
 
 Sequence layout: ``[BOS <|user|> \\n][576*V patch tokens][<=I_ENV instance]
 [<=Z_ENV zone][\\nInstruction: ...][History ...][<|end|>...]``; instance and
@@ -188,6 +189,13 @@ def perceive(params: Params, cfg: Dynam3DConfig, state: FieldState,
     return PerceiveOut(state, mm, mm_valid, inst_fill.sum(1), zone_fill.sum(1))
 
 
+def _attn_valid(text_valid: torch.Tensor, mm_valid: torch.Tensor,
+                splice_start: int) -> torch.Tensor:
+    attn_valid = text_valid.clone()
+    attn_valid[:, splice_start: splice_start + mm_valid.shape[1]] = mm_valid
+    return attn_valid
+
+
 def generate_action_ids(params: Params, cfg: Dynam3DConfig, input_ids: torch.Tensor,
                         text_valid: torch.Tensor, mm_tokens: torch.Tensor,
                         mm_valid: torch.Tensor, splice_start: int = 2,
@@ -198,8 +206,7 @@ def generate_action_ids(params: Params, cfg: Dynam3DConfig, input_ids: torch.Ten
     ``prev_gen``, the previous step's ids with pads masked."""
     p3 = cfg.llava.phi3
     emb = llava_mod.splice_embeds(params["llava"], cfg.llava, input_ids, mm_tokens, splice_start)
-    attn_valid = text_valid.clone()
-    attn_valid[:, splice_start: splice_start + mm_valid.shape[1]] = mm_valid
+    attn_valid = _attn_valid(text_valid, mm_valid, splice_start)
     lookup_ids = torch.where(text_valid & (input_ids != p3.image_token_id), input_ids,
                              torch.full_like(input_ids, -1))
     if prev_gen is not None:
@@ -207,6 +214,21 @@ def generate_action_ids(params: Params, cfg: Dynam3DConfig, input_ids: torch.Ten
         lookup_ids = torch.cat([lookup_ids, prev.to(lookup_ids.dtype)], dim=1)
     return llava_mod.generate(params["llava"], cfg.llava, emb, attn_valid,
                               lookup_ids=lookup_ids, stats=stats)
+
+
+def train_loss(params: Params, cfg: Dynam3DConfig, input_ids: torch.Tensor,
+               text_valid: torch.Tensor, mm_tokens: torch.Tensor, mm_valid: torch.Tensor,
+               label_ids: torch.Tensor, label_mask: torch.Tensor,
+               turn_token_weight: torch.Tensor, splice_start: int = 2) -> llava_mod.TrainOutput:
+    """Teacher-forced CE on the action span.  The prompt length is the
+    physical one (valid text tokens less the labels, which follow the
+    prompt): the count of valid attention slots would undercount it by the
+    masked instance and zone slots."""
+    emb = llava_mod.splice_embeds(params["llava"], cfg.llava, input_ids, mm_tokens, splice_start)
+    attn_valid = _attn_valid(text_valid, mm_valid, splice_start)
+    prompt_len = text_valid.to(torch.int64).sum(1) - label_mask.to(torch.int64).sum(1)
+    return llava_mod.teacher_forced_loss(params["llava"], cfg.llava, emb, attn_valid,
+                                         label_ids, label_mask, prompt_len, turn_token_weight)
 
 
 def full_step(params: Params, cfg: Dynam3DConfig, state: FieldState, rgb, depth_raw,

@@ -1,10 +1,11 @@
-"""LLaVA-Phi-3-mini: vision tower + projector + prompt splice + generation;
-port of ``models/vlm/llava.py`` (``image_features``, ``splice_embeds``,
+"""LLaVA-Phi-3-mini: vision tower + projector + prompt splice + generation
+and the teacher-forced loss; port of ``models/vlm/llava.py``
+(``image_features``, ``splice_embeds``, ``teacher_forced_loss``,
 ``generate``)."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
@@ -39,6 +40,36 @@ def splice_embeds(params: Params, cfg: LLaVAConfig, input_ids: torch.Tensor,
     emb = phi3.embed(params["phi3"], input_ids).to(mm_tokens.dtype)
     emb[:, splice_start: splice_start + mm_tokens.shape[1]] = mm_tokens
     return emb
+
+
+class TrainOutput(NamedTuple):
+    loss: torch.Tensor
+    logits_at_labels: torch.Tensor  # [B, Tg, V] logits aligned to the label tokens
+
+
+def teacher_forced_loss(params: Params, cfg: LLaVAConfig, embeds: torch.Tensor,
+                        attn_valid: torch.Tensor, label_ids: torch.Tensor,
+                        label_mask: torch.Tensor, prompt_len: torch.Tensor,
+                        turn_token_weight: torch.Tensor) -> TrainOutput:
+    """CE over the label span plus a CE on label token 1 (the turn
+    direction) weighted by ``turn_token_weight [B]``.  ``embeds [B, T, D]``
+    hold prompt and labels; the logits at positions ``prompt_len - 1 + j``
+    (clipped to the sequence) predict ``label_ids[:, j]``, and only those
+    rows reach the lm_head (the same values and gradients as gathering full
+    logits, without the ``[B, T, V]`` float32 tensor)."""
+    B, T, _ = embeds.shape
+    positions = torch.clamp(torch.cumsum(attn_valid.to(torch.int64), dim=1) - 1, min=0)
+    mask = phi3.prefill_mask(attn_valid, T)
+    Tg = label_ids.shape[1]
+    idx = (prompt_len[:, None] - 1) + torch.arange(Tg, device=embeds.device)[None, :]
+    idx = torch.clamp(idx, 0, T - 1)
+    sel = phi3.forward_train(params["phi3"], cfg.phi3, embeds, positions, mask, lm_rows=idx)
+    logp = torch.log_softmax(sel, dim=-1)
+    nll = -torch.gather(logp, -1, label_ids[..., None].to(torch.int64))[..., 0]
+    lm = label_mask.to(nll.dtype)
+    per_row = (nll * lm).sum(dim=1) / torch.clamp(lm.sum(dim=1), min=1)
+    turn_nll = nll[:, 1] * turn_token_weight
+    return TrainOutput(torch.mean(per_row + turn_nll), sel)
 
 
 def generate(params: Params, cfg: LLaVAConfig, embeds: torch.Tensor,

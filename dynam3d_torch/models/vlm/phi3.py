@@ -1,7 +1,8 @@
 """Phi-3-mini decoder with KV-cache prefill and (speculative) greedy decode.
 
-Port of ``models/vlm/phi3.py`` for serving: ``rms_norm``, ``_rope``,
-``init_cache``, ``forward`` (with ``lm_at``), the weight-format dispatch
+Port of ``models/vlm/phi3.py``: ``rms_norm``, ``_rope``,
+``init_cache``, ``forward`` (with ``lm_at``), the training forward
+``forward_train``, the weight-format dispatch
 ``_mm`` (dense, int8 W8A8 prefill, int4 matvec) and ``_mlp`` (fused int4
 MLP), ``_lm_head``, ``decode_forward``, the route checks
 ``_fused_decode_eligible`` / ``_ring_eligible`` / ``_fused_layer_eligible``,
@@ -32,6 +33,7 @@ from typing import Any, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from dynam3d_torch import flags
 from dynam3d_torch.config import Phi3Config
@@ -182,6 +184,30 @@ def forward(params: Params, cfg: Phi3Config, embeds: torch.Tensor,
     if lm_at is not None:
         x = x[torch.arange(x.shape[0], device=x.device)[:, None], lm_at[:, None]]
     return _lm_head(params, x), cache
+
+
+def _train_layer(p: Params, cfg: Phi3Config, x: torch.Tensor, positions: torch.Tensor,
+                 attn_mask: torch.Tensor) -> torch.Tensor:
+    q, k, v = _qkv(p, cfg, x, positions)
+    return _attn_mlp(p, cfg, x, q, k, v, attn_mask)
+
+
+def forward_train(params: Params, cfg: Phi3Config, embeds: torch.Tensor,
+                  positions: torch.Tensor, attn_mask: torch.Tensor,
+                  lm_rows: torch.Tensor) -> torch.Tensor:
+    """The decoder stack for a loss: each layer attends over the sequence's
+    own K/V (``forward`` on a fresh cache of length T written at 0, without
+    the in-place cache writes) and is recomputed in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant), as the reference
+    rematerializes each layer in training.  ``attn_mask [B, T, T]``;
+    ``lm_rows [B, R]`` gathers R positions per row before the lm_head, so
+    only those rows are projected onto the vocabulary (``[B, R, V]``)."""
+    x = embeds
+    for p in params["layers"]:
+        x = checkpoint(_train_layer, p, cfg, x, positions, attn_mask, use_reentrant=False)
+    x = rms_norm(params["final_ln"], x, cfg.rms_eps)
+    x = torch.gather(x, 1, lm_rows[..., None].expand(-1, -1, x.shape[-1]))
+    return _lm_head(params, x)
 
 
 # the decode step over dense / int8 weights is the same stack, with T = the

@@ -1,5 +1,6 @@
-"""Byte-level tokenizer and the VLN prompt template; own copy of
-``models/vlm/tokenizer.py`` (``ByteTokenizer``, ``build_prompt``)."""
+"""Tokenizers and the VLN prompt template; own copy of
+``models/vlm/tokenizer.py`` (``ByteTokenizer``, ``HFTokenizer``,
+``build_prompt``)."""
 
 from __future__ import annotations
 
@@ -50,6 +51,27 @@ class ByteTokenizer:
         if buf:
             out.append(buf.decode("utf-8", errors="replace"))
         return "".join(out)
+
+
+class HFTokenizer:
+    """A tokenizer saved on disk (``AutoTokenizer``, local files only).
+    ``transformers`` is imported here, not with the module."""
+
+    def __init__(self, path: str):
+        from transformers import AutoTokenizer
+
+        self.tok = AutoTokenizer.from_pretrained(path, local_files_only=True)
+        self.vocab_size = len(self.tok)
+        self.pad_id = self.tok.pad_token_id or 32000
+        self.bos_id = self.tok.bos_token_id
+        self.end_id = self.tok.convert_tokens_to_ids("<|end|>")
+        self.image_id = self.tok.convert_tokens_to_ids("<image>")
+
+    def encode(self, text: str, add_bos: bool = True) -> List[int]:
+        return self.tok.encode(text, add_special_tokens=add_bos)
+
+    def decode(self, ids: Sequence[int]) -> str:
+        return self.tok.decode(ids, skip_special_tokens=False)
 
 
 def build_prompt(instruction: str, history_actions: Sequence[str], n_mm_tokens: int,

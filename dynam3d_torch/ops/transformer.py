@@ -81,12 +81,13 @@ def mha(
 
 
 def encoder_layer(p: Params, x: torch.Tensor, num_heads: int,
-                  key_padding_mask=None, attn_mask=None) -> torch.Tensor:
-    """Post-norm ``nn.TransformerEncoderLayer`` with exact GELU."""
+                  key_padding_mask=None, attn_mask=None, ln_eps: float = 1e-5) -> torch.Tensor:
+    """Post-norm ``nn.TransformerEncoderLayer`` with exact GELU; ``ln_eps``
+    is 1e-12 in BERT layers."""
     a = mha(p["attn"], x, num_heads, key_padding_mask, attn_mask)
-    x = layer_norm(p["ln1"], x + a)
+    x = layer_norm(p["ln1"], x + a, eps=ln_eps)
     h = dense(p["ff2"], gelu(dense(p["ff1"], x)))
-    return layer_norm(p["ln2"], x + h)
+    return layer_norm(p["ln2"], x + h, eps=ln_eps)
 
 
 def encoder_stack(p: Params, x: torch.Tensor, num_heads: int,
@@ -115,19 +116,19 @@ def init_ln(d: int, device) -> Params:
     return {"scale": torch.ones(d, device=device), "bias": torch.zeros(d, device=device)}
 
 
+def init_encoder_layer(gen, d: int, d_ff: int, device) -> Params:
+    return {
+        "attn": {"qkv": init_dense(gen, d, 3 * d, device), "out": init_dense(gen, d, d, device)},
+        "ln1": init_ln(d, device),
+        "ff1": init_dense(gen, d, d_ff, device),
+        "ff2": init_dense(gen, d_ff, d, device),
+        "ln2": init_ln(d, device),
+    }
+
+
 def init_encoder_stack(gen, d: int, d_ff: int, n_layers: int, device) -> Params:
     return {
-        "layers": [
-            {
-                "attn": {"qkv": init_dense(gen, d, 3 * d, device),
-                         "out": init_dense(gen, d, d, device)},
-                "ln1": init_ln(d, device),
-                "ff1": init_dense(gen, d, d_ff, device),
-                "ff2": init_dense(gen, d_ff, d, device),
-                "ln2": init_ln(d, device),
-            }
-            for _ in range(n_layers)
-        ],
+        "layers": [init_encoder_layer(gen, d, d_ff, device) for _ in range(n_layers)],
         "final_ln": init_ln(d, device),
     }
 

@@ -1,7 +1,7 @@
 """Closed-loop episode runner: host feed <-> device policy step; port of
 ``runtime/episode.py::EpisodeRunner`` (``run`` over a batch of feeds,
-``run_interleaved``, ``pack_depth``, ``_prompt_ids`` with 128-token
-buckets, ``prev_gen`` priming).
+``pre_explore``, ``run_interleaved``, ``pack_depth``, ``_prompt_ids`` with
+128-token buckets, ``prev_gen`` priming).
 
 The host owns tokenization, action parsing, history strings and the feed;
 the device owns perception, the 3D memory and the VLM.  The reference's
@@ -92,13 +92,38 @@ class EpisodeRunner:
         return (torch.from_numpy(ids).to(self.device),
                 torch.from_numpy(valid).to(self.device), lens)
 
+    def pre_explore(self, feeds: Sequence[Feed], state, steps: int,
+                    rng: Optional[np.random.Generator] = None):
+        """Walk each feed ``steps`` random moves (a heading in [0, 2 pi), 0.25
+        or 0.5 m) feeding every observation into the 3D memory, with no
+        language-model step; the feeds are reset after, the memory is
+        returned."""
+        rng = rng or np.random.default_rng(0)
+        obs = [f.reset() for f in feeds]
+        dev = self.device
+        for _ in range(steps):
+            rgb = torch.from_numpy(np.stack([o.rgb for o in obs])).to(dev)
+            depth = torch.from_numpy(np.stack([o.depth for o in obs])).to(dev)
+            pos = torch.from_numpy(np.stack([o.position for o in obs])).to(dev)
+            hd = torch.tensor([o.heading for o in obs], dtype=torch.float32, device=dev)
+            state = policy_mod.perceive(self.params, self.cfg, state, rgb, depth, pos, hd).state
+            for i, f in enumerate(feeds):
+                obs[i], _, _ = f.step((float(rng.uniform(0, 2 * np.pi)),
+                                       float(rng.choice([0.25, 0.5]))))
+        for f in feeds:
+            f.reset()
+        return state
+
     def run(self, feeds: Sequence[Feed], max_steps: Optional[int] = None,
-            ignore_stop: bool = False) -> List[Dict]:
-        """Greedy closed-loop eval of one episode per feed (batched)."""
+            pre_explore_steps: int = 0, ignore_stop: bool = False) -> List[Dict]:
+        """Greedy closed-loop eval of one episode per feed (batched), after
+        ``pre_explore_steps`` steps of :meth:`pre_explore`."""
         cfg = self.cfg
         max_steps = max_steps or cfg.train.max_traj_len
         B = len(feeds)
         state = policy_mod.batched_init_state(cfg, B, self.device)
+        if pre_explore_steps:
+            state = self.pre_explore(feeds, state, pre_explore_steps)
         obs = [f.reset() for f in feeds]
         act_state = [EpisodeActionState() for _ in range(B)]
         live = list(range(B))

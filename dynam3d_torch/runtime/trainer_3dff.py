@@ -30,6 +30,7 @@ from dynam3d_torch.ops.knn import knn_brute
 from dynam3d_torch.runtime.losses_3dff import (
     balanced_merge_ce, contrastive_loss, cosine_loss, focal_loss, l2n, subspace_cosine_loss,
 )
+from dynam3d_torch.utils.tree import tree_leaves, tree_unflatten
 
 Params = Dict[str, Any]
 
@@ -60,31 +61,6 @@ class PretrainBatch(NamedTuple):
     novel_k: Any = None           # [3, 3] view-resolution K (posed)
     novel_rot: Any = None         # [Nv, 3, 3] camera-to-world R (posed)
     novel_trans: Any = None       # [Nv, 3] camera-to-world T (posed)
-
-
-# --- parameter trees (nested dicts and lists of tensors) -------------------
-
-def tree_leaves(tree) -> List[torch.Tensor]:
-    if isinstance(tree, dict):
-        return [x for k in tree for x in tree_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in tree_leaves(v)]
-    return [tree]
-
-
-def tree_unflatten(like, leaves):
-    """A tree shaped like ``like`` whose leaves are taken from ``leaves`` in
-    :func:`tree_leaves` order."""
-    it = iter(leaves)
-
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in node}
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(v) for v in node)
-        return next(it)
-
-    return build(like)
 
 
 # --- loss ------------------------------------------------------------------

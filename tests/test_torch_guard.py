@@ -29,7 +29,9 @@ def test_port_imports_no_jax_in_a_fresh_process():
     for m in ("models.policy", "ops.decode", "ops.knn", "ops.nerf_mlp", "models.render.nerf",
               "models.memory3d.pretrain", "runtime.losses_3dff", "runtime.trainer_3dff",
               "runtime.pretrain_loop", "models.encoders.yolov8_seg", "ops.int4_stream",
-              "tools.bench_int4_stream", "tools.bench_int4_unpack"):
+              "tools.bench_int4_stream", "tools.bench_int4_unpack", "runtime.vln_loop",
+              "runtime.trainer_vln", "runtime.checkpoint", "runtime.metrics", "ops.nms",
+              "models.waypoint.trm", "models.encoders.depth_resnet", "models.policy_3dff"):
         assert f"dynam3d_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -79,13 +81,36 @@ def test_entry_points_raise_without_a_device(monkeypatch):
         PretrainRunner({}, cfg, device=None)
 
 
-@pytest.mark.parametrize("entry", ["init_cache", "init_phi3_params", "init_llava_params"])
+@pytest.mark.parametrize("entry", ["VLNTrainer", "evaluate", "inference"])
+def test_vln_entry_points_raise_without_a_device(entry, monkeypatch):
+    """The trainer, ``evaluate`` and ``inference`` take ``device=None`` as
+    the card and raise without one, before any work."""
+    from dynam3d_torch.config import Dynam3DConfig
+    from dynam3d_torch.runtime import vln_loop
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = Dynam3DConfig()
+    calls = {
+        "VLNTrainer": lambda: vln_loop.VLNTrainer({}, cfg, lambda: None),
+        "evaluate": lambda: vln_loop.evaluate({}, cfg, [], []),
+        "inference": lambda: vln_loop.inference({}, cfg, [], []),
+    }
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]()
+
+
+@pytest.mark.parametrize("entry", ["init_cache", "init_phi3_params", "init_llava_params",
+                                   "init_depth_params", "init_waypoint_params"])
 def test_model_initialisers_resolve_none_to_the_card(entry, monkeypatch):
     """The Phi-3 and LLaVA initialisers take ``device=None`` as the card, as
     every other entry point does: without one they raise, and with
     ``device="cpu"`` they build on the CPU."""
-    from dynam3d_torch.config import CLIPConfig, LLaVAConfig, Phi3Config
+    from dynam3d_torch.config import (
+        CLIPConfig, DepthEncoderConfig, LLaVAConfig, Phi3Config, WaypointConfig,
+    )
+    from dynam3d_torch.models.encoders import depth_resnet
     from dynam3d_torch.models.vlm import llava, phi3
+    from dynam3d_torch.models.waypoint import trm
 
     pcfg = Phi3Config(vocab_size=64, hidden_size=32, intermediate_size=64, num_layers=1,
                       num_heads=2, num_kv_heads=2, head_dim=16, pad_token_id=60,
@@ -98,10 +123,19 @@ def test_model_initialisers_resolve_none_to_the_card(entry, monkeypatch):
         "init_phi3_params": lambda **kw: phi3.init_phi3_params(torch.Generator(), pcfg, **kw),
         "init_llava_params": lambda **kw: llava.init_llava_params(torch.Generator(), lcfg, ccfg,
                                                                   **kw),
+        "init_depth_params": lambda **kw: depth_resnet.init_depth_params(
+            torch.Generator(), DepthEncoderConfig(input_size=32, base_planes=8, ngroups=4), **kw),
+        "init_waypoint_params": lambda **kw: trm.init_waypoint_params(
+            torch.Generator(), WaypointConfig(hidden_dim=32, trm_layers=1,
+                                              num_attention_heads=4), 64, **kw),
     }
     made = calls[entry](device="cpu")
     if entry == "init_cache":
         leaves = list(made)
+    elif entry == "init_depth_params":
+        leaves = [made["stem_conv"]["w"], made["compress_gn"]["scale"]]
+    elif entry == "init_waypoint_params":
+        leaves = [made["visual_fc_depth"]["w"], made["bert_layers"][0]["ln1"]["scale"]]
     else:
         leaves = [made.get("phi3", made)["final_ln"]]
     assert all(t.device.type == "cpu" for t in leaves)

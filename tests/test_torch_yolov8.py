@@ -18,7 +18,7 @@ import torch
 from dynam3d_tpu.config import SegmenterConfig as JSegCfg
 from dynam3d_tpu.models.encoders import yolov8_seg as J
 from dynam3d_torch.config import SegmenterConfig as TSegCfg
-from dynam3d_torch.convert import yolo_params_from_jax
+from dynam3d_torch.convert import conv_params_from_jax
 from dynam3d_torch.models.encoders import yolov8_seg as T
 from tests.torch_parity import np32
 
@@ -34,7 +34,7 @@ j_nms = jax.jit(J.nms_select, static_argnames=("conf", "iou_thr", "max_masks", "
 @pytest.fixture(scope="module")
 def weights():
     jp = J.init_yolov8_params(jax.random.PRNGKey(0), width=0.125, depth_n=DEPTH)
-    tp = yolo_params_from_jax(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+    tp = conv_params_from_jax(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
     return jp, tp
 
 
