@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases build,mlp,attn,matvec2d,routes,batched
     python3 chip_smoke.py --phases build,yolo,stream
     python3 chip_smoke.py --phases build,vln
+    python3 chip_smoke.py --phases build,walk
 
 Phases, each printed as it finishes:
 
@@ -62,33 +63,46 @@ Phases, each printed as it finishes:
    (default flags) and 2 on 4 posed frames (the k-NN flag configuration),
    with every launch counter reset just before and read just after, then
    one profiled iteration;
-11. ``matvec2d``: kernel E (``csrc/int4_matvec2d.cu``) against its plain
+11. ``walk``: the hm3d walk of 3DFF pretraining at full width — ``fields``,
+   ``render``, CLIP-L/14-336 with its text tower (which embeds the 16
+   category names of the supervision), the ResNet-50 depth encoder
+   (``input_size`` 256) and the TRM waypoint predictor from a
+   ``torch.Generator``; ``WalkDriver`` (nv = 4, ``pretrain_traj_len``
+   steps, waypoint augmentation, teacher share ``sample_ratio`` / 2) on a
+   12-view ``SyntheticRoomFeed`` (336² RGB, 256² depth): 2 episodes under
+   the default flags through ``PretrainRunner.run`` with a
+   ``MetricsLogger`` and a checkpoint per iteration, 1 under the k-NN
+   gates, each window's launch counters reset just before and read just
+   after (kernel C in both, D under the gates, no plain version); finite
+   metrics, 1..5 steps, moved parameters, the checkpoint loaded back
+   equal; ms per episode and per step, peak memory, one profiled episode;
+12. ``matvec2d``: kernel E (``csrc/int4_matvec2d.cu``) against its plain
    version and against kernel A at the lm_head and qkv shapes, 1, 8, 12 and
    16 rows, with its work items (column tiles x scale groups) and the
    blocks an SM holds;
-12. ``mlp``: kernels F and G (``csrc/int4_mlp.cu``) against their plain
+13. ``mlp``: kernels F and G (``csrc/int4_mlp.cu``) against their plain
    versions at Phi-3-mini widths (D=3072, I=8192), 1, 8, 12 and 16 rows,
    with two bf16 ``torch.matmul`` on pre-dequantized weights plus ``silu``
    as the yardstick, and F's cooperative grid;
-13. ``attn``: kernel H (``csrc/decode_attn_layer.cu``) against its plain
+14. ``attn``: kernel H (``csrc/decode_attn_layer.cu``) against its plain
    version at Phi-3-mini widths, Tmax=1024, ~870 valid rows with holes, with
    dequantized bf16 matmuls plus ``scaled_dot_product_attention`` as the
    yardstick, and its cooperative grid and sequence splits;
-14. ``routes``: the small config on the card and on the CPU through every
+15. ``routes``: the small config on the card and on the CPU through every
    decode route of this slice (B=1 split, B=1 unfused speculation with and
    without ``DYNAM3D_INT4_GRID2D``, B=3 grouped speculation, B=12 unfused):
    identical ids per step and row;
-15. ``batched``: full-width 2-step episodes on one set of quantized
+16. ``batched``: full-width 2-step episodes on one set of quantized
    parameters: 12 feeds at the default flags (kernels F and A), 1 feed on
    the split route (H and G), 1 feed unfused under ``DYNAM3D_INT4_GRID2D``
    (E and F), 4 feeds (grouped speculation, kernel B), each with the launch
    counters reset just before and read just after and no plain version on
    the path, then one profiled 12-feed step;
-16. ``yolo``: one full-width ``segment_views`` (FastSAM-x, imgsz 576) of a
+17. ``yolo``: one full-width ``segment_views`` (FastSAM-x, imgsz 576) of a
    ``SyntheticRoomFeed`` view on the card and, with the same weights, on the
    CPU: ``forward`` within the stated tolerance, the same NMS picks and ids,
    ms per view, and the launches of the NMS loop;
-17. ``stream``: kernels I and J (``csrc/int4_stream.cu``) against their plain
+18. ``stream``: kernels I and J (``csrc/int4_stream.cu``) against their plain
    versions at the int4 tools' shapes (4 weights of 3072 x 16384), every
    ring variant of I and every body of J, each with its work items, blocks
    per SM, dynamic shared memory and share of the bytes bound, then both
@@ -96,7 +110,7 @@ Phases, each printed as it finishes:
    ``bench_int4_unpack``) with the launch counters reset just before and
    read just after, the bytes bound and a bf16 ``torch.matmul`` on the
    dequantized weights as the yardstick;
-18. ``vln``: the VLN second stage at full width — policy parameters with
+19. ``vln``: the VLN second stage at full width — policy parameters with
    Phi-3-mini in bf16 at the default config, the ResNet-50 depth encoder
    (``input_size`` 256) and the TRM waypoint predictor from a
    ``torch.Generator``; ``VLNTrainer.run`` (``cfg.train``: one iteration,
@@ -132,7 +146,7 @@ import sys
 import time
 
 PHASES = ("build", "matvec", "ring", "parity", "episode", "nerf", "knn", "render", "pretrain",
-          "matvec2d", "mlp", "attn", "routes", "batched", "yolo", "stream", "vln")
+          "walk", "matvec2d", "mlp", "attn", "routes", "batched", "yolo", "stream", "vln")
 
 # the dense bf16 tensor-core peak and the float32 peak outside the tensor
 # cores (H100 SXM); memory rates are dynam3d_torch.device.MEM_RATES
@@ -1340,17 +1354,22 @@ def phase_pretrain(ctx):
     _profile_pretrain(torch, runner, unposed, steady * 1e3)
 
 
-def _profile_pretrain(torch, runner, dataset, steady_ms):
-    """One more unposed iteration under ``torch.profiler`` (outside the
-    counted window): device time by kernel, and the device's busy and idle
-    share of ``steady_ms``, the un-profiled iteration's time."""
+def _profile_pretrain(torch, runner, dataset, steady_ms=None, label="pretrain"):
+    """One more iteration of ``dataset`` under ``torch.profiler`` (outside
+    the counted window): device time by kernel, and the device's busy and
+    idle share of ``steady_ms`` (an un-profiled iteration's time), or of the
+    profiled iteration's own synchronized wall time when it is None."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         runner.run([dataset], iters=1)
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    if steady_ms is None:
+        steady_ms = wall_ms
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
@@ -1361,11 +1380,140 @@ def _profile_pretrain(torch, runner, dataset, steady_ms):
         log("[profile] device time not measured (the profiler saw no kernels)")
         return
     busy_ms = sum(r[1] for r in rows) / 1e3
-    log(f"[profile] pretrain device_busy_ms={busy_ms:.1f} steady_iter_ms={steady_ms:.1f} "
+    log(f"[profile] {label} device_busy_ms={busy_ms:.1f} steady_iter_ms={steady_ms:.1f} "
         f"idle_share={max(0.0, 1 - busy_ms / steady_ms):.3f} kernels={len(rows)} "
         f"launches={sum(r[2] for r in rows)}")
     for key, us, n in rows[:15]:
         log(f"[profile] {us / 1e3:9.3f} ms  x{n:<6d} {key[:100]}")
+
+
+CATEGORIES = ("wall", "floor", "ceiling", "door", "window", "chair", "table", "sofa", "bed",
+              "cabinet", "shelf", "lamp", "plant", "picture", "counter", "sink")
+
+
+def phase_walk(ctx):
+    """The hm3d walk of 3DFF pretraining at full width: two episodes under
+    the default flags (logger, a checkpoint per iteration) and one under the
+    k-NN gates, each window's launch counters reset just before and read
+    just after, then one profiled episode."""
+    torch = ctx["torch"]
+    import tempfile
+
+    import numpy as np
+
+    from dynam3d_torch.config import Dynam3DConfig, SegmenterConfig
+    from dynam3d_torch.models.encoders import clip as clip_mod
+    from dynam3d_torch.models.encoders.clip_tokenizer import hash_tokenize
+    from dynam3d_torch.models.encoders.depth_resnet import feature_dim, init_depth_params
+    from dynam3d_torch.models.memory3d import init_field_params
+    from dynam3d_torch.models.render.nerf import init_render_params
+    from dynam3d_torch.models.waypoint.trm import init_waypoint_params
+    from dynam3d_torch.ops import kernels
+    from dynam3d_torch.runtime import checkpoint as ckpt_mod
+    from dynam3d_torch.runtime.feed import SyntheticRoomFeed
+    from dynam3d_torch.runtime.logging import MetricsLogger
+    from dynam3d_torch.runtime.pretrain_loop import (
+        PretrainRunner, WalkDriver, synthetic_supervision,
+    )
+    from dynam3d_torch.utils.tree import tree_leaves
+
+    cfg = Dynam3DConfig(segmenter=SegmenterConfig(provider="depth_plane"))
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    t0 = time.perf_counter()
+    params = {"fields": init_field_params(gen, cfg.fields, "cuda"),
+              "render": init_render_params(gen, cfg.fields, "cuda"),
+              "clip": clip_mod.init_clip_params(gen, cfg.clip, "cuda"),
+              "depth_enc": init_depth_params(gen, cfg.depth, device="cuda"),
+              "waypoint": init_waypoint_params(gen, cfg.waypoint, feature_dim(cfg.depth),
+                                               device="cuda")}
+    torch.cuda.synchronize()
+    log(f"[walk] params built in {time.perf_counter() - t0:.1f} s; depth features "
+        f"{feature_dim(cfg.depth)}, text tower {len(params['clip']['text']['transformer']['blocks'])}"
+        f" x {cfg.clip.text_width}")
+
+    # category embeddings from the text tower (the reference's CLIP text
+    # features of the category names)
+    sup = synthetic_supervision(0, cfg.fields.fts_dim, n_cats=len(CATEGORIES))
+    tokens = torch.from_numpy(hash_tokenize([f"a photo of a {c}" for c in CATEGORIES],
+                                            cfg.clip.text_context)).cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cat = clip_mod.encode_text(params["clip"], cfg.clip, tokens)
+    torch.cuda.synchronize()
+    text_ms = (time.perf_counter() - t0) * 1e3
+    if tuple(cat.shape) != (len(CATEGORIES), cfg.clip.embed_dim) or not bool(cat.isfinite().all()):
+        raise AssertionError(f"encode_text gave {tuple(cat.shape)}, finite {cat.isfinite().all()}")
+    sup["cat_embeddings"] = cat.cpu().numpy()
+    log(f"[walk] encode_text {len(CATEGORIES)} names in {text_ms:.1f} ms")
+
+    runner = PretrainRunner(params, cfg, device="cuda")
+
+    def walk(seed):
+        return WalkDriver(SyntheticRoomFeed(rgb_size=336, depth_size=256, views=12, seed=seed),
+                          sup, nv=4, max_len=cfg.train.pretrain_traj_len, seed=seed,
+                          teacher_prob=cfg.train.sample_ratio * 0.5,
+                          waypoint_aug=cfg.train.waypoint_aug)
+
+    before = [t.clone() for t in tree_leaves({k: params[k] for k in ("fields", "render")})]
+    tmp = tempfile.TemporaryDirectory()
+    logger = MetricsLogger(os.path.join(tmp.name, "logs"))
+    ckdir = os.path.join(tmp.name, "ck")
+    torch.cuda.reset_peak_memory_stats()
+    windows = {}
+    kernels.reset_counts()
+    hist = runner.run([walk(0)], iters=2, logger=logger, ckpt_dir=ckdir, log_every=1)
+    torch.cuda.synchronize()
+    windows["default"] = (dict(kernels.launches), dict(kernels.plain_calls))
+    trained = {k: [t.clone() for t in tree_leaves(runner.params[k])] for k in ("fields", "render")}
+    logger.close()
+    kernels.reset_counts()
+    with _flags(KNN_FLAG_ENV):
+        hist += runner.run([walk(1)], iters=1)
+    torch.cuda.synchronize()
+    windows["knn"] = (dict(kernels.launches), dict(kernels.plain_calls))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    for label, (counts, plain) in windows.items():
+        log(f"[walk] {label} launches {json.dumps(counts)} plain calls {json.dumps(plain)}")
+        if any(plain.values()):
+            raise AssertionError(f"plain kernel versions ran on the walk path ({label}): {plain}")
+        if counts["nerf_mlp"] <= 0:
+            raise AssertionError(f"kernel nerf_mlp was not launched on the walk path ({label})")
+    if windows["knn"][0]["knn_topk"] <= 0:
+        raise AssertionError("kernel knn_topk was not launched on the walk path under the gates")
+    for i, (m, t) in enumerate(zip(hist, runner.timings[-3:])):
+        steps = t["walk_steps"]
+        log(f"[walk] iter {i} {'knn' if i == 2 else 'default'} {json.dumps(m)} "
+            f"iter_ms={t['walk_s'] * 1e3:.1f} step_ms={t['walk_s'] * 1e3 / steps:.1f} "
+            f"heatmap_ms={t['heatmap_s'] * 1e3:.1f} views_ms={t['views_s'] * 1e3:.1f} "
+            f"grad_ms={t['grad_s'] * 1e3:.1f} update_ms={t['update_s'] * 1e3:.1f}")
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"walk iteration {i}: {m}")
+        if not 1 <= m["walk_steps"] <= cfg.train.pretrain_traj_len:
+            raise AssertionError(f"walk iteration {i}: walk_steps {m['walk_steps']}")
+    after = tree_leaves({k: runner.params[k] for k in ("fields", "render")})
+    moved = sum((a.float() - b.float()).abs().sum().item() for a, b in zip(after, before))
+    if not moved > 0:
+        raise AssertionError("the walk left the parameters where they were")
+
+    with open(os.path.join(tmp.name, "logs", "scalars.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    names = sorted(os.listdir(ckdir))
+    newest = os.path.join(ckdir, max(names, key=ckpt_mod.checkpoint_step))
+    loaded = ckpt_mod.load_checkpoint(newest)
+    for k in ("fields", "render"):
+        for a, b in zip(tree_leaves(loaded[k]), trained[k]):
+            if not torch.equal(a, b.cpu()):
+                raise AssertionError(f"checkpoint {newest} does not load back {k}")
+    if names != ["ckpt.iter1", "ckpt.iter2"] or {r["step"] for r in rows} != {0, 1}:
+        raise AssertionError(f"checkpoints {names}, logged steps {sorted({r['step'] for r in rows})}")
+    log(f"[walk] params_moved_l1={moved:.6g} peak_mem_gib={peak:.2f} checkpoints {names} "
+        f"round trip ok, {len(rows)} logged scalars")
+    tmp.cleanup()
+    ctx["walk_launches"] = {k: windows["default"][0][k] + windows["knn"][0][k]
+                            for k in ("nerf_mlp", "knn_topk")}
+    _profile_pretrain(torch, runner, walk(0), label="walk")
 
 
 def _device_kernels(torch, prof) -> int:
@@ -1952,6 +2100,7 @@ def main(argv=None) -> int:
             if rec["name"] in ctx["vln_launches"]:
                 rec["launches_vln"] = ctx["vln_launches"][rec["name"]]
     pre = ctx.get("pretrain_launches", {})
+    walk = ctx.get("walk_launches", {})
     if "nerf" in ctx:
         r = ctx["nerf"]
         kernels_rec.append(dict(
@@ -1960,6 +2109,8 @@ def main(argv=None) -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms_cached_weights"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             work="one novel view: N=1152 rows, D=768, weights cached"))
+        if "nerf_mlp" in walk:
+            kernels_rec[-1]["launches_walk"] = walk["nerf_mlp"]
     if "knn" in ctx:
         r = ctx["knn"]
         kernels_rec.append(dict(
@@ -1968,6 +2119,8 @@ def main(argv=None) -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             work="render stage 1: Q=72144, P=32768 (20160 live), k=4; bound over live pairs"))
+        if "knn_topk" in walk:
+            kernels_rec[-1]["launches_walk"] = walk["knn_topk"]
     bat = ctx.get("batched_launches", {})
     new = [("int4_matvec2d", ctx.get("matvec2d"), "int4_matvec2d.cu", "pallas_int4.py:283",
             "qkv 3072x9216 at 8 rows"),

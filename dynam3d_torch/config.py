@@ -190,12 +190,15 @@ class TrainConfig:
     grad_clip_norm: float = 10.0
     grad_clip_value: float = 10.0
     max_traj_len: int = 50
+    pretrain_traj_len: int = 5
     iters: int = 100000
     log_every: int = 500
     seed: int = 0
     ckpt_dir: str = "data/checkpoints"
     is_requeue: bool = False        # resume from the newest checkpoint by mtime
     ml_weight: float = 1.0          # weight of the logged IL loss
+    waypoint_aug: bool = True       # walk waypoints sampled from the heatmap
+    sample_ratio: float = 1.0       # twice the walk's teacher share
     max_text_len: int = 2000        # instruction character cap
     recycle_every: int = 20         # episodes between feed rebuilds
     use_waypoint_predictor: bool = True  # teacher candidates from the TRM

@@ -61,14 +61,18 @@ def conv_params_from_jax(tree: Any, device: DeviceLike = None) -> Any:
     return conv(tree)
 
 
+_CONV_SUBTREES = ("yolo", "depth_enc")
+
+
 def params_from_jax(tree: Any, device: DeviceLike = None) -> Any:
     """Convert a reference parameter tree (numpy leaves) to torch; a
-    ``yolo`` subtree goes through :func:`conv_params_from_jax`."""
+    ``yolo`` or ``depth_enc`` subtree goes through
+    :func:`conv_params_from_jax`."""
     device = resolve_device(device)
 
     def conv(node):
         if isinstance(node, dict):
-            return {k: conv_params_from_jax(v, device) if k == "yolo" else conv(v)
+            return {k: conv_params_from_jax(v, device) if k in _CONV_SUBTREES else conv(v)
                     for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return type(node)(conv(v) for v in node)

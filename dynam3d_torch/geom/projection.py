@@ -3,7 +3,7 @@
 Port of ``geom/projection.py``: ``unproject_depth_habitat``,
 ``patch_3d_info``, ``habitat_to_world`` and ``frustum_mask_habitat`` for the
 serving step; the renderer's ray grids (``ray_grid_habitat``,
-``ray_grid_intrinsics``) and the posed-frame geometry
+``ray_grid_intrinsics``, ``single_distance_ray_grid``) and the posed-frame geometry
 (``unproject_depth_intrinsics``, ``scale_intrinsics``,
 ``patch_geometry_from_pose``, ``camera_heading_from_rotation``, ``view_k``)
 for 3DFF pretraining; with the same pixel-grid conventions (half-pixel
@@ -148,6 +148,20 @@ def ray_grid_habitat(
     rel_x = rel_y * tan_xy
     rel_z = rel_y * _tan_grid_z(height, width, vfov_deg)[:, None]
     return (rel_x, rel_y, rel_z), rel_direction, rel_y
+
+
+def single_distance_ray_grid(
+    *, height: int, width: int, hfov_deg: float = 90.0, distance: float = 3.0,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """One ray per patch at a fixed ``distance`` (numpy, static): the
+    camera-frame position ``[H*W, 1, 3]``, direction ``[H*W, 1]`` and
+    distance ``[H*W, 1]``; the vertical tangent at a 90-degree field."""
+    tan_xy = _tan_grid_x(height, width, hfov_deg)[:, None]
+    rel_direction = -np.arctan(tan_xy)
+    rel_y = np.full((height * width, 1), distance, np.float32)
+    rel_x = rel_y * tan_xy
+    rel_z = rel_y * _tan_grid_z(height, width, 90.0)[:, None]
+    return np.stack([rel_x, rel_y, rel_z], axis=-1), rel_direction, rel_y
 
 
 def unproject_depth_intrinsics(depth: torch.Tensor, intrinsics: torch.Tensor,

@@ -1,17 +1,20 @@
-"""CLIP ViT-L/14@336px vision tower; port of ``models/encoders/clip.py``
-(``preprocess_rgb``, ``encode_image`` with ``hidden_layer``).
+"""CLIP ViT-L/14@336px, vision and text towers; port of
+``models/encoders/clip.py`` (``preprocess_rgb``, ``encode_image`` with
+``hidden_layer``, ``encode_text``, ``encode_all_text``).
 
 The tower returns the projected CLS feature and ALL projected patch tokens
 (the reference's modified forward), or the raw hidden states after
 ``n_blocks + hidden_layer + 1`` blocks when ``hidden_layer`` is given (the
-LLaVA tower's ``vision_feature_layer=-2``).  Products accumulate in f32;
-activations keep the pixels' dtype between ops, as in the reference.
+LLaVA tower's ``vision_feature_layer=-2``).  The text tower is causal and
+reads the feature at each row's EOT (the argmax id).  Products accumulate in
+f32; activations keep the input's dtype between ops (the pixels', or the
+token embedding's), as in the reference.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -29,21 +32,25 @@ def _quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
 
 
-def _attn(p: Params, x: torch.Tensor, heads: int) -> torch.Tensor:
+def _attn(p: Params, x: torch.Tensor, heads: int, mask: Optional[torch.Tensor]) -> torch.Tensor:
     D = x.shape[-1]
     hd = D // heads
     qkv = (dot_f32(x, weight_like(x, p["qkv"]["w"])) + p["qkv"]["b"]).to(x.dtype)
     q, k, v = (t.reshape(*t.shape[:-1], heads, hd) for t in qkv.split(D, dim=-1))
     logits = torch.einsum("...qhd,...khd->...hqk", q.float(), k.float()) / math.sqrt(hd)
+    if mask is not None:
+        logits = logits + mask
     a = torch.softmax(logits, dim=-1).to(x.dtype)
     o = torch.einsum("...hqk,...khd->...qhd", a.float(), v.float())
     o = o.reshape(*o.shape[:-2], D).to(x.dtype)
     return (dot_f32(o, weight_like(x, p["out"]["w"])) + p["out"]["b"]).to(x.dtype)
 
 
-def _block(p: Params, x: torch.Tensor, heads: int) -> torch.Tensor:
-    """Pre-norm residual attention block with QuickGELU."""
-    x = x + _attn(p["attn"], layer_norm(p["ln1"], x), heads)
+def _block(p: Params, x: torch.Tensor, heads: int,
+           mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Pre-norm residual attention block with QuickGELU; ``mask`` is added
+    to the attention logits."""
+    x = x + _attn(p["attn"], layer_norm(p["ln1"], x), heads, mask)
     h = layer_norm(p["ln2"], x)
     h = dot_f32(h, weight_like(h, p["fc1"]["w"])) + p["fc1"]["b"]
     h = _quick_gelu(h.to(x.dtype))
@@ -113,32 +120,72 @@ def encode_image(params: Params, cfg: CLIPConfig, pixels: torch.Tensor,
     return dot_f32(cls_out, proj).to(x.dtype), dot_f32(patches, proj).to(x.dtype)
 
 
+def _text_hidden(params: Params, cfg: CLIPConfig, tokens: torch.Tensor) -> torch.Tensor:
+    t = params["text"]
+    x = t["token_embedding"][tokens.to(torch.int64)] + t["positional_embedding"]
+    T = cfg.text_context
+    causal = torch.where(torch.ones(T, T, dtype=torch.bool, device=x.device).tril(),
+                         0.0, torch.finfo(torch.float32).min)
+    for bp in t["transformer"]["blocks"]:
+        x = _block(bp, x, cfg.text_heads, causal)
+    return layer_norm(t["ln_final"], x)
+
+
+def encode_text(params: Params, cfg: CLIPConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Projected feature ``[B, embed_dim]`` (float32) at each row's EOT,
+    the argmax token id."""
+    x = _text_hidden(params, cfg, tokens)
+    eot = torch.argmax(tokens, dim=-1)
+    feats = x[torch.arange(x.shape[0], device=x.device), eot]
+    return dot_f32(feats, params["text"]["projection"])
+
+
+def encode_all_text(params: Params, cfg: CLIPConfig,
+                    tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Projected features of every token ``[B, T, embed_dim]``, zero after
+    the EOT, and the EOT feature ``[B, embed_dim]`` (float32)."""
+    x = dot_f32(_text_hidden(params, cfg, tokens), params["text"]["projection"])
+    eot = torch.argmax(tokens, dim=-1)
+    sep = x[torch.arange(x.shape[0], device=x.device), eot]
+    keep = torch.arange(cfg.text_context, device=x.device)[None, :] <= eot[:, None]
+    return x * keep[..., None], sep
+
+
 def init_clip_params(gen: torch.Generator, cfg: CLIPConfig, device) -> Params:
-    """Random vision-tower parameters (the text tower is not on the path)."""
-    vw = cfg.vision_width
+    """Random parameters of both towers.  The text tower draws from a
+    generator of its own (seeded one past ``gen``'s seed), so the vision
+    tower and whatever ``gen`` draws next are the same with or without it."""
+    vw, tw = cfg.vision_width, cfg.text_width
     scale = vw ** -0.5
 
-    def block():
+    def block(g, d):
         return {
-            "attn": {"qkv": init_dense(gen, vw, 3 * vw, device),
-                     "out": init_dense(gen, vw, vw, device)},
-            "ln1": init_ln(vw, device),
-            "ln2": init_ln(vw, device),
-            "fc1": init_dense(gen, vw, 4 * vw, device),
-            "fc2": init_dense(gen, 4 * vw, vw, device),
+            "attn": {"qkv": init_dense(g, d, 3 * d, device),
+                     "out": init_dense(g, d, d, device)},
+            "ln1": init_ln(d, device),
+            "ln2": init_ln(d, device),
+            "fc1": init_dense(g, d, 4 * d, device),
+            "fc2": init_dense(g, 4 * d, d, device),
         }
 
-    def randn(*shape):
-        return torch.randn(*shape, generator=gen, device=device)
+    def randn(*shape, g=gen):
+        return torch.randn(*shape, generator=g, device=device)
 
-    return {
-        "visual": {
-            "conv1_w": randn(cfg.patch_size ** 2 * 3, vw) * scale,
-            "class_embedding": scale * randn(vw),
-            "positional_embedding": scale * randn(cfg.grid ** 2 + 1, vw),
-            "ln_pre": init_ln(vw, device),
-            "transformer": {"blocks": [block() for _ in range(cfg.vision_layers)]},
-            "ln_post": init_ln(vw, device),
-            "proj": scale * randn(vw, cfg.embed_dim),
-        }
+    visual = {
+        "conv1_w": randn(cfg.patch_size ** 2 * 3, vw) * scale,
+        "class_embedding": scale * randn(vw),
+        "positional_embedding": scale * randn(cfg.grid ** 2 + 1, vw),
+        "ln_pre": init_ln(vw, device),
+        "transformer": {"blocks": [block(gen, vw) for _ in range(cfg.vision_layers)]},
+        "ln_post": init_ln(vw, device),
+        "proj": scale * randn(vw, cfg.embed_dim),
     }
+    tg = torch.Generator(device=gen.device).manual_seed(gen.initial_seed() + 1)
+    text = {
+        "token_embedding": 0.02 * randn(cfg.vocab_size, tw, g=tg),
+        "positional_embedding": 0.01 * randn(cfg.text_context, tw, g=tg),
+        "transformer": {"blocks": [block(tg, tw) for _ in range(cfg.text_layers)]},
+        "ln_final": init_ln(tw, device),
+        "projection": tw ** -0.5 * randn(tw, cfg.embed_dim, g=tg),
+    }
+    return {"visual": visual, "text": text}

@@ -49,6 +49,11 @@ def stack_aux(auxes) -> PretrainAux:
     return PretrainAux(base, *rest)
 
 
+def unstack_aux(aux: PretrainAux, b: int) -> PretrainAux:
+    """Element ``b`` of a record with a leading axis."""
+    return PretrainAux(ViewAux(*(t[b] for t in aux.base)), *(t[b] for t in aux[1:]))
+
+
 def segment_gt_ids(segm: torch.Tensor, patch_pos: torch.Tensor, gt_xyz: torch.Tensor,
                    gt_label: torch.Tensor, gt_valid: torch.Tensor, max_segments: int,
                    max_label: int) -> torch.Tensor:

@@ -2,9 +2,9 @@
 
 Port of ``models/render/nerf.py``: ``nerf_mlp`` (kernel C on the card, with
 the autograd of the reference's chain as its gradient), ``raw2feature``,
-``render_view`` (habitat camera), ``render_view_posed`` (pinhole K and
-camera-to-world ``(R, T)``), their shared ``_render_core`` and
-``init_render_params``.
+``render_view`` (habitat camera), ``render_panorama`` (four of them),
+``render_view_posed`` (pinhole K and camera-to-world ``(R, T)``), their
+shared ``_render_core`` and ``init_render_params``.
 
 Per view: ``view_height x view_width`` rays of ``n_samples`` points; stage 1
 scores every sample by the summed distance of its ``search_num`` nearest
@@ -16,6 +16,7 @@ sample grid.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, NamedTuple, Tuple
 
 import torch
@@ -144,6 +145,20 @@ def render_view_posed(params: Params, cfg: FieldsConfig, state: FieldState,
     ray_xyz = rel_position @ rot.T + trans[None, None, :]
     heading, _ = camera_heading_from_rotation(rot, trans)
     return _render_core(params, cfg, state, ray_xyz, rel_dir, rel_dist, heading)
+
+
+def render_panorama(params: Params, cfg: FieldsConfig, state: FieldState,
+                    position: torch.Tensor, heading) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Four 90-degree views clockwise from behind the agent (view ``i`` at
+    ``(heading - i pi / 2 + 3 pi / 4) mod 2 pi``): features ``[H, 4W, D]``
+    and positions ``[H, 4W, 3]``, the views side by side."""
+    fts, pos = [], []
+    for view_id in range(4):
+        h = (heading + view_id * (-math.pi / 2.0) + math.pi * 3.0 / 4.0) % (2.0 * math.pi)
+        out = render_view(params, cfg, state, position, h)
+        fts.append(out.features)
+        pos.append(out.positions)
+    return torch.cat(fts, dim=1), torch.cat(pos, dim=1)
 
 
 def _stage1_sq_dists(cfg: FieldsConfig, state: FieldState, ray_xyz: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,15 @@
-"""3DFF pretraining outer loop over posed-frames datasets; port of the
-frames-driver part of ``runtime/pretrain_loop.py`` (``SyntheticFramesDataset``,
-``synthetic_supervision``, ``pool_to_view``, ``PretrainRunner``).
+"""3DFF pretraining outer loop; port of ``runtime/pretrain_loop.py``
+(``SyntheticFramesDataset``, ``synthetic_supervision``, ``WalkDriver``,
+``pool_to_view``, ``PretrainRunner``).
 
-Per iteration: a host-agreed dataset draw -> ``sample_scene`` -> the device
-side of the batch (CLIP over the frames, depth to the patch grid, patch
-geometry, segments, novel-view targets) -> one training step -> scalars.
+Per iteration a host-agreed dataset draw picks a driver.  A posed-frames
+dataset (``sample_scene``) goes through the device side of the batch (CLIP
+over the frames, depth to the patch grid, patch geometry, segments,
+novel-view targets) and one training step.  A :class:`WalkDriver`
+(``run_iteration``) walks an episode of the simulator feed, accumulating
+each step's gradients, and makes one update at its end.  Then the
+iteration's scalars go to the logger and, every ``log_every`` iterations,
+the trained ``fields`` and ``render`` to a checkpoint.
 """
 
 from __future__ import annotations
@@ -25,10 +30,17 @@ from dynam3d_torch.geom.projection import (
 from dynam3d_torch.models.encoders import clip as clip_mod
 from dynam3d_torch.models.encoders.depth_resnet import preprocess_depth
 from dynam3d_torch.models.memory3d import init_state
+from dynam3d_torch.models.memory3d.state import stack_states
 from dynam3d_torch.models.policy import nearest_resize_hw
+from dynam3d_torch.models.policy_3dff import (
+    candidates_from_heatmap, sample_waypoints_train, waypoint_heatmap,
+)
 from dynam3d_torch.models.segmenter import depth_plane_segments
+from dynam3d_torch.runtime import checkpoint as ckpt_mod
 from dynam3d_torch.runtime import trainer_3dff
-from dynam3d_torch.runtime.feed import SyntheticRoomFeed
+from dynam3d_torch.runtime.feed import STOP, SyntheticRoomFeed
+from dynam3d_torch.runtime.logging import MetricsLogger
+from dynam3d_torch.utils.tree import tree_map
 
 
 class SyntheticFramesDataset:
@@ -103,6 +115,149 @@ def synthetic_supervision(seed: int, fts_dim: int, n_points: int = 128, n_cats: 
     )
 
 
+class WalkDriver:
+    """The hm3d walk driver of 3DFF pretraining.
+
+    Per episode the feed is reset, then each step (at most ``max_len``):
+
+      1. the frozen waypoint heatmap of the 12-view depth panorama and its
+         NMS candidates; with ``waypoint_aug`` each candidate's (angle,
+         distance) is drawn from its sector's softmax instead;
+      2. ``nv`` novel views: a random candidate's position
+         (``feed.get_cand_real_pos``), a uniform heading in [-pi, pi), the
+         feed's view there; their CLIP grids pooled to the view size are
+         the render targets;
+      3. one gradient of the walk step's loss (the panorama folded into the
+         carried memory, the novel views rendered), added to the
+         episode's sum;
+      4. the next move: STOP at the last step; else with probability
+         ``teacher_prob`` the teacher (STOP within ``stop_distance`` of the
+         goal, else the candidate nearest it), otherwise a random
+         candidate;
+
+    then one optimizer update from the mean gradient.  ``self.rng`` is
+    drawn in that order: the augmentation's choices, each novel view's
+    candidate and heading, the teacher draw, the random candidate.
+    """
+
+    def __init__(self, feed, supervision: Dict, nv: int = 4, max_len: int = 5, seed: int = 0,
+                 teacher_prob: float = 0.5, stop_distance: float = 1.5,
+                 waypoint_aug: bool = True):
+        self.feed = feed
+        self.sup = supervision
+        self.nv = nv
+        self.max_len = max_len
+        self.rng = np.random.default_rng(seed)
+        self.teacher_prob = teacher_prob
+        self.stop_distance = stop_distance
+        self.waypoint_aug = waypoint_aug
+
+    def _candidates(self, cfg: Dynam3DConfig, heat: torch.Tensor):
+        """Host angles and distances of the step's candidates (float32)."""
+        cand = candidates_from_heatmap(cfg, heat)
+        mask = cand.mask[0].cpu().numpy()
+        angles = cand.angles_ccw[0].cpu().numpy()[mask]
+        dists = cand.distances[0].cpu().numpy()[mask]
+        if self.waypoint_aug and len(angles):
+            n_ang = cfg.waypoint.num_angles
+            bins = np.round((2 * math.pi - angles) / (2 * math.pi) * n_ang).astype(np.int64) \
+                % n_ang
+            sa, sd = sample_waypoints_train(heat.cpu().numpy(), [bins.tolist()], self.rng)
+            angles = 2 * math.pi - np.asarray(sa[0]) / n_ang * 2 * math.pi
+            dists = (np.asarray(sd[0]) + 1) * 0.25
+        if len(angles) == 0:           # a degenerate heatmap: a forward fan
+            angles = np.asarray([0.0, math.pi / 2, -math.pi / 2])
+            dists = np.asarray([0.5, 0.5, 0.5])
+        return angles, dists
+
+    def run_iteration(self, runner: "PretrainRunner") -> Dict[str, float]:
+        cfg, dev = runner.cfg, runner.device
+        for k in ("depth_enc", "waypoint"):
+            if k not in runner.params:
+                raise KeyError(f"WalkDriver needs frozen '{k}' parameters on the runner "
+                               "(init_depth_params / init_waypoint_params)")
+        trainable = {"fields": runner.params["fields"], "render": runner.params["render"]}
+        frozen = {k: v for k, v in runner.params.items() if k not in trainable}
+        runner._ensure_opt(trainable)
+
+        def put(a, dtype=None):
+            return torch.as_tensor(np.asarray(a, dtype), device=dev)
+
+        sup = {k: put(self.sup[k]) for k in ("gt_xyz", "gt_label", "cat_embeddings",
+                                              "gtid_to_cat", "gtid_text_fts", "gtid_text_valid")}
+        gt_valid = torch.ones(self.sup["gt_xyz"].shape[0], dtype=torch.bool, device=dev)
+        t_start = runner._sync()
+        obs = self.feed.reset()
+        state = stack_states([init_state(cfg.fields, dev)])
+        grad_sum = tree_map(torch.zeros_like, trainable)
+        per_step: List[Dict[str, torch.Tensor]] = []
+        times = {"heatmap_s": 0.0, "views_s": 0.0, "grad_s": 0.0}
+
+        for stepk in range(self.max_len):
+            t0 = runner._sync()
+            depth12 = put(obs.depth, np.float32)
+            heat = runner._heatmap(frozen, depth12[None])
+            angles, dists = self._candidates(cfg, heat)
+            t1 = runner._sync()
+
+            nv_pos, nv_hd, nv_rgb = [], [], []
+            for _ in range(self.nv):
+                k = int(self.rng.integers(0, len(angles)))
+                pos = self.feed.get_cand_real_pos(float(angles[k]), float(dists[k]))
+                hd = float(self.rng.uniform(-math.pi, math.pi))
+                nv_pos.append(pos)
+                nv_hd.append(hd)
+                nv_rgb.append(self.feed.get_observation(pos, hd).rgb[0])
+            with torch.no_grad():
+                _, ngrid = runner._encode_views(runner.params["clip"], put(np.stack(nv_rgb)))
+            batch = trainer_3dff.WalkBatch(
+                rgb12=put(obs.rgb), depth12=depth12, position=put(obs.position, np.float32),
+                heading=put(obs.heading, np.float32), gt_xyz=sup["gt_xyz"],
+                gt_label=sup["gt_label"], gt_valid=gt_valid,
+                novel_position=habitat_to_world(put(np.stack(nv_pos), np.float32)),
+                novel_heading=put(nv_hd, np.float32), novel_gt_fts=pool_to_view(ngrid, cfg.fields),
+                cat_embeddings=sup["cat_embeddings"], gtid_to_cat=sup["gtid_to_cat"],
+                gtid_text_fts=sup["gtid_text_fts"], gtid_text_valid=sup["gtid_text_valid"],
+                use_labels=torch.tensor(True, device=dev))
+            t2 = runner._sync()
+            grads, state, metrics = runner._walk_grad(trainable, frozen, state, batch)
+            grad_sum = tree_map(torch.add, grad_sum, grads)
+            per_step.append(metrics)
+            t3 = runner._sync()
+            times["heatmap_s"] += t1 - t0
+            times["views_s"] += t2 - t1
+            times["grad_s"] += t3 - t2
+
+            if stepk == self.max_len - 1:
+                action = STOP
+            elif self.rng.uniform() < self.teacher_prob:
+                cd = [self.feed.cand_dist_to_goal(float(a), float(d))
+                      for a, d in zip(angles, dists)]
+                if self.feed.oracle_distance(None) < self.stop_distance:
+                    action = STOP
+                else:
+                    k = int(np.argmin(cd))
+                    action = (float(angles[k]), float(dists[k]))
+            else:
+                k = int(self.rng.integers(0, len(angles)))
+                action = (float(angles[k]), float(dists[k]))
+            obs, done, _ = self.feed.step(action)
+            if done or action == STOP:
+                break
+
+        t4 = runner._sync()
+        new_tr, runner._tr_opt = trainer_3dff.apply_accumulated_grads(
+            runner.opt, trainable, runner._tr_opt, grad_sum, len(per_step))
+        runner.params["fields"] = new_tr["fields"]
+        runner.params["render"] = new_tr["render"]
+        t5 = runner._sync()
+        runner.timings.append(dict(times, update_s=t5 - t4, walk_s=t5 - t_start,
+                                   walk_steps=len(per_step)))
+        out = {k: float(np.mean([float(m[k]) for m in per_step])) for k in per_step[0]}
+        out["walk_steps"] = float(len(per_step))
+        return out
+
+
 def pool_to_view(grid: torch.Tensor, f) -> torch.Tensor:
     """CLIP patch grid ``[N, g*g, D]`` -> view targets ``[N, R, D]``,
     average-pooled to ``view_height x view_width``."""
@@ -114,9 +269,17 @@ def pool_to_view(grid: torch.Tensor, f) -> torch.Tensor:
 
 
 class PretrainRunner:
-    """The posed-frames pretraining loop on one device (the card unless
+    """The pretraining loop on one device (the card unless
     ``device="cpu"``).  ``params`` holds ``fields``, ``render`` and ``clip``
-    on that device; ``fields`` and ``render`` are trained."""
+    on that device, and for a :class:`WalkDriver` the frozen ``depth_enc``
+    and ``waypoint``; ``fields`` and ``render`` are trained.
+
+    ``timings`` gets one record per iteration, host seconds between
+    synchronized points: ``build_s`` and ``step_s`` for a frames
+    iteration; for a walk the episode's ``walk_s``, its sums over steps
+    ``heatmap_s`` (heatmap and candidates), ``views_s`` (novel views and
+    their CLIP targets) and ``grad_s`` (the step's loss and gradients),
+    the final ``update_s``, and ``walk_steps``."""
 
     def __init__(self, params, cfg: Dynam3DConfig, seed: int = 0, device: DeviceLike = None):
         self.device = resolve_device(device)
@@ -124,9 +287,9 @@ class PretrainRunner:
         self.params = params
         self.opt = trainer_3dff.make_pretrain_optimizer(cfg)
         self._steps = {}
+        self._walk_grad = trainer_3dff.make_walk_grad_step(cfg)
         self.seed = seed
         self.it = 0
-        #: per iteration: host seconds of the batch build and of the step
         self.timings: List[Dict[str, float]] = []
 
     def _get_step(self, posed: bool):
@@ -137,6 +300,10 @@ class PretrainRunner:
     def _ensure_opt(self, trainable):
         if not hasattr(self, "_tr_opt"):
             self._tr_opt = self.opt.init(trainable)
+
+    @torch.no_grad()
+    def _heatmap(self, frozen, depth12: torch.Tensor) -> torch.Tensor:
+        return waypoint_heatmap(frozen, self.cfg, depth12)
 
     def _encode_views(self, clip_params, rgb: torch.Tensor):
         pixels = clip_mod.preprocess_rgb(rgb, self.cfg.clip.image_size)
@@ -263,26 +430,43 @@ class PretrainRunner:
             torch.cuda.synchronize(self.device)
         return time.perf_counter()
 
-    def run(self, datasets: Sequence, iters: int) -> List[Dict[str, float]]:
+    def run(self, datasets: Sequence, iters: int, logger: Optional[MetricsLogger] = None,
+            ckpt_dir: Optional[str] = None, log_every: int = 100) -> List[Dict[str, float]]:
         """``iters`` training iterations over providers with
-        ``sample_scene()``; returns each iteration's scalars."""
+        ``sample_scene()`` or ``run_iteration(runner)``; returns each
+        iteration's scalars, which also go to ``logger`` under ``loss/``.
+        Every ``log_every`` iterations ``{"fields", "render"}`` is saved to
+        ``ckpt_dir/ckpt.iter{it}``."""
         history = []
         for _ in range(iters):
             ds = datasets[trainer_3dff.draw_dataset_id(self.seed, self.it, len(datasets))]
-            t0 = self._sync()
-            scene = ds.sample_scene()
-            batch = self.build_batch(scene, self.params["clip"])
-            t1 = self._sync()
-            trainable = {"fields": self.params["fields"], "render": self.params["render"]}
-            self._ensure_opt(trainable)
-            step = self._get_step(posed="intrinsics" in scene)
-            new_tr, self._tr_opt, _, metrics = step(trainable, self._tr_opt,
-                                                    init_state(self.cfg.fields, self.device),
-                                                    batch)
-            self.params["fields"] = new_tr["fields"]
-            self.params["render"] = new_tr["render"]
-            history.append({k: float(v) for k, v in metrics.items()})
-            t2 = self._sync()
-            self.timings.append({"build_s": t1 - t0, "step_s": t2 - t1})
+            if hasattr(ds, "run_iteration"):
+                m = ds.run_iteration(self)
+            else:
+                m = self._frames_iteration(ds)
+            history.append(m)
+            if logger:
+                logger.add_scalars(m, self.it, prefix="loss/")
+            if ckpt_dir and (self.it + 1) % log_every == 0:
+                ckpt_mod.save_checkpoint(ckpt_dir, self.it + 1,
+                                         {"fields": self.params["fields"],
+                                          "render": self.params["render"]})
             self.it += 1
         return history
+
+    def _frames_iteration(self, ds) -> Dict[str, float]:
+        t0 = self._sync()
+        scene = ds.sample_scene()
+        batch = self.build_batch(scene, self.params["clip"])
+        t1 = self._sync()
+        trainable = {"fields": self.params["fields"], "render": self.params["render"]}
+        self._ensure_opt(trainable)
+        step = self._get_step(posed="intrinsics" in scene)
+        new_tr, self._tr_opt, _, metrics = step(trainable, self._tr_opt,
+                                                init_state(self.cfg.fields, self.device), batch)
+        self.params["fields"] = new_tr["fields"]
+        self.params["render"] = new_tr["render"]
+        m = {k: float(v) for k, v in metrics.items()}
+        t2 = self._sync()
+        self.timings.append({"build_s": t1 - t0, "step_s": t2 - t1})
+        return m

@@ -1,7 +1,8 @@
-"""3DFF pretraining step of the posed-frames driver; port of
+"""3DFF pretraining steps of the posed-frames and walk drivers; port of
 ``runtime/trainer_3dff.py`` (``PretrainBatch``, ``pretrain_step_loss``,
 ``losses_after_update``, ``make_pretrain_optimizer``,
-``make_pretrain_step``, ``draw_dataset_id``).
+``make_pretrain_step``, ``WalkBatch``, ``walk_step_loss``,
+``make_walk_grad_step``, ``apply_accumulated_grads``, ``draw_dataset_id``).
 
 One step folds the V input views into a fresh memory (each view's update
 recomputed in the backward pass, as the reference rematerializes it),
@@ -12,6 +13,8 @@ InfoNCE / 5), the per-ray category focal loss / 10 and the instance / zone
 text alignment.  The optimizer is AdamW (lr ``pretrain_lr``, weight decay
 1e-4) after a per-value gradient clip; NaN gradients read as zero, and a
 NaN loss keeps the parameters while the optimizer state still advances.
+A walk step returns its gradients instead; the walk driver sums them over
+the episode and makes one update from their mean, with no NaN-loss skip.
 """
 
 from __future__ import annotations
@@ -23,8 +26,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from dynam3d_torch.config import Dynam3DConfig
-from dynam3d_torch.models.memory3d.pretrain import stack_aux, update_view_pretrain
-from dynam3d_torch.models.memory3d.state import FieldState
+from dynam3d_torch.models.memory3d.pretrain import stack_aux, unstack_aux, update_view_pretrain
+from dynam3d_torch.models.memory3d.state import FieldState, unstack_state
+from dynam3d_torch.models.policy_3dff import perceive_panorama
 from dynam3d_torch.models.render.nerf import render_view, render_view_posed
 from dynam3d_torch.ops.knn import knn_brute
 from dynam3d_torch.runtime.losses_3dff import (
@@ -248,6 +252,107 @@ def make_pretrain_step(cfg: Dynam3DConfig, optimizer: PretrainOptimizer, posed: 
         return new_tr, new_opt, new_state, metrics
 
     return step
+
+
+# --- walk step ---------------------------------------------------------------
+
+class WalkBatch(NamedTuple):
+    """One walk step's inputs (one episode)."""
+
+    rgb12: torch.Tensor           # [12, Hc, Wc, 3] uint8 panorama, counter-clockwise
+    depth12: torch.Tensor         # [12, Hd, Wd] normalized depth
+    position: torch.Tensor        # [3] habitat-frame agent position
+    heading: torch.Tensor         # [] agent heading
+    gt_xyz: torch.Tensor          # [G, 3] scene gt point cloud (world)
+    gt_label: torch.Tensor        # [G]
+    gt_valid: torch.Tensor        # [G]
+    novel_position: torch.Tensor  # [Nv, 3] world-frame novel cameras
+    novel_heading: torch.Tensor   # [Nv]
+    novel_gt_fts: torch.Tensor    # [Nv, R, D] pooled CLIP targets of the views
+    cat_embeddings: torch.Tensor  # [C, D]
+    gtid_to_cat: torch.Tensor     # [L]
+    gtid_text_fts: torch.Tensor   # [L, D]
+    gtid_text_valid: torch.Tensor  # [L]
+    use_labels: torch.Tensor      # scalar bool
+
+
+class _LossInputs(NamedTuple):
+    """The fields of a PretrainBatch that ``losses_after_update`` reads."""
+
+    cls_fts: Any
+    novel_position: Any
+    novel_heading: Any
+    novel_gt_fts: Any
+    gt_xyz: Any
+    gt_label: Any
+    gt_valid: Any
+    cat_embeddings: Any
+    gtid_to_cat: Any
+    gtid_text_fts: Any
+    gtid_text_valid: Any
+    use_labels: Any
+    novel_k: Any = None
+    novel_rot: Any = None
+    novel_trans: Any = None
+
+
+def walk_step_loss(params: Params, cfg: Dynam3DConfig, state: FieldState, batch: WalkBatch,
+                   ) -> Tuple[torch.Tensor, FieldState, Dict[str, torch.Tensor]]:
+    """One walk step: the memory (batched ``[1, ...]``, detached here) folds
+    the panorama's four views in, then the loss family renders the novel
+    views.  Contrastive terms normalize over this step's rays and
+    instances, as the reference's per-step program does."""
+    state = FieldState(*(t.detach() for t in state))
+    pp = perceive_panorama(params, cfg, state, batch.rgb12[None], batch.depth12[None],
+                           batch.position[None], batch.heading[None],
+                           gt_xyz=batch.gt_xyz[None], gt_label=batch.gt_label[None],
+                           gt_valid=batch.gt_valid[None], with_waypoints=False)
+    state1 = unstack_state(pp.state, 0)
+    inputs = _LossInputs(
+        cls_fts=pp.cls_fts[0], novel_position=batch.novel_position,
+        novel_heading=batch.novel_heading, novel_gt_fts=batch.novel_gt_fts,
+        gt_xyz=batch.gt_xyz, gt_label=batch.gt_label, gt_valid=batch.gt_valid,
+        cat_embeddings=batch.cat_embeddings, gtid_to_cat=batch.gtid_to_cat,
+        gtid_text_fts=batch.gtid_text_fts, gtid_text_valid=batch.gtid_text_valid,
+        use_labels=batch.use_labels)
+    loss, metrics = losses_after_update(params, cfg, state1, unstack_aux(pp.aux, 0), inputs)
+    return loss, pp.state, metrics
+
+
+def make_walk_grad_step(cfg: Dynam3DConfig):
+    """``step(trainable, frozen, state, batch) -> (grads, new_state,
+    metrics)``: the gradients of one walk step's loss over the trainable
+    tree (a tree of the same shape; zero where a leaf is unused), the state
+    detached.  The driver sums them over the episode and applies one update
+    (:func:`apply_accumulated_grads`)."""
+
+    def step(trainable, frozen, state, batch: WalkBatch):
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(trainable)]
+        loss, new_state, metrics = walk_step_loss(
+            {**frozen, **tree_unflatten(trainable, leaves)}, cfg, state, batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["loss"] = loss.detach()
+        return (tree_unflatten(trainable, grads), FieldState(*(t.detach() for t in new_state)),
+                metrics)
+
+    return step
+
+
+@torch.no_grad()
+def apply_accumulated_grads(optimizer: PretrainOptimizer, trainable, opt_state, grad_sum,
+                            n_steps: int):
+    """The episode's update: the summed gradients over ``n_steps``, NaN
+    elements read as zero (a NaN at any step zeroes that element for the
+    episode), then one optimizer step.  Returns ``(new_trainable,
+    new_opt_state)``."""
+    grads = [g / max(n_steps, 1) for g in tree_leaves(grad_sum)]
+    grads = [torch.where(torch.isnan(g), torch.zeros_like(g), g) for g in grads]
+    updates, new_opt = optimizer.update(grads, opt_state, trainable)
+    new_tr = tree_unflatten(trainable, [p.detach() + u for p, u in
+                                        zip(tree_leaves(trainable), updates)])
+    return new_tr, new_opt
 
 
 # --- dataset draw ------------------------------------------------------------

@@ -25,13 +25,11 @@ import torch
 from dynam3d_torch.config import Dynam3DConfig
 from dynam3d_torch.device import DeviceLike, resolve_device
 from dynam3d_torch.models import policy as policy_mod
-from dynam3d_torch.models.encoders.depth_resnet import (
-    encode_depth, feature_dim, init_depth_params, preprocess_depth,
-)
-from dynam3d_torch.models.policy_3dff import clockwise_reorder
+from dynam3d_torch.models import policy_3dff
+from dynam3d_torch.models.encoders.depth_resnet import feature_dim, init_depth_params
 from dynam3d_torch.models.vlm.tokenizer import ByteTokenizer, build_prompt
 from dynam3d_torch.models.waypoint.trm import (
-    Candidates, extract_candidates, init_waypoint_params, predict_heatmap,
+    Candidates, extract_candidates, init_waypoint_params,
 )
 from dynam3d_torch.runtime import checkpoint as ckpt_mod
 from dynam3d_torch.runtime import metrics as metrics_mod
@@ -101,10 +99,8 @@ class VLNTrainer:
     def waypoint_heatmap(self, dep12: torch.Tensor) -> torch.Tensor:
         """Heatmap logits ``[1, 120, 12]`` of a ``[1, 12, Hd, Wd]``
         normalized depth panorama (counter-clockwise sensor order)."""
-        d = clockwise_reorder(dep12)
-        d = preprocess_depth(d.reshape(d.shape[1], *d.shape[2:])[..., None], (0.0, 10.0)) / 10.0
-        feats = encode_depth(self.depth_enc_params, self.cfg.depth, d)
-        return predict_heatmap(self.waypoint_params, self.cfg.waypoint, feats)
+        return policy_3dff.waypoint_heatmap(
+            {"depth_enc": self.depth_enc_params, "waypoint": self.waypoint_params}, self.cfg, dep12)
 
     def _waypoint_candidates(self, dep12: torch.Tensor) -> Candidates:
         return extract_candidates(self.cfg.waypoint, self.waypoint_heatmap(dep12))

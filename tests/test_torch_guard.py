@@ -31,7 +31,9 @@ def test_port_imports_no_jax_in_a_fresh_process():
               "runtime.pretrain_loop", "models.encoders.yolov8_seg", "ops.int4_stream",
               "tools.bench_int4_stream", "tools.bench_int4_unpack", "runtime.vln_loop",
               "runtime.trainer_vln", "runtime.checkpoint", "runtime.metrics", "ops.nms",
-              "models.waypoint.trm", "models.encoders.depth_resnet", "models.policy_3dff"):
+              "models.waypoint.trm", "models.encoders.depth_resnet", "models.policy_3dff",
+              "runtime.logging", "models.encoders.clip_tokenizer", "models.encoders.clip",
+              "geom.projection"):
         assert f"dynam3d_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"

@@ -23,9 +23,7 @@ from dynam3d_tpu.models.memory3d import init_field_params
 from dynam3d_tpu.models.render.nerf import init_render_params
 from dynam3d_tpu.runtime import pretrain_loop as jloop
 from dynam3d_torch.runtime import pretrain_loop as tloop
-from dynam3d_torch.runtime.trainer_3dff import tree_leaves
-from tests.test_torch_pretrain import _jax_paths, _paths
-from tests.torch_parity import np32, port_config, to_torch
+from tests.torch_parity import assert_trained_close, port_config, to_torch
 
 CFG = Dynam3DConfig(
     fields=FieldsConfig(
@@ -66,20 +64,7 @@ def run_and_compare(setup: str) -> None:
         assert not t["skipped"] and np.isfinite(t["loss"])
         for k in j:
             np.testing.assert_allclose(t[k], j[k], rtol=1e-4, atol=1e-6, err_msg=k)
-    D = CFG.fields.fts_dim
-    for part in ("fields", "render"):
-        want = _jax_paths(jrun.params[part])
-        for name, a in zip(_paths(trun.params[part]), tree_leaves(trun.params[part])):
-            got, ref = np32(a), np32(want[name])
-            err = np.abs(got - ref)
-            tol = np.full(ref.shape, 1e-5, np.float32)
-            if name.endswith("attn/qkv/b"):
-                tol[D:2 * D] = 4e-5
-            label = f"{part}{name}"
-            if part == "render":
-                assert (err > tol).mean() <= 5e-3 and (err <= 4e-5).all(), (label, err.max())
-            else:
-                assert (err <= tol).all(), (label, err.max())
+    assert_trained_close(trun.params, jrun.params, CFG.fields.fts_dim, noise=4e-5)
     assert len(trun.timings) == 2
 
 
