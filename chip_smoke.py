@@ -127,7 +127,19 @@ Phases, each printed as it finishes:
    counters reset just before and read just after (kernels A and B, no
    plain version); then one ``VLNTrainer`` step of a small config on the
    card and on the CPU with the same weights: loss, updated trainable
-   tensors, waypoint heatmaps and candidates within the stated tolerances.
+   tensors, waypoint heatmaps and candidates within the stated tolerances;
+20. ``cli``: the port as a user starts it, at the default ``Dynam3DConfig()``
+   with random weights, in a temporary working directory:
+   ``dynam3d_torch.run.main`` for ``eval`` (8 episodes of at most 3 steps:
+   6 ``SyntheticRoomFeed`` rooms and 2 ``FloorplanFeed`` apartments at 336²
+   RGB and 256² depth), ``inference`` (4 episodes), ``train`` with the
+   ``Dynam3D`` trainer (1 iteration of at most 3 steps, saved) and with
+   ``SS-ETP`` (2 pretraining iterations, kernel C on every render), then
+   ``dynam3d_torch.tools.eval_soak`` over 2 full 50-step episodes (one
+   floorplan, one room) on int4 weights with speculative decode (kernels A
+   and B); each step's files checked, its wall time and peak memory
+   printed, the launch counters reset just before each step and read just
+   after (A and B in the soak, C in SS-ETP, no plain version anywhere).
 
 Any failure exits non-zero.  The line before the last is the kernels' JSON
 record; the last line is ``{"ok": true, "device": {...}}``.
@@ -146,7 +158,8 @@ import sys
 import time
 
 PHASES = ("build", "matvec", "ring", "parity", "episode", "nerf", "knn", "render", "pretrain",
-          "walk", "matvec2d", "mlp", "attn", "routes", "batched", "yolo", "stream", "vln")
+          "walk", "matvec2d", "mlp", "attn", "routes", "batched", "yolo", "stream", "vln",
+          "cli")
 
 # the dense bf16 tensor-core peak and the float32 peak outside the tensor
 # cores (H100 SXM); memory rates are dynam3d_torch.device.MEM_RATES
@@ -2047,6 +2060,123 @@ def _gt_paths():
     return [np.float32([[2.0, 1.25, 2.0], [4.0, 1.25, 4.0], [6.0, 1.25, 6.0]])] * 2
 
 
+METRIC_KEYS = {"steps_taken", "distance_to_goal", "success", "oracle_success", "path_length",
+               "collisions", "spl", "ndtw", "sdtw"}
+
+
+def _finite_metrics(label, metrics):
+    if set(metrics) != METRIC_KEYS or not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"cli {label}: metrics {metrics}")
+
+
+def phase_cli(ctx):
+    """The run CLI for its three run types and both trainers, then the eval
+    soak, at full width in a temporary working directory: each step's
+    files checked, its wall time, peak memory and launches printed."""
+    torch = ctx["torch"]
+    import gc
+    import tempfile
+
+    from dynam3d_torch import run
+    from dynam3d_torch.ops import kernels
+    from dynam3d_torch.runtime import vln_loop
+    from dynam3d_torch.tools import eval_soak
+
+    seen = {}
+    evaluate = vln_loop.evaluate
+
+    def recording(params, cfg, feeds, *a, **k):
+        seen["eval"] = [(type(f).__name__, f.rgb_size, f.depth_size) for f in feeds]
+        return evaluate(params, cfg, feeds, *a, **k)
+
+    steps = [
+        ("eval", ["--run-type", "eval", "--exp_name", "smoke", "train.max_traj_len=3"]),
+        ("inference", ["--run-type", "inference", "--exp_name", "smoke",
+                       "train.max_traj_len=3"]),
+        ("train_Dynam3D", ["--run-type", "train", "--trainer", "Dynam3D", "--exp_name", "il",
+                           "train.iters=1", "train.max_traj_len=3", "train.log_every=1"]),
+        ("train_SS-ETP", ["--run-type", "train", "--trainer", "SS-ETP", "--exp_name", "pre",
+                          "train.iters=2"]),
+        ("soak", ["--out", "soak", "--episodes", "2"]),
+    ]
+    tmp = tempfile.TemporaryDirectory()
+    cwd = os.getcwd()
+    os.chdir(tmp.name)
+    vln_loop.evaluate = recording
+    windows = {}
+    try:
+        for name, argv in steps:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_counts()
+            t0 = time.perf_counter()
+            out = eval_soak.main(argv) if name == "soak" else run.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts, plain = dict(kernels.launches), dict(kernels.plain_calls)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            windows[name] = counts
+            log(f"[cli] {name} wall_s={wall:.2f} peak_mem_gib={peak:.2f} launches "
+                f"{json.dumps({k: v for k, v in counts.items() if v})} plain calls "
+                f"{json.dumps({k: v for k, v in plain.items() if v})}")
+            if any(plain.values()):
+                raise AssertionError(f"cli {name}: plain kernel versions ran: {plain}")
+            if name == "eval":
+                per_ep = json.load(open("data/eval/smoke/stats_ep_ckpt_r0_w1.json"))
+                agg = json.load(open("data/eval/smoke/stats_ckpt.json"))
+                if sorted(per_ep, key=int) != [str(i) for i in range(8)]:
+                    raise AssertionError(f"cli eval: episodes {sorted(per_ep)}")
+                for k, m in per_ep.items():
+                    _finite_metrics(f"eval episode {k}", m)
+                _finite_metrics("eval aggregate", agg)
+                if seen["eval"] != ([("SyntheticRoomFeed", 336, 256)] * 6
+                                    + [("FloorplanFeed", 336, 256)] * 2):
+                    raise AssertionError(f"cli eval: feeds {seen['eval']}")
+                log(f"[cli] eval steps {[int(m['steps_taken']) for m in per_ep.values()]} "
+                    f"aggregate {json.dumps(agg)}")
+            elif name == "inference":
+                preds = json.load(open("data/eval/smoke_preds.json"))
+                if sorted(preds) != ["0", "1", "2", "3"] or not all(preds.values()):
+                    raise AssertionError(f"cli inference: {preds}")
+                log(f"[cli] inference poses {[len(p) for p in preds.values()]}")
+            elif name == "train_Dynam3D":
+                names = os.listdir("data/checkpoints")
+                if names != ["ckpt.iter1"]:
+                    raise AssertionError(f"cli train: checkpoints {names}")
+                size = os.path.getsize("data/checkpoints/ckpt.iter1") / 2**30
+                log(f"[cli] train wrote {names} ({size:.2f} GiB)")
+            elif name == "train_SS-ETP":
+                rows = [json.loads(r) for r in open("data/logs/pre/scalars.jsonl")]
+                losses = {r["step"]: r["value"] for r in rows if r["tag"] == "loss/loss"}
+                if (sorted(losses) != [0, 1]
+                        or not all(math.isfinite(r["value"]) for r in rows)):
+                    raise AssertionError(f"cli SS-ETP: logged {rows}")
+                if counts["nerf_mlp"] <= 0:
+                    raise AssertionError("cli SS-ETP: kernel nerf_mlp was not launched")
+                log(f"[cli] SS-ETP losses {json.dumps(losses)}, {len(rows)} scalars")
+            else:
+                rep = json.load(open("soak/soak_report.json"))
+                per_ep = json.load(open("soak/stats_ep_soak_r0_w1.json"))
+                if rep != json.loads(json.dumps(out)) or rep["steps"] != 100 or any(
+                        m["steps_taken"] != 50.0 for m in per_ep.values()):
+                    raise AssertionError(f"cli soak: report {rep}, episodes {per_ep}")
+                for k, m in per_ep.items():
+                    _finite_metrics(f"soak episode {k}", m)
+                _finite_metrics("soak aggregate", rep["metrics"])
+                if counts["int4_matvec"] <= 0 or counts["decode_attn"] <= 0:
+                    raise AssertionError("cli soak: kernels A and B did not both launch")
+                log(f"[cli] soak s_per_episode={rep['s_per_episode']:.3f} "
+                    f"ms_per_step={rep['ms_per_step']:.1f} over {rep['steps']} steps, "
+                    f"device {rep['device']}")
+    finally:
+        vln_loop.evaluate = evaluate
+        os.chdir(cwd)
+        tmp.cleanup()
+    ctx["cli_launches"] = {k: windows["soak"][k] + windows["train_SS-ETP"][k]
+                           for k in ("int4_matvec", "decode_attn", "nerf_mlp")}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -2100,6 +2230,7 @@ def main(argv=None) -> int:
             if rec["name"] in ctx["vln_launches"]:
                 rec["launches_vln"] = ctx["vln_launches"][rec["name"]]
     pre = ctx.get("pretrain_launches", {})
+    cli = ctx.get("cli_launches", {})
     walk = ctx.get("walk_launches", {})
     if "nerf" in ctx:
         r = ctx["nerf"]
@@ -2150,6 +2281,9 @@ def main(argv=None) -> int:
                 replaces=rep_, launches=r["launches"], max_abs_err=r["max_abs_err"], ms=r["ms"],
                 plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                 library_ms=r["library_ms"], work=work))
+    for rec in kernels_rec:
+        if rec["name"] in cli:
+            rec["launches_cli"] = cli[rec["name"]]
     print(json.dumps({"kernels": kernels_rec}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

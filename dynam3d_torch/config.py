@@ -1,15 +1,15 @@
 """Configuration of the PyTorch port: the dataclasses its paths read.
 
-An own copy of the reference package's config tree (same field names and
-defaults), restricted to the sections the RGB-D -> action step, imitation
-learning with the waypoint predictor, eval and inference, and the 3DFF
-pretraining path use.  The port never imports the JAX package, so these
-classes are kept here.
+An own copy of the reference package's config tree (same field names,
+defaults and sections), overridable from JSON / YAML files and
+``dotted.key=value`` options as the reference's ``config.py`` is.  The port
+never imports the JAX package, so these classes are kept here.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Any, Optional, Tuple
 
@@ -193,6 +193,7 @@ class TrainConfig:
     pretrain_traj_len: int = 5
     iters: int = 100000
     log_every: int = 500
+    batch_size: int = 1            # the reference's field; no path of the port reads it
     seed: int = 0
     ckpt_dir: str = "data/checkpoints"
     is_requeue: bool = False        # resume from the newest checkpoint by mtime
@@ -214,6 +215,18 @@ class EvalConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """Device layout: data-parallel ranks times tensor-parallel shards."""
+
+    dp: int = 1
+    tp: int = 1
+
+    @property
+    def num_devices(self) -> int:
+        return self.dp * self.tp
+
+
+@dataclass(frozen=True)
 class Dynam3DConfig:
     fields: FieldsConfig = field(default_factory=FieldsConfig)
     clip: CLIPConfig = field(default_factory=CLIPConfig)
@@ -224,6 +237,7 @@ class Dynam3DConfig:
     action: ActionConfig = field(default_factory=ActionConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
 
 def _replace_nested(cfg: Any, dotted: str, value: Any) -> Any:
@@ -232,9 +246,33 @@ def _replace_nested(cfg: Any, dotted: str, value: Any) -> Any:
     if head not in names:
         raise KeyError(f"unknown config key: {head!r} on {type(cfg).__name__}")
     if not rest:
+        if isinstance(value, str):
+            value = _coerce(value, getattr(cfg, head))
         return dataclasses.replace(cfg, **{head: value})
     sub = getattr(cfg, head)
     return dataclasses.replace(cfg, **{head: _replace_nested(sub, rest, value)})
+
+
+def _coerce(text: str, prev: Any) -> Any:
+    """A string value read as the type of the field's current value: bool
+    ("1", "true", "yes", "on"), int, float, or a tuple split on ","."""
+    if isinstance(prev, bool):
+        return text.lower() in ("1", "true", "yes", "on")
+    if isinstance(prev, int):
+        return int(text)
+    if isinstance(prev, float):
+        return float(text)
+    if isinstance(prev, tuple):
+        return tuple(type(prev[0])(t) for t in text.split(","))
+    return text
+
+
+def apply_opts(cfg: Dynam3DConfig, opts: list) -> Dynam3DConfig:
+    """Apply ``dotted.key=value`` options, e.g. ``train.iters=5``."""
+    for opt in opts:
+        key, _, val = opt.partition("=")
+        cfg = _replace_nested(cfg, key.strip(), val.strip())
+    return cfg
 
 
 def from_dict(d: dict, base: Optional[Dynam3DConfig] = None) -> Dynam3DConfig:
@@ -251,4 +289,21 @@ def from_dict(d: dict, base: Optional[Dynam3DConfig] = None) -> Dynam3DConfig:
             cfg = _replace_nested(cfg, prefix, node)
 
     rec("", d)
+    return cfg
+
+
+def load(path: str, opts: Optional[list] = None) -> Dynam3DConfig:
+    """A config from a JSON file, or YAML (``.yaml`` / ``.yml``, read with
+    PyYAML), then ``opts`` as :func:`apply_opts` takes them."""
+    with open(path) as f:
+        text = f.read()
+    if path.endswith((".yaml", ".yml")):
+        import yaml
+
+        d = yaml.safe_load(text)
+    else:
+        d = json.loads(text)
+    cfg = from_dict(d or {})
+    if opts:
+        cfg = apply_opts(cfg, opts)
     return cfg

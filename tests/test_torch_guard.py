@@ -33,7 +33,9 @@ def test_port_imports_no_jax_in_a_fresh_process():
               "runtime.trainer_vln", "runtime.checkpoint", "runtime.metrics", "ops.nms",
               "models.waypoint.trm", "models.encoders.depth_resnet", "models.policy_3dff",
               "runtime.logging", "models.encoders.clip_tokenizer", "models.encoders.clip",
-              "geom.projection"):
+              "geom.projection", "run", "runtime.feed", "runtime.vector_feed",
+              "runtime.profiling", "tools.record_episodes", "tools.make_golden_fixtures",
+              "tools.eval_soak"):
         assert f"dynam3d_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -99,6 +101,24 @@ def test_vln_entry_points_raise_without_a_device(entry, monkeypatch):
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
+
+
+@pytest.mark.parametrize("entry", ["run", "eval_soak"])
+def test_cli_entry_points_raise_without_a_device(entry, tmp_path, monkeypatch):
+    """``run.main`` and ``tools.eval_soak.main`` take ``device=None`` as
+    the card: without one they raise before writing anything."""
+    from dynam3d_torch import run
+    from dynam3d_torch.tools import eval_soak
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    calls = {
+        "run": lambda: run.main(["--run-type", "eval", "--exp_name", "x"]),
+        "eval_soak": lambda: eval_soak.main(["--out", str(tmp_path / "soak"), "--scale", "tiny"]),
+    }
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]()
+    assert os.listdir(tmp_path) == []
 
 
 @pytest.mark.parametrize("entry", ["init_cache", "init_phi3_params", "init_llava_params",

@@ -15,20 +15,11 @@ import numpy as np
 from dynam3d_torch import config as tcfg
 from dynam3d_torch.convert import params_from_jax
 
-# sections of the reference config tree the port carries
-_SECTIONS = ("fields", "clip", "depth", "segmenter", "waypoint", "llava", "action", "eval")
-_TRAIN_KEYS = ("lr", "pretrain_lr", "grad_clip_norm", "grad_clip_value", "max_traj_len",
-               "iters", "log_every", "seed", "ckpt_dir", "is_requeue", "ml_weight",
-               "max_text_len", "recycle_every", "use_waypoint_predictor",
-               "pretrain_traj_len", "waypoint_aug", "sample_ratio")
-
 
 def port_config(jcfg) -> tcfg.Dynam3DConfig:
-    """The port's config with the same values as a reference config."""
-    d = dataclasses.asdict(jcfg)
-    sub = {k: d[k] for k in _SECTIONS}
-    sub["train"] = {k: d["train"][k] for k in _TRAIN_KEYS}
-    return tcfg.from_dict(sub)
+    """The port's config with the same values as a reference config (the
+    two trees have the same sections and fields)."""
+    return tcfg.from_dict(dataclasses.asdict(jcfg))
 
 
 def to_torch(jparams, device="cpu"):
