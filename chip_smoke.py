@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases build,yolo,stream
     python3 chip_smoke.py --phases build,vln
     python3 chip_smoke.py --phases build,walk
+    python3 chip_smoke.py --phases build,convert
 
 Phases, each printed as it finishes:
 
@@ -139,7 +140,25 @@ Phases, each printed as it finishes:
    floorplan, one room) on int4 weights with speculative decode (kernels A
    and B); each step's files checked, its wall time and peak memory
    printed, the launch counters reset just before each step and read just
-   after (A and B in the soak, C in SS-ETP, no plain version anywhere).
+   after (A and B in the soak, C in SS-ETP, no plain version anywhere);
+21. ``convert``: the reference-weights runway at ``parity_run``'s ``full``
+   config (the soak's: the default with member caps 512 / 128, 32-layer
+   Phi-3-mini):
+   truth trees on the card from seed 11 (policy, renderer, waypoint
+   predictor, ResNet-50 depth encoder), ``synth_sd.synth_all`` of them, the
+   ``dynam3d``, ``pretrain``, ``clip``, ``llava``, ``fastsam``, ``waypoint``
+   and ``ddppo`` assets written as ``.pth`` files in a temporary directory
+   (it fails if the disk there cannot hold them),
+   ``tools.convert_reference_ckpt.main`` over them, the checkpoint read
+   back to the card and every family held against the truth exactly (the
+   HF tower's identity tail aside); ``tools.parity_run --converted``, 4
+   steps with the logits dump, whose ids must equal those of the same 4
+   steps on the int4-quantized truth; one view rendered with the converted
+   renderer, kernel C held against its plain version on the inputs it got;
+   ``tools.eval_soak --converted``, one ``train.max_traj_len`` episode;
+   bytes and seconds of each step, peak memory, and the launch counters
+   reset just before each counted step and read just after (A and B in the
+   episodes and the soak, C in the render, no plain version).
 
 Any failure exits non-zero.  The line before the last is the kernels' JSON
 record; the last line is ``{"ok": true, "device": {...}}``.
@@ -159,7 +178,7 @@ import time
 
 PHASES = ("build", "matvec", "ring", "parity", "episode", "nerf", "knn", "render", "pretrain",
           "walk", "matvec2d", "mlp", "attn", "routes", "batched", "yolo", "stream", "vln",
-          "cli")
+          "cli", "convert")
 
 # the dense bf16 tensor-core peak and the float32 peak outside the tensor
 # cores (H100 SXM); memory rates are dynam3d_torch.device.MEM_RATES
@@ -2177,6 +2196,251 @@ def phase_cli(ctx):
                            for k in ("int4_matvec", "decode_attn", "nerf_mlp")}
 
 
+def _tree_exact(label, got, want):
+    """Two trees with the same structure, dtypes, shapes and values, bit
+    for bit (max abs diff 0)."""
+    import torch
+
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or sorted(got) != sorted(want):
+            raise AssertionError(f"convert {label}: keys differ")
+        for k in want:
+            _tree_exact(f"{label}/{k}", got[k], want[k])
+    elif isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            raise AssertionError(f"convert {label}: lengths differ")
+        for i, (g, w) in enumerate(zip(got, want)):
+            _tree_exact(f"{label}/{i}", g, w)
+    elif not (got.dtype == want.dtype and got.shape == want.shape and torch.equal(got, want)):
+        raise AssertionError(f"convert {label}: {got.dtype} {tuple(got.shape)} vs {want.dtype} "
+                             f"{tuple(want.shape)}, max abs diff "
+                             f"{(got.float() - want.float()).abs().max().item()}")
+
+
+CONVERT_ASSETS = ("dynam3d", "pretrain", "clip", "llava", "fastsam", "waypoint", "ddppo")
+
+
+def phase_convert(ctx):
+    """The reference-weights runway at full width: reference-format state
+    dicts synthesized from a truth tree, written as ``.pth`` files, converted
+    by the CLI, checked exactly, then a parity run, a render and a soak on
+    the converted checkpoint, each counted window's launches read."""
+    torch = ctx["torch"]
+    import dataclasses
+    import gc
+    import shutil
+    import tempfile
+
+    from dynam3d_torch.models import policy
+    from dynam3d_torch.models.encoders.depth_resnet import feature_dim, init_depth_params
+    from dynam3d_torch.models.render import nerf
+    from dynam3d_torch.models.vlm.phi3 import quantize_phi3
+    from dynam3d_torch.models.waypoint.trm import init_waypoint_params
+    from dynam3d_torch.ops import kernels
+    from dynam3d_torch.ops.nerf_mlp import nerf_mlp_cuda, nerf_mlp_plain
+    from dynam3d_torch.runtime import synth_sd
+    from dynam3d_torch.runtime.checkpoint import load_to_device
+    from dynam3d_torch.runtime.feed import SyntheticRoomFeed
+    from dynam3d_torch.tools import convert_reference_ckpt, eval_soak, parity_run
+    from dynam3d_torch.utils.tree import tree_leaves
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[label] = time.perf_counter() - t0
+        return out
+
+    def counted(label, fn, want=()):
+        kernels.reset_counts()
+        out = timed(label, fn)
+        counts, plain = dict(kernels.launches), dict(kernels.plain_calls)
+        log(f"[convert] {label}: launches {json.dumps({k: v for k, v in counts.items() if v})} "
+            f"plain calls {json.dumps({k: v for k, v in plain.items() if v})}")
+        if any(plain.values()):
+            raise AssertionError(f"convert {label}: plain kernel versions ran: {plain}")
+        if any(counts[k] <= 0 for k in want):
+            raise AssertionError(f"convert {label}: kernels {want} not all launched")
+        for k in total:
+            total[k] += counts[k]
+        return out
+
+    cfg = eval_soak.soak_config("full")
+    secs, total = {}, {k: 0 for k in kernels.KERNELS}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tmp = tempfile.mkdtemp(prefix="dynam3d_convert_")
+    try:
+        # 1-2. the truth trees from seed 11 (the converter's random base is
+        # seed 0, so a family left unconverted cannot pass), then every asset
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        truth = timed("truth", lambda: {
+            "params": policy.init_policy_params(gen, cfg, device="cuda"),
+            "render": nerf.init_render_params(gen, cfg.fields, "cuda"),
+            "waypoint": init_waypoint_params(gen, cfg.waypoint, feature_dim(cfg.depth),
+                                             device="cuda"),
+            "depth_enc": init_depth_params(gen, cfg.depth, device="cuda")})
+        sds = timed("synth", lambda: synth_sd.synth_all(
+            truth["params"], cfg, render_params=truth["render"],
+            waypoint_params=truth["waypoint"], depth_params=truth["depth_enc"]))
+        need = sum(nbytes(sds[n]) for n in CONVERT_ASSETS) + nbytes(truth)
+        free = shutil.disk_usage(tmp).free
+        log(f"[convert] truth {nbytes(truth) / 2**30:.2f} GiB, assets "
+            f"{ {n: len(sds[n]) for n in sds} } in {tmp} ({free / 2**30:.1f} GiB free)")
+        if free < 1.1 * need:
+            raise AssertionError(f"convert: {free / 2**30:.1f} GiB free under {tmp}, the assets "
+                                 f"and the converted checkpoint need {need / 2**30:.1f} GiB")
+
+        # 3. the assets as .pth files
+        paths = {n: os.path.join(tmp, f"{n}.pth") for n in CONVERT_ASSETS}
+
+        def write():
+            for n in CONVERT_ASSETS:
+                torch.save(sds[n], paths[n])
+
+        timed("write", write)
+        written = sum(os.path.getsize(p) for p in paths.values())
+        del sds
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 4. the conversion CLI over the files, at the phase's config (the
+        # waypoint NMS sigmas, a tuple JSON cannot hold, keep their default)
+        conf = dataclasses.asdict(cfg)
+        conf["waypoint"].pop("nms_sigma")
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump(conf, f)
+        argv = ["--out", os.path.join(tmp, "converted"), "--exp-config",
+                os.path.join(tmp, "config.json")]
+        for n in CONVERT_ASSETS:
+            argv += [f"--{n}", paths[n]]
+        out = timed("convert", lambda: convert_reference_ckpt.main(argv))
+        ckpt = out["path"]
+        ckpt_bytes = os.path.getsize(ckpt)
+        want_report = {"fields": "pretrain", "render": "pretrain", "clip": "clip",
+                       "llava": "llava", "yolo": "fastsam", "waypoint": "waypoint",
+                       "depth_enc": "ddppo"}
+        if out["report"] != want_report:
+            raise AssertionError(f"convert: report {out['report']}")
+
+        # 5. every family against the truth, exactly (the HF tower's identity
+        # tail aside); what no asset here carries (the five projectors, the
+        # LLaVA tower's unused text half) is the converter's seed-0 base and
+        # goes into the truth for step 7
+        loaded = timed("load", lambda: load_to_device(ckpt))
+        got = loaded["params"]
+        truth["params"]["llava"]["clip"]["text"] = got["llava"]["clip"]["text"]
+        for part in ("patch_pos_emb", "inst_pos_emb", "zone_pos_emb", "inst_proj", "zone_proj"):
+            truth["params"][part] = got[part]
+        for part in ("fields", "clip", "yolo"):
+            _tree_exact(part, got[part], truth["params"][part])
+        _tree_exact("llava", got["llava"],
+                    parity_run.with_identity_tail(truth["params"]["llava"], got["llava"]))
+        for part in ("render", "waypoint", "depth_enc"):
+            _tree_exact(part, loaded[part], truth[part])
+        render = loaded["render"]
+        del loaded, got
+        gc.collect()
+        torch.cuda.empty_cache()
+        secs["cli_convert"], secs["cli_save"] = out["convert_s"], out["save_s"]
+        log(f"[convert] every family exact; wrote {written / 2**30:.3f} GiB of assets in "
+            f"{secs['write']:.2f} s ({written / secs['write'] / 2**30:.3f} GiB/s), the CLI "
+            f"{secs['convert']:.2f} s (reading and converting {out['convert_s']:.2f} s, saving "
+            f"the {ckpt_bytes / 2**30:.3f} GiB checkpoint {out['save_s']:.2f} s), read it back "
+            f"to the card in {secs['load']:.2f} s ({ckpt_bytes / secs['load'] / 2**30:.3f} GiB/s)")
+
+        # 6. the parity run on the converted checkpoint
+        rep = counted("parity_run", lambda: parity_run.main(
+            ["--out", os.path.join(tmp, "parity"), "--converted", ckpt, "--steps", "4",
+             "--dump-logits"]), want=("int4_matvec", "decode_attn"))
+        steps = [json.loads(r) for r in open(os.path.join(tmp, "parity", "steps_parity.jsonl"))]
+        if (len(steps) != rep["steps"] or len(steps[0]["logits_top10"]) != 10
+                or not all(math.isfinite(v) for v in rep["metrics"].values())):
+            raise AssertionError(f"convert parity_run: report {rep}")
+        log(f"[convert] parity_run steps={rep['steps']} step_s="
+            f"{[round(s['step_s'], 4) for s in steps]} padded="
+            f"{[s['prompt_padded_len'] for s in steps]} logits_top10[0]="
+            f"{next(iter(steps[0]['logits_top10'].items()))}")
+
+        # 7. the same steps on the int4-quantized truth: the same bits, so
+        # the same ids
+        truth["params"]["llava"]["phi3"] = quantize_phi3(truth["params"]["llava"]["phi3"],
+                                                         bits=4, consume=True)
+        os.makedirs(os.path.join(tmp, "truth"))
+        counted("truth_episode", lambda: parity_run.run_episode(
+            truth["params"], cfg, SyntheticRoomFeed(rgb_size=cfg.clip.image_size,
+                                                    depth_size=256, views=1),
+            os.path.join(tmp, "truth"), 4), want=("int4_matvec", "decode_attn"))
+        ref = [json.loads(r) for r in open(os.path.join(tmp, "truth", "steps_parity.jsonl"))]
+        if [s["action_ids"] for s in steps] != [s["action_ids"] for s in ref]:
+            raise AssertionError("convert: the converted weights decode other ids than the truth")
+        del truth
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 8. one view with the converted renderer; kernel C against its plain
+        # version on the inputs it got (outside the counted window)
+        fcfg = cfg.fields
+        state = _render_state(torch, fcfg)
+        seen = []
+        real = nerf.fused_nerf_mlp
+
+        def recording(x, *w):
+            seen.append((x, w))
+            return real(x, *w)
+
+        nerf.fused_nerf_mlp = recording
+        try:
+            with torch.no_grad():
+                view = counted("render", lambda: nerf.render_view(
+                    render, fcfg, state, torch.tensor([0.3, -0.2, 1.25], device="cuda"),
+                    torch.tensor(0.7, device="cuda")), want=("nerf_mlp",))
+        finally:
+            nerf.fused_nerf_mlp = real
+        if not seen or not all(bool(torch.isfinite(t.float()).all()) for t in view):
+            raise AssertionError("convert render: kernel C did not run or the view is not finite")
+        c_err, c_tol = 0.0, 0.0
+        for x, w in seen:
+            ok, dk = nerf_mlp_cuda(x, *w)
+            op, dp = nerf_mlp_plain(x, *w)
+            c_tol = max(c_tol, _bf16_tol(op), _bf16_tol(dp))
+            c_err = max(c_err, (ok.float() - op.float()).abs().max().item(),
+                        (dk.float() - dp.float()).abs().max().item())
+        if not c_err <= c_tol:
+            raise AssertionError(f"convert render: kernel C err {c_err} > {c_tol}")
+        log(f"[convert] render N={seen[0][0].shape[0]} kernel C vs plain max_abs_err={c_err} "
+            f"(tol {c_tol})")
+
+        # 9. the eval soak on the converted checkpoint, one full episode
+        soak = counted("soak", lambda: eval_soak.main(
+            ["--out", os.path.join(tmp, "soak"), "--episodes", "1", "--converted", ckpt]),
+            want=("int4_matvec", "decode_attn"))
+        if (soak["weights"] != ckpt or soak["steps"] != cfg.train.max_traj_len
+                or not all(math.isfinite(v) for v in soak["metrics"].values())):
+            raise AssertionError(f"convert soak: report {soak}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 10. A and B on the episodes, C on the render, no plain version
+    for k in ("int4_matvec", "decode_attn", "nerf_mlp"):
+        if total[k] <= 0:
+            raise AssertionError(f"convert: kernel {k} was not launched")
+    row = dict(seconds=secs, bytes_written=written, checkpoint_bytes=ckpt_bytes,
+               write_gib_s=written / secs["write"] / 2**30,
+               read_gib_s=ckpt_bytes / secs["load"] / 2**30,
+               parity_steady_step_ms=rep["steady_step_ms"], parity_first_step_s=rep["first_step_s"],
+               soak_ms_per_step=soak["ms_per_step"], kernel_c_max_abs_err=c_err,
+               peak_mem_gib=peak, launches={k: v for k, v in total.items() if v})
+    log(f"[convert] {json.dumps(row)}")
+    ctx["convert_launches"] = {k: total[k] for k in ("int4_matvec", "decode_attn", "nerf_mlp")}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -2281,9 +2545,12 @@ def main(argv=None) -> int:
                 replaces=rep_, launches=r["launches"], max_abs_err=r["max_abs_err"], ms=r["ms"],
                 plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                 library_ms=r["library_ms"], work=work))
+    conv = ctx.get("convert_launches", {})
     for rec in kernels_rec:
         if rec["name"] in cli:
             rec["launches_cli"] = cli[rec["name"]]
+        if rec["name"] in conv:
+            rec["launches_convert"] = conv[rec["name"]]
     print(json.dumps({"kernels": kernels_rec}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

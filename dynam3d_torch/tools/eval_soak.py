@@ -6,7 +6,9 @@ weights with speculative decode.
 Port of ``tools/eval_soak.py``.  The feeds alternate ``FloorplanFeed``
 (geodesic oracle; even episodes) and ``SyntheticRoomFeed`` (odd episodes,
 goals varied by index), each at the CLIP image size and 256² depth (32² at
-``--scale tiny``); the weights are random, from seed 0, and Phi-3 is
+``--scale tiny``); the weights are random, from seed 0, or with
+``--converted CKPT`` those of a converted checkpoint
+(``convert_reference_ckpt``, ``parity_run --save-converted``), and Phi-3 is
 quantized by ``quantize_phi3(bits=--quant-bits)`` (0 keeps it dense).
 Every episode runs ``train.max_traj_len`` steps (``ignore_stop``: random
 weights decode stop or unparseable text at once).  ``--world N`` evaluates
@@ -85,6 +87,9 @@ def main(argv=None, device: DeviceLike = None) -> dict:
     p.add_argument("--episodes", type=int, default=20)
     p.add_argument("--scale", default="full", choices=("full", "tiny"))
     p.add_argument("--quant-bits", type=int, default=4, choices=(0, 4, 8))
+    p.add_argument("--converted", default=None,
+                   help="a converted checkpoint (convert_reference_ckpt, parity_run "
+                        "--save-converted) in place of random weights")
     p.add_argument("--world", type=int, default=1,
                    help="shard episodes as rank 0 of N")
     args = p.parse_args(argv)
@@ -96,7 +101,13 @@ def main(argv=None, device: DeviceLike = None) -> dict:
     from dynam3d_torch.runtime import vln_loop
 
     cfg = soak_config(args.scale)
-    params = policy_mod.init_policy_params(0, cfg, device=dev)
+    if args.converted:
+        from dynam3d_torch.runtime.checkpoint import load_to_device
+
+        payload = load_to_device(args.converted, dev)
+        params = payload["params"] if "params" in payload else payload
+    else:
+        params = policy_mod.init_policy_params(0, cfg, device=dev)
     if args.quant_bits:
         from dynam3d_torch.models.vlm.phi3 import quantize_phi3
 
@@ -117,7 +128,7 @@ def main(argv=None, device: DeviceLike = None) -> dict:
     report = {
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
         "scale": args.scale,
-        "weights": "random-init",
+        "weights": args.converted or "random-init",
         "quant_bits": args.quant_bits,
         "episodes": len(per_ep),
         "world": args.world,

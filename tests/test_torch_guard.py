@@ -35,7 +35,8 @@ def test_port_imports_no_jax_in_a_fresh_process():
               "runtime.logging", "models.encoders.clip_tokenizer", "models.encoders.clip",
               "geom.projection", "run", "runtime.feed", "runtime.vector_feed",
               "runtime.profiling", "tools.record_episodes", "tools.make_golden_fixtures",
-              "tools.eval_soak"):
+              "tools.eval_soak", "runtime.synth_sd", "tools.convert_reference_ckpt",
+              "tools.parity_run"):
         assert f"dynam3d_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -103,18 +104,24 @@ def test_vln_entry_points_raise_without_a_device(entry, monkeypatch):
         calls[entry]()
 
 
-@pytest.mark.parametrize("entry", ["run", "eval_soak"])
+@pytest.mark.parametrize("entry", ["run", "eval_soak", "convert_reference_ckpt", "parity_run"])
 def test_cli_entry_points_raise_without_a_device(entry, tmp_path, monkeypatch):
-    """``run.main`` and ``tools.eval_soak.main`` take ``device=None`` as
-    the card: without one they raise before writing anything."""
+    """``run.main`` and the ``eval_soak``, ``convert_reference_ckpt`` and
+    ``parity_run`` tools take ``device=None`` as the card: without one they
+    raise before writing anything."""
     from dynam3d_torch import run
-    from dynam3d_torch.tools import eval_soak
+    from dynam3d_torch.tools import convert_reference_ckpt, eval_soak, parity_run
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.chdir(tmp_path)
     calls = {
         "run": lambda: run.main(["--run-type", "eval", "--exp_name", "x"]),
         "eval_soak": lambda: eval_soak.main(["--out", str(tmp_path / "soak"), "--scale", "tiny"]),
+        "convert_reference_ckpt": lambda: convert_reference_ckpt.main(
+            ["--out", str(tmp_path / "converted")]),
+        "parity_run": lambda: parity_run.main(["--out", str(tmp_path / "parity"), "--synth",
+                                               "--synth-dir", str(tmp_path / "assets"),
+                                               "--scale", "tiny", "--steps", "1"]),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()

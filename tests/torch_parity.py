@@ -111,3 +111,82 @@ def assert_trained_close(tparams, jparams, fts_dim: int, noise: float) -> None:
                 assert (err > tol).mean() <= 5e-3 and (err <= noise).all(), (label, err.max())
             else:
                 assert (err <= tol).all(), (label, err.max())
+
+
+def reference_layout(tree, conv: bool = False):
+    """Port parameters -> the reference's layout, the inverse of
+    ``params_from_jax`` for dense trees: numpy leaves, HWIO convolutions
+    under ``yolo`` / ``depth_enc`` (or everywhere with ``conv``), bf16 as
+    ``jnp.bfloat16`` arrays."""
+    import jax.numpy as jnp
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: reference_layout(v, conv or k in ("yolo", "depth_enc")) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(reference_layout(v, conv) for v in tree)
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.float().numpy().astype(jnp.bfloat16)
+    a = t.numpy().copy()
+    return a.transpose(2, 3, 1, 0).copy() if conv and a.ndim == 4 else a
+
+
+def assert_trees_identical(got, want, path: str = "") -> None:
+    """Two port trees with the same structure, dtypes and values, bit for
+    bit."""
+    import torch
+
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and sorted(got) == sorted(want), (path, sorted(got))
+        for k in want:
+            assert_trees_identical(got[k], want[k], f"{path}/{k}")
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_trees_identical(g, w, f"{path}/{i}")
+    else:
+        assert got.dtype == want.dtype and got.shape == want.shape, (path, got.dtype, want.dtype,
+                                                                     got.shape, want.shape)
+        assert torch.equal(got.cpu(), want.cpu()), (path, (got.float() - want.float()).abs().max())
+
+
+def runway_world():
+    """The reference-weights runway's tiny world: both packages' configs
+    (the parity tool's ``tiny``, renderer width = ``fts_dim``), the port's
+    policy, renderer, waypoint (2 layers of 64) and depth-encoder trees
+    from seeds, their reference layouts, and the reference's ``synth_all``
+    of those (numpy state dicts)."""
+    import os
+    import sys
+
+    import torch
+
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
+    from parity_run import _config as jax_config
+
+    from dynam3d_tpu.config import apply_opts
+    from dynam3d_tpu.runtime import synth_sd as jsynth
+    from dynam3d_torch.config import DepthEncoderConfig, WaypointConfig
+    from dynam3d_torch.models import policy as tpolicy
+    from dynam3d_torch.models.encoders.depth_resnet import init_depth_params
+    from dynam3d_torch.models.render import nerf as tnerf
+    from dynam3d_torch.models.waypoint.trm import init_waypoint_params
+
+    jcfg = jax_config("tiny", 2)
+    jcfg = apply_opts(jcfg, [f"fields.mlp_net_width={jcfg.fields.fts_dim}"])
+    tcfg = port_config(jcfg)
+    trees = {
+        "params": tpolicy.init_policy_params(0, tcfg, device="cpu"),
+        "render": tnerf.init_render_params(torch.Generator().manual_seed(1), tcfg.fields, "cpu"),
+        "waypoint": init_waypoint_params(torch.Generator().manual_seed(2),
+                                         WaypointConfig(hidden_dim=64, num_attention_heads=4),
+                                         96, device="cpu"),
+        "depth_enc": init_depth_params(torch.Generator().manual_seed(3),
+                                       DepthEncoderConfig(input_size=32, base_planes=8,
+                                                          ngroups=4), device="cpu"),
+    }
+    ref = {k: reference_layout(v, conv=k == "depth_enc") for k, v in trees.items()}
+    sds = jsynth.synth_all(ref["params"], jcfg, render_params=ref["render"],
+                           waypoint_params=ref["waypoint"], depth_params=ref["depth_enc"])
+    return jcfg, tcfg, trees, ref, sds
