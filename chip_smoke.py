@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases build,vln
     python3 chip_smoke.py --phases build,walk
     python3 chip_smoke.py --phases build,convert
+    python3 chip_smoke.py --phases build,data
 
 Phases, each printed as it finishes:
 
@@ -158,7 +159,31 @@ Phases, each printed as it finishes:
    ``tools.eval_soak --converted``, one ``train.max_traj_len`` episode;
    bytes and seconds of each step, peak memory, and the launch counters
    reset just before each counted step and read just after (A and B in the
-   episodes and the soak, C in the render, no plain version).
+   episodes and the soak, C in the render, no plain version);
+22. ``data``: the reference's on-disk data path at the default config
+   (CLIP-L/14-336, the default fields and renderer), in a temporary
+   directory: 2 scenes of 24 frames in each of the four posed-frame layouts
+   with their own formats (ScanNet at the 320x240 its halved
+   ``intrinsic_depth.txt`` implies, two ``-inf`` poses; 3RScan 960x540 JPEG
+   color and 224x172 ``.pgm`` depth; ARKitScenes ``lowres_wide`` 256x192
+   with 3- and 4-digit timestamps, a pincam 1 ms off and one traj row
+   dropped; Structured3D 1280x720), uint16 millimetre depth ray-cast in a
+   box room, and per scene a SceneVerse cloud of 100,000 points with
+   instance labels and captions; category embeddings from the CLIP text
+   tower written and read back as ``category_embeddings.pth``;
+   ``PretrainRunner.run`` over ``[ScanNetScenes, RScanScenes, ARKitScenes,
+   Structured3DScenes]`` with each sample's ``build_language_supervision``
+   (captions through the text tower), 4 iterations (a runner seed whose
+   draws take each corpus once) and 1 under the k-NN gates, each printing
+   its load (decode and supervision), build and step ms, peak memory,
+   finite losses and its launch counters reset just before and read just
+   after (C in every iteration, D in the gated one, no plain version), then
+   one profiled ScanNet iteration; one render of the trained renderer with kernel C held against its plain
+   version on the inputs it got; a ``discrete_to_ce`` conversion of a
+   generated MatterSim graph of 3 scans x 60 viewpoints and 300 items, read
+   back by ``load_episodes``; ``collect_trajectories`` of 2
+   ``FloorplanFeed`` episodes into the port's episode store, replayed by
+   ``iterate_store``; each timed.
 
 Any failure exits non-zero.  The line before the last is the kernels' JSON
 record; the last line is ``{"ok": true, "device": {...}}``.
@@ -178,7 +203,7 @@ import time
 
 PHASES = ("build", "matvec", "ring", "parity", "episode", "nerf", "knn", "render", "pretrain",
           "walk", "matvec2d", "mlp", "attn", "routes", "batched", "yolo", "stream", "vln",
-          "cli", "convert")
+          "cli", "convert", "data")
 
 # the dense bf16 tensor-core peak and the float32 peak outside the tensor
 # cores (H100 SXM); memory rates are dynam3d_torch.device.MEM_RATES
@@ -1371,8 +1396,8 @@ def phase_pretrain(ctx):
     if plain["nerf_mlp"] or plain["knn_topk"]:
         raise AssertionError(f"plain kernel versions ran on the pretraining path: {plain}")
     for i, (m, t) in enumerate(zip(hist, runner.timings)):
-        log(f"[pretrain] iter {i} {'posed' if i >= 2 else 'unposed'} "
-            f"{json.dumps(dict(m, build_ms=t['build_s'] * 1e3, step_ms=t['step_s'] * 1e3))}")
+        ms = {f"{k[:-2]}_ms": v * 1e3 for k, v in t.items()}
+        log(f"[pretrain] iter {i} {'posed' if i >= 2 else 'unposed'} {json.dumps(dict(m, **ms))}")
         if m["skipped"] or not all(math.isfinite(v) for v in m.values()):
             raise AssertionError(f"pretraining iteration {i}: {m}")
     after = tree_leaves({k: runner.params[k] for k in ("fields", "render")})
@@ -1382,7 +1407,7 @@ def phase_pretrain(ctx):
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[pretrain] params_moved_l1={moved:.6g} peak_mem_gib={peak:.2f}")
     ctx["pretrain_launches"] = counts
-    steady = runner.timings[1]["build_s"] + runner.timings[1]["step_s"]
+    steady = sum(runner.timings[1].values())
     _profile_pretrain(torch, runner, unposed, steady * 1e3)
 
 
@@ -2441,6 +2466,610 @@ def phase_convert(ctx):
     ctx["convert_launches"] = {k: total[k] for k in ("int4_matvec", "decode_attn", "nerf_mlp")}
 
 
+# ---------------------------------------------------------------------------
+# the data phase: posed-frame corpora in the reference's on-disk layouts
+# ---------------------------------------------------------------------------
+ROOM = (6.4, 5.2, 2.7)                  # the box room's x, y, z extents, metres
+SCENE_CATEGORIES = ("floor", "ceiling", "wall", "door", "window", "chair", "table", "sofa",
+                    "bed", "cabinet", "shelf", "lamp", "plant", "picture", "counter", "sink",
+                    "trash_can", "office chair", "tv/monitor", "book|shelf")
+
+
+def _look_rot(yaw: float, pitch: float):
+    """Camera-to-world rotation of a camera looking at ``yaw`` about world
+    z (up), ``pitch`` below the horizon: columns right, down, forward."""
+    import numpy as np
+
+    f = np.asarray([math.cos(pitch) * math.cos(yaw), math.cos(pitch) * math.sin(yaw),
+                    -math.sin(pitch)])
+    r = np.cross(f, [0.0, 0.0, 1.0])
+    r /= np.linalg.norm(r)
+    return np.stack([r, np.cross(f, r), f], axis=1)
+
+
+def _room_view(k, rot, trans, h: int, w: int):
+    """Ray-cast the box room from a pinhole camera (pixel ``(u, v)`` looks
+    along ``((u - cx) / fx, (v - cy) / fy, 1)``): z-depth in metres and a
+    checker texture of the hit points, ``(depth [h, w], rgb u8 [h, w, 3])``."""
+    import numpy as np
+
+    u, v = np.meshgrid(np.arange(w, dtype=np.float64), np.arange(h, dtype=np.float64))
+    d = np.stack([(u - k[0, 2]) / k[0, 0], (v - k[1, 2]) / k[1, 1], np.ones_like(u)], -1)
+    dw = d @ np.asarray(rot).T
+    hi = np.asarray(ROOM)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t = np.where(dw > 0, (hi - trans) / dw, np.where(dw < 0, -trans / dw, np.inf))
+    z = t.min(-1)
+    hit = trans + z[..., None] * dw
+    face = t.argmin(-1) * 2 + (np.take_along_axis(dw, t.argmin(-1)[..., None], -1)[..., 0] > 0)
+    checker = (np.floor(hit * 2.5).sum(-1) % 2)[..., None]
+    tint = np.asarray([[200, 90, 60], [60, 170, 90], [70, 90, 210], [190, 180, 70],
+                       [150, 150, 150], [120, 60, 160]], np.float64)[face]
+    rgb = np.clip(tint * (0.55 + 0.45 * checker), 0, 255).astype(np.uint8)
+    return z, rgb
+
+
+def _depth_mm(z, rng, holes: float = 0.01):
+    """Metres -> uint16 millimetres, with a share of zero (no return) pixels."""
+    import numpy as np
+
+    mm = np.clip(np.rint(z * 1000.0), 0, 65535).astype(np.uint16)
+    mm[rng.random(mm.shape) < holes] = 0
+    return mm
+
+
+def _camera_poses(rng, n: int):
+    """``n`` camera-to-world poses inside the room: (rot, trans)."""
+    import numpy as np
+
+    out = []
+    for _ in range(n):
+        trans = np.asarray([rng.uniform(0.8, ROOM[0] - 0.8), rng.uniform(0.8, ROOM[1] - 0.8),
+                            rng.uniform(1.1, 1.7)])
+        out.append((_look_rot(rng.uniform(-math.pi, math.pi), rng.uniform(-0.15, 0.35)), trans))
+    return out
+
+
+def _save_png(path, arr) -> None:
+    from PIL import Image
+
+    Image.fromarray(arr).save(path)
+
+
+def _save_mat(path, m) -> None:
+    with open(path, "w") as f:
+        for row in m:
+            f.write(" ".join(repr(float(x)) for x in row) + "\n")
+
+
+def _axis_angle(r):
+    """Rotation matrix -> axis-angle vector (the ARKit traj's w2c rotation)."""
+    import numpy as np
+
+    theta = math.acos(max(-1.0, min(1.0, (np.trace(r) - 1.0) / 2.0)))
+    if theta < 1e-12:
+        return np.zeros(3)
+    axis = np.asarray([r[2, 1] - r[1, 2], r[0, 2] - r[2, 0], r[1, 0] - r[0, 1]])
+    return axis / (2.0 * math.sin(theta)) * theta
+
+
+def write_scannet(root: str, scene: str, frames: int, seed: int, size=(240, 320),
+                  lost=(3, 11)) -> None:
+    """ScanNet ``frames_square``: ``intrinsic_depth.txt`` of the 640x480
+    sensor (the loader halves it to ``size``), JPEG color and uint16 PNG
+    depth at ``size``, 4x4 camera-to-world poses, ``-inf`` poses at the
+    tracking-lost frames ``lost``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    h, w = size
+    base = os.path.join(root, scene)
+    for sub in ("color", "depth", "pose"):
+        os.makedirs(os.path.join(base, sub))
+    k_full = np.eye(4)
+    k_full[0, 0], k_full[1, 1], k_full[0, 2], k_full[1, 2] = (
+        577.87 * 2 * w / 640, 577.87 * 2 * h / 480, w - 0.5, h - 0.5)
+    _save_mat(os.path.join(base, "intrinsic_depth.txt"), k_full)
+    k = k_full[:3, :3] / 2.0
+    k[2, 2] = 1.0
+    from PIL import Image
+
+    for i, (rot, trans) in enumerate(_camera_poses(rng, frames)):
+        z, rgb = _room_view(k, rot, trans, h, w)
+        Image.fromarray(rgb).save(os.path.join(base, "color", f"{i}.jpg"), quality=90)
+        _save_png(os.path.join(base, "depth", f"{i}.png"), _depth_mm(z, rng))
+        pose = np.eye(4)
+        pose[:3, :3], pose[:3, 3] = rot, trans
+        _save_mat(os.path.join(base, "pose", f"{i}.txt"),
+                  np.full((4, 4), -np.inf) if i in lost else pose)
+
+
+def write_rscan(root: str, scene: str, frames: int, seed: int, color=(540, 960),
+                depth=(172, 224)) -> None:
+    """3RScan ``sequence/``: ``_info.txt`` with the depth intrinsics on line
+    9, ``frame-XXXXXX.color.jpg`` at ``color``, ``.depth.pgm`` (uint16 mm)
+    at ``depth``, ``.pose.txt`` camera-to-world."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    seq = os.path.join(root, scene, "sequence")
+    os.makedirs(seq)
+    (ch, cw), (dh, dw) = color, depth
+    kc = np.asarray([[0.78 * cw, 0, cw / 2 - 0.3], [0, 0.78 * cw, ch / 2 + 0.2], [0, 0, 1]])
+    kd = np.asarray([[0.79 * dw, 0, dw / 2 + 0.4], [0, 0.79 * dw, dh / 2 - 0.1], [0, 0, 1]])
+
+    def k4(k):
+        m = np.eye(4)
+        m[:3, :3] = k
+        return " ".join(repr(float(x)) for x in m.reshape(-1))
+
+    lines = ["m_versionNumber = 4", "m_sensorName = StructureSensor", f"m_colorWidth = {cw}",
+             f"m_colorHeight = {ch}", f"m_depthWidth = {dw}", f"m_depthHeight = {dh}",
+             "m_depthShift = 1000", f"m_calibrationColorIntrinsic = {k4(kc)}",
+             f"m_calibrationColorExtrinsic = {k4(np.eye(3))}",
+             f"m_calibrationDepthIntrinsic = {k4(kd)}",
+             f"m_calibrationDepthExtrinsic = {k4(np.eye(3))}", f"m_frames.size = {frames}"]
+    with open(os.path.join(seq, "_info.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    for i, (rot, trans) in enumerate(_camera_poses(rng, frames)):
+        stem = os.path.join(seq, f"frame-{i:06d}")
+        _, rgb = _room_view(kc, rot, trans, ch, cw)
+        Image.fromarray(rgb).save(stem + ".color.jpg", quality=90)
+        z, _ = _room_view(kd, rot, trans, dh, dw)
+        Image.fromarray(_depth_mm(z, rng)).save(stem + ".depth.pgm")
+        pose = np.eye(4)
+        pose[:3, :3], pose[:3, 3] = rot, trans
+        _save_mat(stem + ".pose.txt", pose)
+
+
+def write_arkit(root: str, scene: str, frames: int, seed: int, size=(192, 256),
+                dropped: int = 5) -> None:
+    """ARKitScenes ``lowres_wide`` at ``size``: ``<scene>_<ts>.png`` color and
+    depth with timestamps of 3 and 4 integer digits (name order is not time
+    order), one ``.pincam`` each (one named 1 ms off), and
+    ``lowres_wide.traj`` rows of world-to-camera axis-angle and translation
+    with the row of frame ``dropped`` missing."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    frames_dir = os.path.join(root, scene, f"{scene}_frames")
+    for sub in ("lowres_wide", "lowres_depth", "lowres_wide_intrinsics"):
+        os.makedirs(os.path.join(frames_dir, sub))
+    h, w = size
+    rows = []
+    for i, (rot, trans) in enumerate(_camera_poses(rng, frames)):
+        ts = f"{996.5 + 0.1 * i * (1 + 10 * (i % 3)):.3f}"
+        k = np.asarray([[0.83 * w + i * 0.01, 0, w / 2 - 0.5], [0, 0.83 * w + i * 0.01, h / 2 + 0.5],
+                        [0, 0, 1]])
+        z, rgb = _room_view(k, rot, trans, h, w)
+        _save_png(os.path.join(frames_dir, "lowres_wide", f"{scene}_{ts}.png"), rgb)
+        _save_png(os.path.join(frames_dir, "lowres_depth", f"{scene}_{ts}.png"), _depth_mm(z, rng))
+        pin_ts = f"{float(ts) + 0.001:.3f}" if i == 1 else ts
+        with open(os.path.join(frames_dir, "lowres_wide_intrinsics",
+                               f"{scene}_{pin_ts}.pincam"), "w") as f:
+            f.write(" ".join(repr(float(x)) for x in (w, h, k[0, 0], k[1, 1], k[0, 2], k[1, 2]))
+                    + "\n")
+        if i != dropped:
+            r_w2c = rot.T
+            aa, t_w2c = _axis_angle(r_w2c), -r_w2c @ trans
+            rows.append(" ".join([ts] + [repr(float(x)) for x in (*aa, *t_w2c)]))
+    with open(os.path.join(frames_dir, "lowres_wide.traj"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+
+
+def write_structured3d(root: str, scene: str, frames: int, seed: int, size=(720, 1280)) -> None:
+    """Structured3D ``2D_rendering/<room>/perspective/full/<view>/``:
+    ``rgb_rawlight.png``, uint16 ``depth.png`` (mm) and ``camera_pose.txt``
+    (position in mm, look-at, up, half fovs), views spread over two rooms."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    h, w = size
+    for i, (rot, trans) in enumerate(_camera_poses(rng, frames)):
+        view = os.path.join(root, scene, "2D_rendering", str(485142 + i % 2), "perspective",
+                            "full", str(i // 2))
+        os.makedirs(view)
+        xfov = 0.5 * math.radians(rng.uniform(80, 100))
+        yfov = math.atan(math.tan(xfov) * h / w)
+        k = np.asarray([[w / 2 / math.tan(xfov), 0, w / 2], [0, h / 2 / math.tan(yfov), h / 2],
+                        [0, 0, 1]])
+        z, rgb = _room_view(k, rot, trans, h, w)
+        _save_png(os.path.join(view, "rgb_rawlight.png"), rgb)
+        _save_png(os.path.join(view, "depth.png"), _depth_mm(z, rng))
+        up = -rot[:, 1]
+        row = [*(trans * 1000.0), *rot[:, 2], *up, xfov, yfov]
+        with open(os.path.join(view, "camera_pose.txt"), "w") as f:
+            f.write(" ".join(repr(float(x)) for x in row) + "\n")
+
+
+def sceneverse_cloud(seed: int, n_points: int = 100_000, n_objects: int = 24):
+    """A SceneVerse-style point cloud of the room: points on the six faces
+    and on ``n_objects`` box-shaped objects, with instance ids (floor 1,
+    ceiling 2, walls 3-6, objects from 7), RGB, and ``instance id ->
+    label``: ``(xyz f32 [G, 3], rgb u8 [G, 3], inst i64 [G], labels)``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n_obj_pts = n_points // 3
+    face = rng.integers(0, 6, n_points - n_obj_pts)
+    xyz = rng.uniform(0, 1, (face.size, 3)) * ROOM
+    axis = np.asarray([2, 2, 0, 0, 1, 1])[face]
+    xyz[np.arange(face.size), axis] = np.where(face % 2, np.asarray(ROOM)[axis], 0.0)
+    inst = np.asarray([1, 2, 3, 4, 5, 6])[face]
+    extents = rng.uniform(0.2, 0.9, (n_objects, 3))
+    centers = rng.uniform([0.5, 0.5, 0.0], [ROOM[0] - 0.5, ROOM[1] - 0.5, 0.8], (n_objects, 3))
+    centers[:, 2] += extents[:, 2] / 2                   # standing on the floor
+    obj = rng.integers(0, n_objects, n_obj_pts)
+    pts = centers[obj] + (rng.uniform(-0.5, 0.5, (n_obj_pts, 3)) * extents[obj])
+    xyz = np.concatenate([xyz, pts]).astype(np.float32)
+    inst = np.concatenate([inst, 7 + obj]).astype(np.int64)
+    rgb = rng.integers(0, 256, (xyz.shape[0], 3)).astype(np.uint8)
+    labels = {1: "floor", 2: "ceiling", 3: "wall", 4: "wall", 5: "wall", 6: "wall"}
+    for j in range(n_objects):
+        labels[7 + j] = SCENE_CATEGORIES[3 + int(rng.integers(0, len(SCENE_CATEGORIES) - 3))]
+    return xyz, rgb, inst, labels
+
+
+def write_sceneverse(root: str, dataset: str, scenes, seed: int, n_points: int = 100_000,
+                     align=None) -> None:
+    """SceneVerse blobs of ``scenes`` under ``root``: the
+    ``pcd_with_global_alignment/<scene>.pth`` tuple (ScanNet ``(xyz, rgb,
+    semantic, instance)`` with xyz in the axis-aligned frame, ``align
+    [scene] @ world``; 3RScan / ARKit ``(xyz, rgb, instance)``),
+    ``instance_id_to_label/<scene>.pth`` and the captions
+    ``3dff_<dataset>_annotations.json`` for half of each scene's
+    instances."""
+    import numpy as np
+    import torch
+
+    for sub in ("pcd_with_global_alignment", "instance_id_to_label"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    ann = {}
+    for s, scene in enumerate(scenes):
+        xyz, rgb, inst, labels = sceneverse_cloud(seed + s, n_points)
+        if dataset == "scannet":
+            hom = np.concatenate([xyz, np.ones((xyz.shape[0], 1), np.float32)], 1)
+            aligned = (hom @ np.asarray(align[scene], np.float32).T)[:, :3]
+            blob = (aligned.astype(np.float32), rgb, inst % 40, inst)
+        else:
+            blob = (xyz, rgb, inst)
+        torch.save(blob, os.path.join(root, "pcd_with_global_alignment", f"{scene}.pth"))
+        torch.save(labels, os.path.join(root, "instance_id_to_label", f"{scene}.pth"))
+        ann[scene] = {str(i): [[cat, f"the {cat.replace('_', ' ')} number {i} of {scene}"],
+                               [cat, f"a {cat} by the wall"]]
+                      for i, cat in labels.items() if i % 2}
+    with open(os.path.join(root, f"3dff_{dataset}_annotations.json"), "w") as f:
+        json.dump(ann, f)
+
+
+def align_matrices(scenes, seed: int):
+    """ScanNet axis alignments: a turn about z and a shift per scene."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for scene in scenes:
+        a = rng.uniform(-math.pi, math.pi)
+        m = np.eye(4)
+        m[:2, :2] = [[math.cos(a), -math.sin(a)], [math.sin(a), math.cos(a)]]
+        m[:3, 3] = rng.uniform(-3, 3, 3)
+        out[scene] = m.tolist()
+    return out
+
+
+def write_corpora(root: str, frames: int, seed: int, scenes: int = 2, sizes=None,
+                  n_points: int = 100_000):
+    """The four corpora and their SceneVerse blobs under ``root``; ``sizes``
+    overrides a layout's frame sizes (``{"scannet": {"size": (h, w)}}``).
+    Returns each layout's root, SceneVerse root and scene ids."""
+    sizes = sizes or {}
+    names = {"scannet": [f"scene{700 + i:04d}_00" for i in range(scenes)],
+             "rscan": [f"0cac75{i:02d}-8d6f-2d13-8c7e-b1f3c4d8a{i:03d}" for i in range(scenes)],
+             "arkit": [str(41069042 + 17 * i) for i in range(scenes)],
+             "structured3d": [f"scene_{3000 + i:05d}" for i in range(scenes)]}
+    writers = {"scannet": write_scannet, "rscan": write_rscan, "arkit": write_arkit,
+               "structured3d": write_structured3d}
+    out = {}
+    for d, (name, writer) in enumerate(writers.items()):
+        data = os.path.join(root, name, "data")
+        sv = os.path.join(root, name, "sceneverse")
+        for s, scene in enumerate(names[name]):
+            writer(data, scene, frames, seed + 100 * d + s, **sizes.get(name, {}))
+        out[name] = {"root": data, "sceneverse": sv, "scenes": names[name]}
+        if name == "scannet":
+            align = align_matrices(names[name], seed)
+            out[name]["align"] = os.path.join(root, name, "align.json")
+            with open(out[name]["align"], "w") as f:
+                json.dump(align, f)
+        if name != "structured3d":
+            write_sceneverse(sv, name, names[name], seed + 10 * d, n_points,
+                             align if name == "scannet" else None)
+    return out
+
+
+class _Supervised:
+    """A scene dataset whose samples carry their language supervision
+    (``build_language_supervision`` of the scene's SceneVerse captions and
+    instance labels, captions through ``encode_text``) under the keys a
+    frames iteration hands to ``build_batch``; ``times`` keeps the seconds
+    of each sample's frame loading and of its supervision."""
+
+    def __init__(self, ds, name, annotations, labels, cat_dict, cat_emb, encode_text, seed):
+        import random
+
+        from dynam3d_torch.runtime.scene_datasets import build_language_supervision
+
+        self.ds, self.name, self.ann, self.labels = ds, name, annotations, labels
+        self.cat_dict, self.cat_emb, self.encode_text = cat_dict, cat_emb, encode_text
+        self.build = build_language_supervision
+        self.rng = random.Random(seed)
+        self.times = []
+
+    def sample_scene(self):
+        t0 = time.perf_counter()
+        scene = self.ds.sample_scene()
+        t1 = time.perf_counter()
+        g2c, fts, valid = self.build(scene, self.ann, self.cat_dict, self.cat_emb,
+                                     self.encode_text, self.labels.get(scene["scene_id"]),
+                                     rng=self.rng)
+        scene.update(cat_embeddings=self.cat_emb, gtid_to_cat=g2c, gtid_text_fts=fts)
+        self.times.append({"decode_s": t1 - t0, "supervision_s": time.perf_counter() - t1,
+                           "captioned": int(valid.sum())})
+        return scene
+
+
+def _mattersim_graph(conn_dir: str, scan: str, rng, n: int):
+    """A MatterSim ``{scan}_connectivity.json``: ``n`` viewpoints on a
+    serpentine through a building, 4x4 poses, a chain of unobstructed
+    edges plus shortcuts, the last viewpoint not included; returns the
+    viewpoint ids."""
+    import numpy as np
+
+    pos = np.stack([np.arange(n) % 8 * 1.7, np.arange(n) // 8 * 2.1, 1.5 + 0.01 * np.arange(n)],
+                   1)
+    pos[:, :2] += rng.normal(0, 0.2, (n, 2))
+    adj = np.eye(n, k=1, dtype=bool) | np.eye(n, k=-1, dtype=bool)
+    for a, b in rng.integers(0, n, (n // 3, 2)):
+        if a != b and np.linalg.norm(pos[a] - pos[b]) < 4.0:
+            adj[a, b] = adj[b, a] = True
+    ids = [f"{scan[-6:]}{i:04x}{'0' * 24}" for i in range(n)]
+    nodes = []
+    for i in range(n):
+        pose = np.eye(4)
+        pose[:3, 3] = pos[i]
+        nodes.append({"image_id": ids[i], "pose": pose.reshape(-1).tolist(),
+                      "included": i != n - 1, "unobstructed": adj[i].tolist(), "height": 1.5})
+    with open(os.path.join(conn_dir, f"{scan}_connectivity.json"), "w") as f:
+        json.dump(nodes, f)
+    return ids
+
+
+def write_discrete_dataset(root: str, seed: int, viewpoints: int = 60, items: int = 300):
+    """A discrete (MatterSim-graph) VLN dataset: ``connectivity/`` graphs of
+    two HM3D-style scans and one MP3D scan, and ``items.json`` of walks on
+    them (some through the excluded viewpoint, the last on a scan without a
+    graph) with headings and one to three instructions (some long, some
+    with a banned word), instruction encodings on every other item.
+    Returns the two paths."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    conn = os.path.join(root, "connectivity")
+    os.makedirs(conn)
+    words = ("walk", "past", "the", "sofa", "into", "kitchen", "up", "stairs", "through", "door",
+             "turn", "left", "right", "and", "stop", "at", "bedroom", "painting", "table")
+    scans = ["00800-TEEsavR23oF", "00801-HaxA7YrQdEC", "17DRP5sb8fy"]
+    ids = {scan: _mattersim_graph(conn, scan, rng, viewpoints) for scan in scans}
+    out = []
+    for i in range(items):
+        scan = scans[i % len(scans)] if i != items - 1 else "00999-nographhere"
+        vps = ids.get(scan, ["a", "b"])
+        start = int(rng.integers(0, len(vps) - 1))
+        path = vps[start:start + int(rng.integers(2, 8))]
+        instr = [" ".join(rng.choice(words, int(rng.integers(4, 32))))
+                 for _ in range(int(rng.integers(1, 4)))]
+        item = {"scan": scan, "path": path, "heading": float(rng.uniform(0, 2 * math.pi)),
+                "instructions": instr}
+        if i % 2:
+            item["instr_encodings"] = [rng.integers(0, 999, 5).tolist() for _ in instr]
+        out.append(item)
+    path = os.path.join(root, "items.json")
+    with open(path, "w") as f:
+        json.dump(out, f)
+    return path, conn
+
+
+def phase_data(ctx):
+    """The reference's on-disk data path at full width: the four posed-frame
+    corpora and their SceneVerse supervision through ``PretrainRunner.run``
+    (4 iterations, one per corpus, then 1 under the k-NN gates), each
+    iteration's launch counters reset just before and read just after, and
+    one profiled iteration;
+    kernel C against its plain version on a render of the trained renderer;
+    then a ``discrete_to_ce`` conversion and a DAgger collection into the
+    episode store, replayed."""
+    torch = ctx["torch"]
+    import shutil
+    import tempfile
+
+    from dynam3d_torch.config import Dynam3DConfig, SegmenterConfig
+    from dynam3d_torch.models.encoders import clip as clip_mod
+    from dynam3d_torch.models.encoders.clip_tokenizer import hash_tokenize
+    from dynam3d_torch.models.memory3d import init_field_params
+    from dynam3d_torch.models.render import nerf
+    from dynam3d_torch.ops import kernels
+    from dynam3d_torch.ops.nerf_mlp import nerf_mlp_cuda, nerf_mlp_plain
+    from dynam3d_torch.runtime import dagger, datasets, scene_datasets as sd
+    from dynam3d_torch.runtime.feed import FloorplanFeed
+    from dynam3d_torch.runtime.pretrain_loop import PretrainRunner
+    from dynam3d_torch.runtime.trainer_3dff import draw_dataset_id
+    from dynam3d_torch.tools import discrete_to_ce
+    from dynam3d_torch.utils.tree import tree_leaves
+
+    cfg = Dynam3DConfig(segmenter=SegmenterConfig(provider="depth_plane"))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = {"fields": init_field_params(gen, cfg.fields, "cuda"),
+              "render": nerf.init_render_params(gen, cfg.fields, "cuda"),
+              "clip": clip_mod.init_clip_params(gen, cfg.clip, "cuda")}
+    before = [t.clone() for t in tree_leaves({k: params[k] for k in ("fields", "render")})]
+    tmp = tempfile.mkdtemp(prefix="dynam3d_data_")
+    secs = {}
+    try:
+        # 1-2. the corpora and their SceneVerse blobs
+        t0 = time.perf_counter()
+        corp = write_corpora(os.path.join(tmp, "corpora"), frames=24, seed=7)
+        secs["write_corpora"] = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(tmp) for f in fs)
+        log(f"[data] wrote 4 corpora x 2 scenes x 24 frames and SceneVerse blobs: "
+            f"{nbytes / 2**20:.1f} MiB in {secs['write_corpora']:.1f} s")
+
+        # 3. language supervision: category embeddings from the text tower,
+        # written and read back as the reference's category_embeddings.pth
+        cats = sorted({c.replace("_", " ").replace("|", " ").replace("/", " ")
+                       for c in SCENE_CATEGORIES})
+
+        def encode_text(texts):
+            tokens = torch.from_numpy(hash_tokenize(list(texts), cfg.clip.text_context)).cuda()
+            with torch.no_grad():
+                return clip_mod.encode_text(params["clip"], cfg.clip, tokens).float().cpu().numpy()
+
+        emb_path = os.path.join(tmp, "category_embeddings.pth")
+        torch.save([{c: i for i, c in enumerate(cats)}, torch.from_numpy(encode_text(cats))],
+                   emb_path)
+        cat_dict, cat_emb = sd.load_category_embeddings(emb_path)
+        if cat_emb.shape != (len(cats), cfg.fields.fts_dim):
+            raise AssertionError(f"category embeddings {cat_emb.shape}")
+
+        def layout(name, cls, **kw):
+            c = corp[name]
+            ann = labels = None
+            if name != "structured3d":
+                ann = sd.SceneVerseAnnotations(
+                    os.path.join(c["sceneverse"], f"3dff_{name}_annotations.json"))
+                labels = {s: sd.load_instance_labels(
+                    [os.path.join(c["sceneverse"], "instance_id_to_label", f"{s}.pth")])
+                    for s in c["scenes"]}
+                kw.update(sceneverse_root=c["sceneverse"], annotations=ann)
+            ds = cls(c["root"], frames=16, seed=len(name), **kw)
+            return _Supervised(ds, name, ann, labels or {}, cat_dict, cat_emb, encode_text,
+                               seed=len(name))
+
+        corpora = [layout("scannet", sd.ScanNetScenes, align_matrix_json=corp["scannet"]["align"]),
+                   layout("rscan", sd.RScanScenes), layout("arkit", sd.ARKitScenes),
+                   layout("structured3d", sd.Structured3DScenes)]
+
+        # 4. training: a seed whose first four draws take each corpus once
+        seed = next(s for s in range(10_000)
+                    if sorted(draw_dataset_id(s, i, 4) for i in range(4)) == [0, 1, 2, 3])
+        runner = PretrainRunner(params, cfg, seed=seed, device="cuda")
+        rows, total = [], {k: 0 for k in kernels.KERNELS}
+        for it in range(5):
+            gated = it == 4
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ds = corpora[draw_dataset_id(seed, runner.it, 4)]
+            kernels.reset_counts()
+            with _flags(KNN_FLAG_ENV) if gated else contextlib.nullcontext():
+                m = runner.run(corpora, iters=1)[0]
+            torch.cuda.synchronize()
+            counts, plain = dict(kernels.launches), dict(kernels.plain_calls)
+            t, h = runner.timings[-1], ds.times[-1]
+            row = dict(iter=it, corpus=ds.name, knn_gates=gated, metrics=m,
+                       load_ms=t["load_s"] * 1e3, decode_ms=h["decode_s"] * 1e3,
+                       supervision_ms=h["supervision_s"] * 1e3, captioned=h["captioned"],
+                       build_ms=t["build_s"] * 1e3, step_ms=t["step_s"] * 1e3,
+                       peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                       finite=all(math.isfinite(v) for v in m.values()),
+                       launches={k: v for k, v in counts.items() if v})
+            log(f"[data] {json.dumps(row)}")
+            rows.append(row)
+            if any(plain.values()):
+                raise AssertionError(f"data iter {it}: plain kernel versions ran: {plain}")
+            if counts["nerf_mlp"] <= 0 or (gated and counts["knn_topk"] <= 0):
+                raise AssertionError(f"data iter {it}: kernels not launched: {counts}")
+            if not row["finite"] or m["skipped"]:
+                raise AssertionError(f"data iter {it}: {m}")
+            for k in total:
+                total[k] += counts[k]
+        if sorted(r["corpus"] for r in rows[:4]) != sorted(c.name for c in corpora):
+            raise AssertionError(f"data: corpora drawn {[r['corpus'] for r in rows]}")
+        after = tree_leaves({k: runner.params[k] for k in ("fields", "render")})
+        moved = sum((a.float() - b.float()).abs().sum().item() for a, b in zip(after, before))
+        if not moved > 0:
+            raise AssertionError("data: pretraining left the parameters where they were")
+        # 5. one profiled ScanNet iteration, outside the counted windows
+        scannet = next(r for r in rows if r["corpus"] == "scannet")
+        _profile_pretrain(torch, runner, corpora[0], scannet["load_ms"] + scannet["build_ms"]
+                          + scannet["step_ms"], label="data")
+
+        # 6. one render with the trained renderer; kernel C against its plain
+        # version on the inputs it got (outside the counted windows)
+        state = _render_state(torch, cfg.fields)
+        seen, real = [], nerf.fused_nerf_mlp
+
+        def recording(x, *w):
+            seen.append((x, w))
+            return real(x, *w)
+
+        nerf.fused_nerf_mlp = recording
+        try:
+            with torch.no_grad():
+                view = nerf.render_view(runner.params["render"], cfg.fields, state,
+                                        torch.tensor([0.3, -0.2, 1.25], device="cuda"),
+                                        torch.tensor(0.7, device="cuda"))
+        finally:
+            nerf.fused_nerf_mlp = real
+        if not seen or not all(bool(torch.isfinite(t.float()).all()) for t in view):
+            raise AssertionError("data render: kernel C did not run or the view is not finite")
+        c_err, c_tol = 0.0, 0.0
+        for x, w in seen:
+            ok, dk = nerf_mlp_cuda(x, *w)
+            op, dp = nerf_mlp_plain(x, *w)
+            c_tol = max(c_tol, _bf16_tol(op), _bf16_tol(dp))
+            c_err = max(c_err, (ok.float() - op.float()).abs().max().item(),
+                        (dk.float() - dp.float()).abs().max().item())
+        if not c_err <= c_tol:
+            raise AssertionError(f"data render: kernel C err {c_err} > {c_tol}")
+        log(f"[data] render N={seen[0][0].shape[0]} kernel C vs plain max_abs_err={c_err} "
+            f"(tol {c_tol})")
+
+        # 7. discrete_to_ce, read back
+        d2c = os.path.join(tmp, "discrete")
+        os.makedirs(d2c)
+        items, conn = write_discrete_dataset(d2c, seed=9)
+        t0 = time.perf_counter()
+        discrete_to_ce.main(["--input", items, "--connectivity", conn, "--dataset",
+                             "navrag_val", "--out", os.path.join(d2c, "val.json.gz"),
+                             "--out-gt", os.path.join(d2c, "val_gt.json.gz")])
+        secs["discrete_to_ce"] = time.perf_counter() - t0
+        eps = datasets.load_episodes(os.path.join(d2c, "val.json.gz"))
+        gts = datasets.load_gt(os.path.join(d2c, "val_gt.json.gz"))
+        if not eps or sorted(gts) != sorted(e.episode_id for e in eps):
+            raise AssertionError(f"discrete_to_ce: {len(eps)} episodes, {len(gts)} gt records")
+        log(f"[data] discrete_to_ce: 300 items -> {len(eps)} episodes in "
+            f"{secs['discrete_to_ce'] * 1e3:.1f} ms, read back")
+
+        # 8. DAgger collection into the episode store, replayed
+        store = os.path.join(tmp, "dagger.bin")
+        t0 = time.perf_counter()
+        n = dagger.collect_trajectories(cfg, lambda: FloorplanFeed(rgb_size=336, depth_size=256),
+                                        store, episodes=2)
+        secs["collect"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        replay = [(step[4], meta) for step, meta in dagger.iterate_store(store)]
+        secs["replay"] = time.perf_counter() - t0
+        if len(replay) != n or not all(gt.endswith("<|end|>") for gt, _ in replay):
+            raise AssertionError(f"dagger: {n} steps stored, {len(replay)} replayed")
+        log(f"[data] collect_trajectories 2 FloorplanFeed episodes: {n} steps, "
+            f"{os.path.getsize(store) / 2**20:.1f} MiB in {secs['collect'] * 1e3:.1f} ms; "
+            f"iterate_store {secs['replay'] * 1e3:.1f} ms")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[data] params_moved_l1={moved:.6g} seconds {json.dumps(secs)}")
+    ctx["data_launches"] = {k: total[k] for k in ("nerf_mlp", "knn_topk")}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -2546,11 +3175,14 @@ def main(argv=None) -> int:
                 plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                 library_ms=r["library_ms"], work=work))
     conv = ctx.get("convert_launches", {})
+    data = ctx.get("data_launches", {})
     for rec in kernels_rec:
         if rec["name"] in cli:
             rec["launches_cli"] = cli[rec["name"]]
         if rec["name"] in conv:
             rec["launches_convert"] = conv[rec["name"]]
+        if rec["name"] in data:
+            rec["launches_data"] = data[rec["name"]]
     print(json.dumps({"kernels": kernels_rec}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,9 @@
 
 Port of ``geom/projection.py``: ``unproject_depth_habitat``,
 ``patch_3d_info``, ``habitat_to_world`` and ``frustum_mask_habitat`` for the
-serving step; the renderer's ray grids (``ray_grid_habitat``,
-``ray_grid_intrinsics``, ``single_distance_ray_grid``) and the posed-frame geometry
+serving step, ``frustum_mask_intrinsics`` for a pinhole camera; the
+renderer's ray grids (``ray_grid_habitat``, ``ray_grid_intrinsics``,
+``single_distance_ray_grid``) and the posed-frame geometry
 (``unproject_depth_intrinsics``, ``scale_intrinsics``,
 ``patch_geometry_from_pose``, ``camera_heading_from_rotation``, ``view_k``)
 for 3DFF pretraining; with the same pixel-grid conventions (half-pixel
@@ -110,6 +111,32 @@ def frustum_mask_habitat(
     )
     u_w = torch.clamp(torch.remainder(u_i.abs(), width), 0, width - 1)
     v_w = torch.clamp(torch.remainder(v_i.abs(), height), 0, height - 1)
+    camera_depth = depth_map[v_w.long(), u_w.long()]
+    return in_frustum & (depth < camera_depth + depth_slack)
+
+
+def frustum_mask_intrinsics(
+    points: torch.Tensor, depth_map: torch.Tensor, intrinsics: torch.Tensor,
+    view_matrix: torch.Tensor, *, near: float = 0.0, far: float = 3.0,
+    depth_slack: float = 0.1,
+) -> torch.Tensor:
+    """The pinhole variant (``get_frustum_mask``, feature_fields.py:64-84):
+    world points ``[N, 3]`` through the world-to-camera ``view_matrix``
+    (``[4, 4]``) and K; ``[N]`` bool, on the points' device."""
+    H, W = depth_map.shape
+    homo = torch.cat([points, torch.ones_like(points[:, :1])], dim=-1)
+    view = homo @ view_matrix[:3, :4].T
+    uv = view @ intrinsics[:3, :3].T
+    z = uv[:, 2]
+    u_i = _trunc_i32(uv[:, 0] / z)
+    v_i = _trunc_i32(uv[:, 1] / z)
+    depth = view[:, 2]
+    in_frustum = (
+        (depth >= near) & (depth <= far) & (u_i >= 0) & (u_i <= W - 1)
+        & (v_i >= 0) & (v_i <= H - 1)
+    )
+    u_w = torch.clamp(torch.remainder(u_i.abs(), W), 0, W - 1)
+    v_w = torch.clamp(torch.remainder(v_i.abs(), H), 0, H - 1)
     camera_depth = depth_map[v_w.long(), u_w.long()]
     return in_frustum & (depth < camera_depth + depth_slack)
 

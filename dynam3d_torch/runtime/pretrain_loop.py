@@ -43,6 +43,13 @@ from dynam3d_torch.runtime.logging import MetricsLogger
 from dynam3d_torch.utils.tree import tree_map
 
 
+# a scene dict may carry its language supervision under these keys (as
+# ``scene_datasets.build_language_supervision`` makes it); a frames
+# iteration hands them to ``build_batch``, which draws random tables for
+# those that are missing
+SUPERVISION_KEYS = ("cat_embeddings", "gtid_to_cat", "gtid_text_fts")
+
+
 class SyntheticFramesDataset:
     """Procedural posed-frames provider (the stand-in for the scannet /
     3rscan / arkit / structured3d disk loaders): ``frames`` random poses in
@@ -275,7 +282,8 @@ class PretrainRunner:
     and ``waypoint``; ``fields`` and ``render`` are trained.
 
     ``timings`` gets one record per iteration, host seconds between
-    synchronized points: ``build_s`` and ``step_s`` for a frames
+    synchronized points: ``load_s`` (``sample_scene``: reading and
+    decoding the frames), ``build_s`` and ``step_s`` for a frames
     iteration; for a walk the episode's ``walk_s``, its sums over steps
     ``heatmap_s`` (heatmap and candidates), ``views_s`` (novel views and
     their CLIP targets) and ``grad_s`` (the step's loss and gradients),
@@ -410,11 +418,17 @@ class PretrainRunner:
 
         rot = novel_views.get("rot", np.tile(np.eye(3, dtype=np.float32), (Nv, 1, 1)))
         trans = novel_views.get("trans", np.zeros((Nv, 3), np.float32))
+        gt_xyz, gt_label = scene["gt_xyz"], scene["gt_label"]
+        gt_valid = torch.ones(gt_xyz.shape[0], dtype=torch.bool, device=dev)
+        if gt_xyz.shape[0] == 0:
+            # no gt cloud (Structured3D runs label-free): one dead point of
+            # label 0, so every nearest-gt lookup finds no instance
+            gt_xyz, gt_label = np.zeros((1, 3), np.float32), np.zeros((1,), np.int32)
+            gt_valid = torch.zeros(1, dtype=torch.bool, device=dev)
         return trainer_3dff.PretrainBatch(
             depth=out["d24"], grid_fts=out["grid"], cls_fts=out["cls"], segm=out["segm"],
             position=out["world_pos"], heading=out["heading"],
-            gt_xyz=put(scene["gt_xyz"]), gt_label=put(scene["gt_label"]),
-            gt_valid=torch.ones(scene["gt_xyz"].shape[0], dtype=torch.bool, device=dev),
+            gt_xyz=put(gt_xyz), gt_label=put(gt_label), gt_valid=gt_valid,
             novel_position=out["novel_pos"], novel_heading=out["novel_hd"],
             novel_gt_fts=out["novel_gt"], novel_k=out["novel_k"],
             novel_rot=put(rot, np.float32), novel_trans=put(trans, np.float32),
@@ -455,9 +469,11 @@ class PretrainRunner:
         return history
 
     def _frames_iteration(self, ds) -> Dict[str, float]:
-        t0 = self._sync()
+        t_load = self._sync()
         scene = ds.sample_scene()
-        batch = self.build_batch(scene, self.params["clip"])
+        t0 = time.perf_counter()
+        sup = {k: scene[k] for k in SUPERVISION_KEYS if k in scene}
+        batch = self.build_batch(scene, self.params["clip"], **sup)
         t1 = self._sync()
         trainable = {"fields": self.params["fields"], "render": self.params["render"]}
         self._ensure_opt(trainable)
@@ -468,5 +484,5 @@ class PretrainRunner:
         self.params["render"] = new_tr["render"]
         m = {k: float(v) for k, v in metrics.items()}
         t2 = self._sync()
-        self.timings.append({"build_s": t1 - t0, "step_s": t2 - t1})
+        self.timings.append({"load_s": t0 - t_load, "build_s": t1 - t0, "step_s": t2 - t1})
         return m

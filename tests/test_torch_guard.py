@@ -36,7 +36,10 @@ def test_port_imports_no_jax_in_a_fresh_process():
               "geom.projection", "run", "runtime.feed", "runtime.vector_feed",
               "runtime.profiling", "tools.record_episodes", "tools.make_golden_fixtures",
               "tools.eval_soak", "runtime.synth_sd", "tools.convert_reference_ckpt",
-              "tools.parity_run"):
+              "tools.parity_run", "runtime.datasets", "runtime.scene_datasets",
+              "runtime.dagger", "runtime.episode_store", "utils.graph", "utils.follower",
+              "utils.misc", "utils.obs_transforms", "utils.visual", "tools.discrete_to_ce",
+              "tools.check_tokenizer"):
         assert f"dynam3d_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"

@@ -8,9 +8,18 @@ its port; parameters are made once by the JAX package and converted with
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import jax
 import numpy as np
+import torch
+
+# Under pytest-xdist every worker collects every module; torch would give
+# each of them all of the host's cores as intra-op threads, and N workers
+# oversubscribe the host N times.  Share the cores out instead.
+_workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+if _workers > 1:
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // _workers))
 
 from dynam3d_torch import config as tcfg
 from dynam3d_torch.convert import params_from_jax
@@ -119,7 +128,6 @@ def reference_layout(tree, conv: bool = False):
     under ``yolo`` / ``depth_enc`` (or everywhere with ``conv``), bf16 as
     ``jnp.bfloat16`` arrays."""
     import jax.numpy as jnp
-    import torch
 
     if isinstance(tree, dict):
         return {k: reference_layout(v, conv or k in ("yolo", "depth_enc")) for k, v in tree.items()}
@@ -135,8 +143,6 @@ def reference_layout(tree, conv: bool = False):
 def assert_trees_identical(got, want, path: str = "") -> None:
     """Two port trees with the same structure, dtypes and values, bit for
     bit."""
-    import torch
-
     if isinstance(want, dict):
         assert isinstance(got, dict) and sorted(got) == sorted(want), (path, sorted(got))
         for k in want:
@@ -157,10 +163,7 @@ def runway_world():
     policy, renderer, waypoint (2 layers of 64) and depth-encoder trees
     from seeds, their reference layouts, and the reference's ``synth_all``
     of those (numpy state dicts)."""
-    import os
     import sys
-
-    import torch
 
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
     from parity_run import _config as jax_config
