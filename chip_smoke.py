@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases build,walk
     python3 chip_smoke.py --phases build,convert
     python3 chip_smoke.py --phases build,data
+    python3 chip_smoke.py --phases build,dist,soak
 
 Phases, each printed as it finishes:
 
@@ -183,7 +184,31 @@ Phases, each printed as it finishes:
    generated MatterSim graph of 3 scans x 60 viewpoints and 300 items, read
    back by ``load_episodes``; ``collect_trajectories`` of 2
    ``FloorplanFeed`` episodes into the port's episode store, replayed by
-   ``iterate_store``; each timed.
+   ``iterate_store``; each timed;
+23. ``dist``: the parallel layer on two ``gloo`` ranks sharing the card (NCCL
+   refuses two ranks on one device), each spawned and joined with a time
+   limit, printing its wall time, peak memory and launch counters: (1) a
+   dp = 2 IL step at the default config (bf16 Phi-3-mini, one 12-view room
+   step a rank through ``VLNTrainer``): finite loss, bit-identical
+   trainable trees on both ranks, the gradient all-reduce's share of the
+   step; the small config's dp = 2 step against one process on the same two
+   rows within the CPU test's tolerances; (2) a dp = 2 pretraining step at
+   full width, kernel C on every render of each rank, identical
+   parameters; (3) ``run.main`` at ``WORLD_SIZE = 2`` (``Dynam3D``, one
+   iteration, 1 step on rank 0 and 2 on rank 1), rank 0's checkpoint read
+   back equal to the ranks' trees; (4) TP = 2 greedy decode of 20 tokens at
+   Phi-3-mini width in float32 against one process's ids (a difference is
+   allowed only where that process's top-2 margin is under 1e-4 of the
+   logits' scale), two all-reduces a layer a pass; (5) rank-sharded int4
+   ``evaluate`` (2 rooms of 3 steps a rank) merged by
+   ``gather_list_and_concat``, equal to one process's over the same 4
+   rooms, kernels A and B on each rank; then the IL step on a one-rank
+   NCCL group;
+24. ``soak``: ``python -m dynam3d_torch.tools.train_soak --scale full
+   --il-steps 8 --pretrain-iters 4`` in a temporary work directory: every
+   row, finite losses, both resume checks bit-compatible (the IL one in its
+   fresh process), kernel C in every pretraining iteration and no plain
+   version.
 
 Any failure exits non-zero.  The line before the last is the kernels' JSON
 record; the last line is ``{"ok": true, "device": {...}}``.
@@ -203,7 +228,7 @@ import time
 
 PHASES = ("build", "matvec", "ring", "parity", "episode", "nerf", "knn", "render", "pretrain",
           "walk", "matvec2d", "mlp", "attn", "routes", "batched", "yolo", "stream", "vln",
-          "cli", "convert", "data")
+          "cli", "convert", "data", "dist", "soak")
 
 # the dense bf16 tensor-core peak and the float32 peak outside the tensor
 # cores (H100 SXM); memory rates are dynam3d_torch.device.MEM_RATES
@@ -3070,6 +3095,632 @@ def phase_data(ctx):
     ctx["data_launches"] = {k: total[k] for k in ("nerf_mlp", "knn_topk")}
 
 
+# --- dist and soak: the parallel layer and the training soak ---------------
+
+
+def _digest(torch, tree):
+    """One int64 a leaf over its raw bits (position-weighted, wrapping
+    sums): equal lists for bit-identical trees, different ones for any
+    other in practice."""
+    from dynam3d_torch.utils.tree import tree_leaves
+
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = []
+    for t in tree_leaves(tree):
+        bits = t.detach().contiguous().view(ints[t.element_size()]).reshape(-1).to(torch.int64)
+        w = torch.arange(bits.numel(), device=bits.device, dtype=torch.int64) % 1000003 + 1
+        out.append(int((bits * w).sum()))
+        del bits, w
+    return out
+
+
+def _same_on_every_rank(values) -> bool:
+    """Whether every rank of the default group holds the same ``values``."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from dynam3d_torch.utils.misc import gather_list_and_concat
+
+    rows = gather_list_and_concat(np.asarray(values, np.int64)[None], dist.group.WORLD)
+    return bool((rows == rows[0]).all())
+
+
+def _dist_small(torch, dev, rows, dp=None):
+    """The small config's IL step (float32 Phi-3, lr 1e-3, seed 11): one
+    process on the two rows, or one row a rank of ``dp``.  Returns the
+    loss, the global norm and the trainable leaves before and after."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from dynam3d_torch.models import policy
+    from dynam3d_torch.runtime import trainer_vln
+    from dynam3d_torch.utils.tree import tree_leaves
+
+    cfg = _tiny_config()
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, lr=1e-3))
+    params = policy.init_policy_params(torch.Generator(device=dev).manual_seed(11), cfg,
+                                       llm_dtype=torch.float32, device=dev)
+    trainable, frozen = trainer_vln.split_params(params)
+    before = [t.cpu().clone() for t in tree_leaves(trainable)]
+    opt = trainer_vln.make_optimizer(cfg)
+    state = opt.init(trainable)
+    step = trainer_vln.make_train_step(cfg, opt, rows["splice"], dp=dp)
+    B = 2 if dp is None else 1
+    sel = slice(0, 2) if dp is None else slice(dist.get_rank(), dist.get_rank() + 1)
+    batch = trainer_vln.TrainBatch(*(torch.from_numpy(np.ascontiguousarray(a[sel])).to(dev)
+                                     for a in rows["batch"]))
+    _, _, _, m = step(trainable, frozen, state, policy.batched_init_state(cfg, B, dev), batch)
+    return dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]), before=before,
+                after=[t.cpu().clone() for t in tree_leaves(trainable)])
+
+
+def _dist_small_rows(torch):
+    """Two rows of the small config: two 1-view rooms, one prompt."""
+    import numpy as np
+
+    from dynam3d_torch.models.vlm.tokenizer import ByteTokenizer, build_prompt
+    from dynam3d_torch.runtime.feed import SyntheticRoomFeed
+
+    cfg = _tiny_config()
+    obs = [SyntheticRoomFeed(rgb_size=56, depth_size=32, views=1, seed=s).reset()
+           for s in (2, 3)]
+    tok = ByteTokenizer(cfg.llava.phi3.vocab_size)
+    gt = "turn right 3 steps, move 2 steps.<|end|>"
+    n_mm = 16 + 64 + 32
+    ids = tok.encode(build_prompt(obs[0].instruction, ["none\n"] * 4, n_mm, gt))
+    lab = tok.encode(gt, add_bos=False)
+    T, Tg = -(-len(ids) // 64) * 64, -(-len(lab) // 16) * 16
+    a = np.full((2, T), tok.pad_id, np.int64)
+    v = np.zeros((2, T), bool)
+    a[:, : len(ids)], v[:, : len(ids)] = ids, True
+    la = np.full((2, Tg), tok.pad_id, np.int64)
+    lm = np.zeros((2, Tg), bool)
+    la[:, : len(lab)], lm[:, : len(lab)] = lab, True
+    splice = tok.encode(build_prompt("x", ["none\n"] * 4, 1)).index(tok.image_id)
+    batch = (np.stack([o.rgb for o in obs]), np.stack([o.depth for o in obs]),
+             np.stack([np.float32(o.position) for o in obs]),
+             np.float32([o.heading for o in obs]), a, v, la, lm, np.ones(2, np.float32))
+    return {"batch": batch, "splice": splice}
+
+
+def _il_full_step(torch, dev, dp, seed: int):
+    """One full-width IL step (the default config: bf16 Phi-3-mini, the
+    waypoint predictor over a 12-view room) through ``VLNTrainer`` on this
+    rank's feed; returns its record and the trainable tree's digest."""
+    from dynam3d_torch.config import Dynam3DConfig
+    from dynam3d_torch.models import policy
+    from dynam3d_torch.ops import kernels
+    from dynam3d_torch.parallel import comm
+    from dynam3d_torch.runtime import trainer_vln
+    from dynam3d_torch.runtime.feed import SyntheticRoomFeed
+    from dynam3d_torch.runtime.vln_loop import VLNTrainer
+
+    t0 = time.perf_counter()
+    cfg = Dynam3DConfig()
+    params = policy.init_policy_params(torch.Generator(device=dev).manual_seed(5), cfg,
+                                       device=dev)
+    timed = []
+    mean_ = trainer_vln.dp_mean_
+
+    def timed_mean(*a, **k):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        out = mean_(*a, **k)
+        torch.cuda.synchronize(dev)
+        timed.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    trainer_vln.dp_mean_ = timed_mean
+    try:
+        tr = VLNTrainer(params, cfg, lambda: SyntheticRoomFeed(rgb_size=336, depth_size=256,
+                                                               views=12, seed=seed),
+                        device=dev, dp=dp)
+        init_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(dev)
+        comm.reset_counts()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        tr.train_episode(max_steps=1)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    finally:
+        trainer_vln.dp_mean_ = mean_
+    st = tr.step_log[0]
+    rec = dict(loss=st["loss"], grad_norm=st["grad_norm"], skipped=st["skipped"],
+               step_ms=st["ms"], wall_s=wall, init_s=init_s, allreduce_ms=sum(timed),
+               collectives=dict(comm.counts), launches=dict(kernels.launches),
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    return rec, _digest(torch, tr.trainable)
+
+
+def _dist_rank(rank, world, dev, small_rows, workdir):
+    """The ``dist`` phase on one of two gloo ranks sharing the card."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from dynam3d_torch.device import pin_full_fp32
+
+    pin_full_fp32()
+    group = dist.group.WORLD
+    out = {}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # 1. the small config against one process, then one full-width IL step
+    out["small"] = _dist_small(torch, dev, small_rows, dp=group)
+    free()
+    rec, dig = _il_full_step(torch, dev, group, seed=100 + rank)
+    rec["identical"] = _same_on_every_rank(dig)
+    out["il"] = rec
+    del dig
+    free()
+
+    # 2. one full-width pretraining step, one scene a rank
+    out["pretrain"] = _dist_pretrain(torch, dev, group)
+    free()
+
+    # 4. tensor-parallel greedy decode at Phi-3-mini width, float32
+    out["tp"] = _dist_tp(torch, dev)
+    free()
+
+    # 5. rank-sharded int4 evaluate, merged, then one process's on rank 0
+    out["eval"] = _dist_eval(torch, dev, rank, world, workdir)
+    free()
+
+    # 3. run.main at WORLD_SIZE = 2 (the group above), unequal episodes
+    out["cli"] = _dist_cli(torch, dev, rank, workdir)
+    dist.barrier()
+    return out
+
+
+def _dist_pretrain(torch, dev, group):
+    import torch.distributed as dist
+
+    from dynam3d_torch.config import Dynam3DConfig
+    from dynam3d_torch.models.encoders.clip import init_clip_params
+    from dynam3d_torch.models.memory3d import init_field_params, init_state
+    from dynam3d_torch.models.render.nerf import init_render_params
+    from dynam3d_torch.ops import kernels
+    from dynam3d_torch.runtime import trainer_3dff
+    from dynam3d_torch.runtime.pretrain_loop import PretrainRunner, SyntheticFramesDataset
+
+    cfg = Dynam3DConfig()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    params = {"fields": init_field_params(gen, cfg.fields, dev),
+              "render": init_render_params(gen, cfg.fields, dev)}
+    clip = init_clip_params(gen, cfg.clip, dev)
+    runner = PretrainRunner({**params, "clip": clip}, cfg, device=dev)
+    ds = SyntheticFramesDataset(rgb_size=336, depth_size=256, frames=8, seed=0)
+    scenes = [ds.sample_scene() for _ in range(2)]
+    batch = runner.build_batch(scenes[dist.get_rank()], clip)
+    opt = trainer_3dff.make_pretrain_optimizer(cfg)
+    step = trainer_3dff.make_pretrain_step(cfg, opt, posed=False, dp=group)
+    opt_state = opt.init(params)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    new, _, _, m = step(params, opt_state, init_state(cfg.fields, dev), batch)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    return dict(loss=float(m["loss"]), skipped=bool(m["skipped"]), wall_s=wall,
+                renders=int(batch.novel_position.shape[0]),
+                launches=dict(kernels.launches), plain=dict(kernels.plain_calls),
+                peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+                identical=_same_on_every_rank(_digest(torch, new)))
+
+
+def _tp_inputs(torch, dev):
+    """Phi-3-mini at full width in float32 from seed 21 and a 64-token
+    prompt of ids from seed 22."""
+    import numpy as np
+
+    from dynam3d_torch.config import Phi3Config
+    from dynam3d_torch.models.vlm import phi3
+
+    cfg = Phi3Config()
+    params = phi3.init_phi3_params(torch.Generator(device=dev).manual_seed(21), cfg,
+                                   dtype=torch.float32, device=dev)
+    ids = torch.as_tensor(np.random.default_rng(22).integers(2, 32000, (1, 64)), device=dev)
+    return cfg, params, ids
+
+
+def _tp_reference(torch):
+    """One process's 20 greedy ids and, for each, the top-2 margin of its
+    logits and their scale (max |logit|), from one prefill over the prompt
+    and the ids."""
+    from dynam3d_torch.models.vlm import phi3
+
+    cfg, params, ids = _tp_inputs(torch, "cuda")
+    valid = torch.ones_like(ids, dtype=torch.bool)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = phi3.greedy_decode(params, cfg, phi3.embed(params, ids), valid, 20)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    seq = torch.cat([ids, out[:, :19]], 1)
+    T = seq.shape[1]
+    cache = phi3.init_cache(cfg, 1, T, torch.float32, "cuda")
+    logits, _ = phi3.forward(params, cfg, phi3.embed(params, seq), torch.arange(T, device="cuda")[None],
+                             cache, 0, phi3.prefill_mask(torch.ones_like(seq, dtype=torch.bool), T))
+    lg = logits[0, 63:]
+    top2 = lg.topk(2, dim=-1).values
+    margins = (top2[:, 0] - top2[:, 1]).tolist()
+    scales = lg.abs().amax(-1).tolist()
+    del params, cache, logits
+    return dict(ids=out[0].tolist(), margins=margins, scales=scales, ms=ms)
+
+
+def _dist_tp(torch, dev):
+    from dynam3d_torch.models.vlm import phi3
+    from dynam3d_torch.ops import kernels
+    from dynam3d_torch.parallel import comm
+    from dynam3d_torch.parallel.mesh import (
+        make_mesh, phi3_param_specs, shard_tree, split_qkv_params,
+    )
+
+    mesh = make_mesh(1, 2)
+    cfg, params, ids = _tp_inputs(torch, dev)
+    split = split_qkv_params(params, cfg)
+    del params
+    sh = shard_tree(split, phi3_param_specs(split), mesh)
+    del split
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    comm.reset_counts()
+    kernels.reset_counts()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    emb = phi3.embed(sh, ids, mesh.tp_group)
+    out = phi3.greedy_decode(sh, cfg, emb, torch.ones_like(ids, dtype=torch.bool), 20,
+                             tp=mesh.tp_group)
+    torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    return dict(ids=out[0].tolist(), ms=ms, counts=dict(comm.counts),
+                launches={k: v for k, v in kernels.launches.items() if v},
+                fused=phi3._fused_decode_eligible(sh, cfg, 1),
+                peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30, layers=cfg.num_layers)
+
+
+def _eval_feeds():
+    """Four rooms, goals varied by index (the eval soak's odd episodes)."""
+    import numpy as np
+
+    from dynam3d_torch.runtime.feed import SyntheticRoomFeed
+
+    feeds = [SyntheticRoomFeed(rgb_size=336, depth_size=256, seed=i,
+                               goal=(4.0 + (i % 5), 5.0 + (i % 3))) for i in range(4)]
+    gts = []
+    for f in feeds:
+        start = np.asarray(f.reset().position, np.float32)
+        gts.append(np.stack([start + t * (f.goal - start) for t in np.linspace(0, 1, 8)]))
+    return feeds, gts
+
+
+def _dist_eval(torch, dev, rank, world, workdir):
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from dynam3d_torch.config import Dynam3DConfig
+    from dynam3d_torch.models import policy
+    from dynam3d_torch.models.vlm.phi3 import quantize_phi3
+    from dynam3d_torch.ops import kernels
+    from dynam3d_torch.runtime import vln_loop
+    from dynam3d_torch.utils.misc import gather_list_and_concat
+
+    cfg = Dynam3DConfig()
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, max_traj_len=3))
+    params = policy.init_policy_params(torch.Generator(device=dev).manual_seed(9), cfg,
+                                       device=dev)
+    params["llava"]["phi3"] = quantize_phi3(params["llava"]["phi3"], bits=4, consume=True)
+    out_dir = os.path.join(workdir, "eval")
+    feeds, gts = _eval_feeds()
+    kernels.reset_counts()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    vln_loop.evaluate(params, cfg, feeds, gts, out_dir=out_dir, ckpt_name="dist", rank=rank,
+                      world=world, ignore_stop=True, device=dev)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches, plain = dict(kernels.launches), dict(kernels.plain_calls)
+    with open(os.path.join(out_dir, f"stats_ep_dist_r{rank}_w{world}.json")) as f:
+        per_ep = json.load(f)
+    keys = sorted(next(iter(per_ep.values())))
+    mine = np.asarray([[len(per_ep)] + [sum(m[k] for m in per_ep.values()) for k in keys]],
+                      np.float64)
+    rows = gather_list_and_concat(mine, dist.group.WORLD)
+    merged = dict(zip(keys, (rows[:, 1:].sum(0) / rows[:, 0].sum()).tolist()))
+    one = None
+    if rank == 0:
+        feeds, gts = _eval_feeds()
+        one = vln_loop.evaluate(params, cfg, feeds, gts, ckpt_name="one", ignore_stop=True,
+                                device=dev)
+    dist.barrier()
+    return dict(episodes=sorted(per_ep, key=int), merged=merged, one=one, wall_s=wall,
+                launches=launches, plain=plain,
+                peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+
+
+def _dist_cli(torch, dev, rank, workdir):
+    """``run.main`` at this world size: 1 iteration of at most 1 step on
+    rank 0 and 2 on rank 1 (unequal episodes), rank 0 saving."""
+    from dynam3d_torch import run
+    from dynam3d_torch.ops import kernels
+    from dynam3d_torch.runtime import vln_loop
+
+    seen = {}
+    train = vln_loop.VLNTrainer.train
+
+    def recording(self, *a, **k):
+        out = train(self, *a, **k)
+        seen.update(steps=len(self.step_log), idle=self.idle_steps,
+                    digest=_digest(torch, self.trainable))
+        return out
+
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    vln_loop.VLNTrainer.train = recording
+    try:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        run.main(["--run-type", "train", "--exp_name", "dist", "train.iters=1",
+                  f"train.max_traj_len={1 + rank}", "train.log_every=1"])
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    finally:
+        vln_loop.VLNTrainer.train = train
+        os.chdir(cwd)
+    return dict(wall_s=wall, steps=seen["steps"], idle=seen["idle"],
+                peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+                launches={k: v for k, v in kernels.launches.items() if v},
+                identical=_same_on_every_rank(seen["digest"]),
+                digest=seen["digest"] if rank == 0 else None)
+
+
+def _nccl_rank(rank, world, dev):
+    """The full-width IL step on a one-rank NCCL group (the NCCL path of
+    the gradient average)."""
+    import torch
+    import torch.distributed as dist
+
+    from dynam3d_torch.device import pin_full_fp32
+
+    pin_full_fp32()
+    rec, _ = _il_full_step(torch, dev, dist.group.WORLD, seed=100)
+    rec["backend"] = dist.get_backend()
+    return rec
+
+
+def _update_agreement(before, ref, got):
+    """The CPU test's measure: the share of elements whose updates have
+    opposite signs (worst leaf) and the largest other difference over the
+    update's size."""
+    worst_flip, worst_err = 0.0, 0.0
+    for p0, a, b in zip(before, ref, got):
+        ua, ub = (a - p0).double(), (b - p0).double()
+        size = float(ua.abs().max())
+        flipped = (ua.sign() * ub.sign()) < 0
+        worst_flip = max(worst_flip, float(flipped.float().mean()))
+        if size > 0 and bool((~flipped).any()):
+            worst_err = max(worst_err, float((ub - ua)[~flipped].abs().max()) / size)
+    return worst_flip, worst_err
+
+
+def phase_dist(ctx):
+    """The parallel layer on two gloo ranks sharing the card (NCCL refuses
+    two ranks on one device), then a one-rank NCCL group."""
+    torch = ctx["torch"]
+    import gc
+    import tempfile
+
+    from dynam3d_torch.ops import kernels
+    from dynam3d_torch.parallel.spawn import run_ranks
+    from dynam3d_torch.runtime import checkpoint as ckpt_mod
+
+    t_phase = time.perf_counter()
+    kernels.build_all()             # before the ranks, which then only load it
+    ctx.pop("serve", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = _dist_small_rows(torch)
+    small_ref = _dist_small(torch, "cuda", rows)
+    tp_ref = _tp_reference(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[dist] one process: small step loss={small_ref['loss']:.6f} "
+        f"grad_norm={small_ref['grad_norm']:.6f}; Phi-3-mini f32 greedy 20 ids in "
+        f"{tp_ref['ms']:.1f} ms, least top-2 margin {min(tp_ref['margins']):.3e}")
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        ranks = run_ranks(_dist_rank, 2, args=(rows, work), device="cuda",
+                          backend="gloo", timeout=900)
+        gloo_s = time.perf_counter() - t0
+        ck = os.path.join(work, "data", "checkpoints", "ckpt.iter1")
+        names = os.listdir(os.path.dirname(ck))
+        payload = ckpt_mod.load_to_device(ck, "cuda")
+        ck_digest = _digest(torch, payload["trainable"])
+        ck_count = payload["opt_state"]["count"]
+        del payload
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    nccl = run_ranks(_nccl_rank, 1, device="cuda", backend="nccl", timeout=600)[0]
+    nccl_s = time.perf_counter() - t0
+    fails = []
+
+    # 1. IL
+    for r, out in enumerate(ranks):
+        il, sm = out["il"], out["small"]
+        share = il["allreduce_ms"] / il["step_ms"] if il["step_ms"] else float("nan")
+        log(f"[dist] rank {r} IL step (gloo, dp=2): loss={il['loss']:.6f} "
+            f"grad_norm={il['grad_norm']:.4f} step_ms={il['step_ms']:.1f} "
+            f"allreduce_ms={il['allreduce_ms']:.1f} share={share:.3f} wall_s={il['wall_s']:.2f} "
+            f"init_s={il['init_s']:.2f} peak_gib={il['peak_gib']:.2f} collectives "
+            f"{json.dumps(il['collectives'])} launches "
+            f"{json.dumps({k: v for k, v in il['launches'].items() if v})} "
+            f"identical={il['identical']}")
+        if il["skipped"] or not math.isfinite(il["loss"]) or not il["identical"]:
+            fails.append(f"IL step rank {r}: {il}")
+        flip, err = _update_agreement(small_ref["before"], small_ref["after"], sm["after"])
+        rel = abs(sm["loss"] - small_ref["loss"]) / abs(small_ref["loss"])
+        rel_n = abs(sm["grad_norm"] - small_ref["grad_norm"]) / abs(small_ref["grad_norm"])
+        log(f"[dist] rank {r} small dp=2 vs one process: loss rel {rel:.2e}, grad_norm rel "
+            f"{rel_n:.2e}, flipped share {flip:.2e}, update err / size {err:.2e} "
+            f"(tolerances 1e-4, 1e-4, 1e-3, 1e-4)")
+        if not (rel <= 1e-4 and rel_n <= 1e-4 and flip <= 1e-3 and err <= 1e-4):
+            fails.append(f"small dp step rank {r} disagrees with one process")
+    log(f"[dist] NCCL one rank IL step: loss={nccl['loss']:.6f} step_ms={nccl['step_ms']:.1f} "
+        f"allreduce_ms={nccl['allreduce_ms']:.1f} wall_s={nccl['wall_s']:.2f} peak_gib="
+        f"{nccl['peak_gib']:.2f} launches "
+        f"{json.dumps({k: v for k, v in nccl['launches'].items() if v})} "
+        f"backend={nccl['backend']} in {nccl_s:.1f} s")
+    if nccl["skipped"] or not math.isfinite(nccl["loss"]) or nccl["backend"] != "nccl":
+        fails.append(f"NCCL IL step: {nccl}")
+
+    # 2. pretraining
+    pre_launch = {}
+    for r, out in enumerate(ranks):
+        p = out["pretrain"]
+        log(f"[dist] rank {r} pretrain step (dp=2): mean loss={p['loss']:.6f} "
+            f"wall_s={p['wall_s']:.2f} peak_gib={p['peak_gib']:.2f} renders={p['renders']} "
+            f"launches {json.dumps({k: v for k, v in p['launches'].items() if v})} "
+            f"identical={p['identical']}")
+        pre_launch = {k: pre_launch.get(k, 0) + v for k, v in p["launches"].items()}
+        if (not math.isfinite(p["loss"]) or p["skipped"] or not p["identical"]
+                or p["launches"]["nerf_mlp"] != p["renders"] or any(p["plain"].values())):
+            fails.append(f"pretrain rank {r}: loss {p['loss']}, identical {p['identical']}, "
+                         f"C {p['launches']['nerf_mlp']} of {p['renders']} renders, plain "
+                         f"{({k: v for k, v in p['plain'].items() if v})}")
+
+    # 3. run.main
+    for r, out in enumerate(ranks):
+        c = out["cli"]
+        log(f"[dist] rank {r} run.main WORLD_SIZE=2: {c['steps']} steps, {c['idle']} idle, "
+            f"wall_s={c['wall_s']:.1f} peak_gib={c['peak_gib']:.2f} launches "
+            f"{json.dumps(c['launches'])} identical={c['identical']}")
+        if not c["identical"] or c["steps"] + c["idle"] != 2:
+            fails.append(f"run.main rank {r}: {c}")
+    same_ck = ck_digest == ranks[0]["cli"]["digest"]
+    log(f"[dist] rank 0 checkpoint {names}: trainable equal to the ranks' {same_ck}, "
+        f"optimizer count {ck_count}")
+    if names != ["ckpt.iter1"] or not same_ck:
+        fails.append("run.main: rank 0's checkpoint differs from the trained tree")
+
+    # 4. TP decode
+    L = ranks[0]["tp"]["layers"]
+    for r, out in enumerate(ranks):
+        t = out["tp"]
+        c = t["counts"]
+        passes = c.get("logits", 0)
+        diff = next((i for i, (a, b) in enumerate(zip(t["ids"], tp_ref["ids"])) if a != b),
+                    None)
+        log(f"[dist] rank {r} TP=2 greedy 20 ids in {t['ms']:.1f} ms, peak_gib="
+            f"{t['peak_gib']:.2f}, collectives {json.dumps(c)} ({passes} passes), launches "
+            f"{json.dumps(t['launches'])}, first difference {diff}")
+        if diff is not None:
+            m, s = tp_ref["margins"][diff], tp_ref["scales"][diff]
+            log(f"[dist] one-process top-2 margin at {diff}: {m:.3e} of scale {s:.3e}")
+            if m >= 1e-4 * s:
+                fails.append(f"TP ids differ at {diff} with a margin {m} >= 1e-4 x {s}")
+        if c.get("layer") != 2 * L * passes or t["fused"]:
+            fails.append(f"TP collectives {c}, fused {t['fused']}")
+
+    # 5. eval
+    merged = ranks[0]["eval"]["merged"]
+    one = ranks[0]["eval"]["one"]
+    eval_launch = {}
+    for r, out in enumerate(ranks):
+        e = out["eval"]
+        log(f"[dist] rank {r} eval episodes {e['episodes']} wall_s={e['wall_s']:.2f} "
+            f"peak_gib={e['peak_gib']:.2f} launches "
+            f"{json.dumps({k: v for k, v in e['launches'].items() if v})}")
+        eval_launch = {k: eval_launch.get(k, 0) + v for k, v in e["launches"].items()}
+        if (e["launches"]["int4_matvec"] <= 0 or e["launches"]["decode_attn"] <= 0
+                or any(e["plain"].values()) or e["merged"] != merged):
+            fails.append(f"eval rank {r}: A {e['launches']['int4_matvec']}, B "
+                         f"{e['launches']['decode_attn']}, plain "
+                         f"{({k: v for k, v in e['plain'].items() if v})}, merged {e['merged']}")
+    err = max(abs(merged[k] - one[k]) for k in one)
+    log(f"[dist] eval merged {json.dumps(merged)} vs one process, max diff {err:.2e}")
+    if sorted(merged) != sorted(one) or err > 1e-6:
+        fails.append("eval: merged metrics differ from one process's")
+    log(f"[dist] gloo ranks {gloo_s:.1f} s, NCCL rank {nccl_s:.1f} s, the phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    ctx["dist_launches"] = {k: eval_launch.get(k, 0) + pre_launch.get(k, 0)
+                            for k in ("int4_matvec", "decode_attn", "nerf_mlp")}
+    if fails:
+        raise AssertionError("dist: " + "; ".join(str(f) for f in fails))
+
+
+def phase_soak(ctx):
+    """``dynam3d_torch.tools.train_soak --scale full --il-steps 8
+    --pretrain-iters 4`` in a temporary work directory, its rows checked."""
+    torch = ctx["torch"]
+    import gc
+    import signal
+    import tempfile
+
+    from dynam3d_torch.ops import kernels
+
+    kernels.build_all()
+    ctx.pop("serve", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        out = os.path.join(work, "soak.jsonl")
+        cmd = [sys.executable, "-m", "dynam3d_torch.tools.train_soak", "--out", out,
+               "--scale", "full", "--il-steps", "8", "--pretrain-iters", "4",
+               "--workdir", os.path.join(work, "wd")]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True, start_new_session=True)
+        try:
+            text, _ = proc.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            raise
+        wall = time.perf_counter() - t0
+        rows = [json.loads(r) for r in open(out)] if os.path.exists(out) else []
+    by = {}
+    for r in rows:
+        by.setdefault(r["phase"], []).append(r)
+    for r in rows:
+        log(f"[soak] {json.dumps(r)}")
+    fails = []
+    if proc.returncode != 0:
+        fails.append(f"exit {proc.returncode}: {text[-4000:]}")
+    want = {"meta": 2, "il": 8, "il_resume_check": 1, "il_summary": 1, "pretrain": 4,
+            "pretrain_resume_check": 1, "pretrain_summary": 1}
+    if {k: len(v) for k, v in by.items()} != want:
+        fails.append(f"rows {({k: len(v) for k, v in by.items()})} != {want}")
+    losses = [r["loss"] for r in by.get("il", []) + by.get("pretrain", [])]
+    if not all(math.isfinite(x) for x in losses):
+        fails.append(f"losses {losses}")
+    for name in ("il_resume_check", "pretrain_resume_check"):
+        if not by.get(name) or by[name][0].get("bit_compatible") is not True:
+            fails.append(f"{name}: {by.get(name)}")
+    c_launches = [r.get("launches", {}).get("nerf_mlp", 0) for r in by.get("pretrain", [])]
+    if not c_launches or min(c_launches) <= 0 or any(r.get("plain_calls")
+                                                    for r in by.get("pretrain", [])):
+        fails.append(f"kernel C per pretraining iteration {c_launches}")
+    ctx["soak_launches"] = {"nerf_mlp": sum(c_launches)}
+    log(f"[soak] wall_s={wall:.1f}")
+    if fails:
+        raise AssertionError("soak: " + "; ".join(fails))
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -3093,10 +3744,12 @@ def main(argv=None) -> int:
     ctx = {"torch": torch, "card": card, "launches": {},
            "gen": torch.Generator(device="cuda").manual_seed(1234),
            "timer": Timer(torch)}
+    t_run = time.perf_counter()
     for name in phases:
         t0 = time.perf_counter()
         globals()[f"phase_{name}"](ctx)
         log(f"[{name}] phase done in {time.perf_counter() - t0:.1f} s")
+    log(f"[chip_smoke] phases {','.join(phases)} done in {time.perf_counter() - t_run:.1f} s")
 
     kernels_rec = []
     if "matvec" in ctx:
@@ -3176,7 +3829,13 @@ def main(argv=None) -> int:
                 library_ms=r["library_ms"], work=work))
     conv = ctx.get("convert_launches", {})
     data = ctx.get("data_launches", {})
+    dist_l = ctx.get("dist_launches", {})
+    soak_l = ctx.get("soak_launches", {})
     for rec in kernels_rec:
+        if rec["name"] in dist_l:
+            rec["launches_dist"] = dist_l[rec["name"]]
+        if rec["name"] in soak_l:
+            rec["launches_soak"] = soak_l[rec["name"]]
         if rec["name"] in cli:
             rec["launches_cli"] = cli[rec["name"]]
         if rec["name"] in conv:

@@ -219,16 +219,19 @@ def generate_action_ids(params: Params, cfg: Dynam3DConfig, input_ids: torch.Ten
 def train_loss(params: Params, cfg: Dynam3DConfig, input_ids: torch.Tensor,
                text_valid: torch.Tensor, mm_tokens: torch.Tensor, mm_valid: torch.Tensor,
                label_ids: torch.Tensor, label_mask: torch.Tensor,
-               turn_token_weight: torch.Tensor, splice_start: int = 2) -> llava_mod.TrainOutput:
+               turn_token_weight: torch.Tensor, splice_start: int = 2,
+               tp=None) -> llava_mod.TrainOutput:
     """Teacher-forced CE on the action span.  The prompt length is the
     physical one (valid text tokens less the labels, which follow the
     prompt): the count of valid attention slots would undercount it by the
-    masked instance and zone slots."""
-    emb = llava_mod.splice_embeds(params["llava"], cfg.llava, input_ids, mm_tokens, splice_start)
+    masked instance and zone slots.  ``tp``: Phi-3's tensor-parallel group."""
+    emb = llava_mod.splice_embeds(params["llava"], cfg.llava, input_ids, mm_tokens, splice_start,
+                                  tp)
     attn_valid = _attn_valid(text_valid, mm_valid, splice_start)
     prompt_len = text_valid.to(torch.int64).sum(1) - label_mask.to(torch.int64).sum(1)
     return llava_mod.teacher_forced_loss(params["llava"], cfg.llava, emb, attn_valid,
-                                         label_ids, label_mask, prompt_len, turn_token_weight)
+                                         label_ids, label_mask, prompt_len, turn_token_weight,
+                                         tp)
 
 
 def full_step(params: Params, cfg: Dynam3DConfig, state: FieldState, rgb, depth_raw,

@@ -34,10 +34,11 @@ def image_features(params: Params, llava_cfg: LLaVAConfig, clip_cfg: CLIPConfig,
 
 
 def splice_embeds(params: Params, cfg: LLaVAConfig, input_ids: torch.Tensor,
-                  mm_tokens: torch.Tensor, splice_start: int = 2) -> torch.Tensor:
+                  mm_tokens: torch.Tensor, splice_start: int = 2, tp=None) -> torch.Tensor:
     """Token embeddings with ``mm_tokens [B, N, D]`` written over the
-    ``<image>`` span starting at ``splice_start``."""
-    emb = phi3.embed(params["phi3"], input_ids).to(mm_tokens.dtype)
+    ``<image>`` span starting at ``splice_start`` (``tp``: see
+    ``phi3.embed``)."""
+    emb = phi3.embed(params["phi3"], input_ids, tp).to(mm_tokens.dtype)
     emb[:, splice_start: splice_start + mm_tokens.shape[1]] = mm_tokens
     return emb
 
@@ -50,20 +51,22 @@ class TrainOutput(NamedTuple):
 def teacher_forced_loss(params: Params, cfg: LLaVAConfig, embeds: torch.Tensor,
                         attn_valid: torch.Tensor, label_ids: torch.Tensor,
                         label_mask: torch.Tensor, prompt_len: torch.Tensor,
-                        turn_token_weight: torch.Tensor) -> TrainOutput:
+                        turn_token_weight: torch.Tensor, tp=None) -> TrainOutput:
     """CE over the label span plus a CE on label token 1 (the turn
     direction) weighted by ``turn_token_weight [B]``.  ``embeds [B, T, D]``
     hold prompt and labels; the logits at positions ``prompt_len - 1 + j``
     (clipped to the sequence) predict ``label_ids[:, j]``, and only those
     rows reach the lm_head (the same values and gradients as gathering full
-    logits, without the ``[B, T, V]`` float32 tensor)."""
+    logits, without the ``[B, T, V]`` float32 tensor).  ``tp``: Phi-3's
+    tensor-parallel group (``phi3.forward_train``)."""
     B, T, _ = embeds.shape
     positions = torch.clamp(torch.cumsum(attn_valid.to(torch.int64), dim=1) - 1, min=0)
     mask = phi3.prefill_mask(attn_valid, T)
     Tg = label_ids.shape[1]
     idx = (prompt_len[:, None] - 1) + torch.arange(Tg, device=embeds.device)[None, :]
     idx = torch.clamp(idx, 0, T - 1)
-    sel = phi3.forward_train(params["phi3"], cfg.phi3, embeds, positions, mask, lm_rows=idx)
+    sel = phi3.forward_train(params["phi3"], cfg.phi3, embeds, positions, mask, lm_rows=idx,
+                             tp=tp)
     logp = torch.log_softmax(sel, dim=-1)
     nll = -torch.gather(logp, -1, label_ids[..., None].to(torch.int64))[..., 0]
     lm = label_mask.to(nll.dtype)

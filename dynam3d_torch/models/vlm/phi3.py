@@ -21,6 +21,13 @@ decode flags (read at call time), the same on either device:
 * otherwise the unfused ``decode_forward``: ``int4_matmul`` (kernel A, or
   E under ``DYNAM3D_INT4_GRID2D``) and ``int4_mlp`` (kernel F).
 
+Tensor parallelism (``tp``: a process group, ``None`` by default) takes
+the split ``wq/wk/wv``, ``wgate/wup`` layout of ``parallel.split_qkv_params``
+sharded by ``parallel.shard_tree``: heads and MLP columns split, ``o`` and
+``down`` row-split with one all-reduce each, the embedding and the
+``lm_head`` split over the vocabulary (``parallel/comm.py`` holds the
+collectives).  Under TP decode takes the unfused dense route.
+
 Kernels run on CUDA tensors, their plain versions on CPU tensors.  The
 decode loops run on the host (Python control flow), reading the argmax of
 each pass back from the device.
@@ -28,6 +35,7 @@ each pass back from the device.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, List, NamedTuple, Optional
 
@@ -41,6 +49,9 @@ from dynam3d_torch.device import resolve_device
 from dynam3d_torch.ops.decode import MAX_ROWS, ROWS, decode_attn_layer, decode_layer_ring
 from dynam3d_torch.ops.int4 import int4_matmul, int4_mlp, int4_mlp_block, pack_int4
 from dynam3d_torch.ops.transformer import dot_f32
+from dynam3d_torch.parallel.comm import (
+    copy_to_tp, gather_from_tp, group_rank, group_size, reduce_from_tp,
+)
 
 Params = Dict[str, Any]
 
@@ -117,97 +128,131 @@ def _int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.to(torch.float64), b.to(torch.float64)).to(torch.int32)
 
 
-def _mlp(p: Params, h: torch.Tensor) -> torch.Tensor:
+def _mlp(p: Params, h: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """SwiGLU MLP; decode-regime int4 weights go through :func:`int4_mlp`
-    (gate and up in f32, h rounded once), others through two ``_mm``."""
+    (gate and up in f32, h rounded once), others through two ``_mm``.  The
+    split ``wgate/wup`` layout (TP: a rank's slice of the columns) takes
+    two products instead of one split of ``gate_up``."""
+    if "wgate" in p:
+        act = torch.nn.functional.silu(_mm(p["wgate"], h)) * _mm(p["wup"], h)
+        return _mm(p["down"], act, out_dtype=out_dtype)
     gu, dn = p["gate_up"], p["down"]
     if (isinstance(gu, dict) and "q4" in gu and isinstance(dn, dict) and "q4" in dn
             and _rows(h) <= 16 and flags.int4_fused_mlp()):
         return int4_mlp(h, gu["q4"], dn["q4"], out_dtype=h.dtype)
     gate_up = _mm(gu, h)
     gate, up = gate_up.chunk(2, dim=-1)
-    return _mm(dn, torch.nn.functional.silu(gate) * up)
+    return _mm(dn, torch.nn.functional.silu(gate) * up, out_dtype=out_dtype)
 
 
-def _qkv(p: Params, cfg: Phi3Config, x: torch.Tensor, positions: torch.Tensor):
+def _qkv(p: Params, cfg: Phi3Config, x: torch.Tensor, positions: torch.Tensor, tp=None):
+    """Pre-attention norm, projections and RoPE.  Two layouts: the fused
+    ``qkv``, or split ``wq/wk/wv`` (``parallel.split_qkv_params``), whose
+    head counts come from the weights' widths, so a rank's column slice
+    gives its own heads.  Under ``tp`` the normed input enters the
+    column-parallel products through *f* (gradient all-reduced)."""
     B, T, _ = x.shape
-    H, hd, Hkv = cfg.num_heads, cfg.head_dim, cfg.num_kv_heads
-    h = rms_norm(p["input_ln"], x, cfg.rms_eps)
-    qkv = _mm(p["qkv"], h)
-    q_sz, kv_sz = H * hd, Hkv * hd
-    q = qkv[..., :q_sz].reshape(B, T, H, hd)
-    k = qkv[..., q_sz: q_sz + kv_sz].reshape(B, T, Hkv, hd)
-    v = qkv[..., q_sz + kv_sz:].reshape(B, T, Hkv, hd)
+    hd = cfg.head_dim
+    h = copy_to_tp(rms_norm(p["input_ln"], x, cfg.rms_eps), tp)
+    if "wq" in p:
+        q, k, v = (_mm(p[n], h) for n in ("wq", "wk", "wv"))
+        q = q.reshape(B, T, -1, hd)
+        k = k.reshape(B, T, -1, hd)
+        v = v.reshape(B, T, -1, hd)
+    else:
+        if tp is not None:
+            raise ValueError("tensor parallelism needs the split layout (split_qkv_params)")
+        H, Hkv = cfg.num_heads, cfg.num_kv_heads
+        qkv = _mm(p["qkv"], h)
+        q_sz, kv_sz = H * hd, Hkv * hd
+        q = qkv[..., :q_sz].reshape(B, T, H, hd)
+        k = qkv[..., q_sz: q_sz + kv_sz].reshape(B, T, Hkv, hd)
+        v = qkv[..., q_sz + kv_sz:].reshape(B, T, Hkv, hd)
     return _rope(q, positions, cfg.rope_theta), _rope(k, positions, cfg.rope_theta), v
 
 
 def _attn_mlp(p: Params, cfg: Phi3Config, x: torch.Tensor, q: torch.Tensor,
-              kv_k: torch.Tensor, kv_v: torch.Tensor, attn_mask: torch.Tensor) -> torch.Tensor:
+              kv_k: torch.Tensor, kv_v: torch.Tensor, attn_mask: torch.Tensor,
+              tp=None) -> torch.Tensor:
     """Attention (einsum + masked f32 softmax) over the updated layer cache,
-    o-projection + residual, then the MLP half."""
+    o-projection + residual, then the MLP half.  Under ``tp`` (this rank's
+    heads and MLP columns) the row-parallel ``o`` and ``down`` products are
+    summed in f32 by one all-reduce each (*g*) before the residual, and
+    rounded where one device rounds its whole product."""
     B, T, D = x.shape
-    group = cfg.num_heads // cfg.num_kv_heads
+    H = q.shape[2]
+    group = H // kv_k.shape[2]
     kk = kv_k.repeat_interleave(group, dim=2) if group > 1 else kv_k
     vv = kv_v.repeat_interleave(group, dim=2) if group > 1 else kv_v
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk.float()) / math.sqrt(cfg.head_dim)
     logits = logits.masked_fill(~attn_mask[:, None, :, :], torch.finfo(torch.float32).min)
     attn = torch.softmax(logits, dim=-1).to(x.dtype)
     o = torch.einsum("bhqk,bkhd->bqhd", attn.float(), vv.float())
-    o = o.reshape(B, T, cfg.num_heads * cfg.head_dim).to(x.dtype)
-    x = x + _mm(p["o"], o)
-    h = rms_norm(p["post_ln"], x, cfg.rms_eps)
-    return x + _mlp(p, h)
+    o = o.reshape(B, T, H * cfg.head_dim).to(x.dtype)
+    if tp is None:
+        x = x + _mm(p["o"], o)
+        return x + _mlp(p, rms_norm(p["post_ln"], x, cfg.rms_eps))
+    x = x + reduce_from_tp(_mm(p["o"], o, out_dtype=torch.float32), tp).to(x.dtype)
+    h = copy_to_tp(rms_norm(p["post_ln"], x, cfg.rms_eps), tp)
+    return x + reduce_from_tp(_mlp(p, h, out_dtype=torch.float32), tp).to(x.dtype)
 
 
-def _lm_head(params: Params, x: torch.Tensor) -> torch.Tensor:
+def _lm_head(params: Params, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """f32 logits; under ``tp`` this rank's vocabulary columns, gathered
+    along the last dim (every rank then holds all of them)."""
     w = params["lm_head"]
+    x = copy_to_tp(x, tp)
     if isinstance(w, dict) and "q" in w:
-        return _mm(w, x, out_dtype=torch.float32)
-    return dot_f32(x, w)
+        return gather_from_tp(_mm(w, x, out_dtype=torch.float32), tp)
+    return gather_from_tp(dot_f32(x, w), tp)
 
 
 def forward(params: Params, cfg: Phi3Config, embeds: torch.Tensor,
             positions: torch.Tensor, cache: KVCache, write_at: int,
-            attn_mask: torch.Tensor, lm_at: Optional[torch.Tensor] = None):
+            attn_mask: torch.Tensor, lm_at: Optional[torch.Tensor] = None, tp=None):
     """Decoder stack over ``embeds [B, T, D]``; writes k/v into ``cache`` at
     ``write_at`` (in place) and returns ``(logits, cache)``; ``lm_at [B]``
-    restricts the lm_head to one position per row (``[B, 1, V]``)."""
+    restricts the lm_head to one position per row (``[B, 1, V]``).  Under
+    ``tp`` the params and the cache are this rank's heads (a cache from
+    :func:`init_cache` of ``local_config(cfg, tp)``)."""
     x = embeds
     T = x.shape[1]
     for li in range(cfg.num_layers):
         p = params["layers"][li]
-        q, k, v = _qkv(p, cfg, x, positions)
+        q, k, v = _qkv(p, cfg, x, positions, tp)
         cache.k[li][:, write_at: write_at + T] = k
         cache.v[li][:, write_at: write_at + T] = v
-        x = _attn_mlp(p, cfg, x, q, cache.k[li], cache.v[li], attn_mask)
+        x = _attn_mlp(p, cfg, x, q, cache.k[li], cache.v[li], attn_mask, tp)
     x = rms_norm(params["final_ln"], x, cfg.rms_eps)
     if lm_at is not None:
         x = x[torch.arange(x.shape[0], device=x.device)[:, None], lm_at[:, None]]
-    return _lm_head(params, x), cache
+    return _lm_head(params, x, tp), cache
 
 
 def _train_layer(p: Params, cfg: Phi3Config, x: torch.Tensor, positions: torch.Tensor,
-                 attn_mask: torch.Tensor) -> torch.Tensor:
-    q, k, v = _qkv(p, cfg, x, positions)
-    return _attn_mlp(p, cfg, x, q, k, v, attn_mask)
+                 attn_mask: torch.Tensor, tp=None) -> torch.Tensor:
+    q, k, v = _qkv(p, cfg, x, positions, tp)
+    return _attn_mlp(p, cfg, x, q, k, v, attn_mask, tp)
 
 
 def forward_train(params: Params, cfg: Phi3Config, embeds: torch.Tensor,
                   positions: torch.Tensor, attn_mask: torch.Tensor,
-                  lm_rows: torch.Tensor) -> torch.Tensor:
+                  lm_rows: torch.Tensor, tp=None) -> torch.Tensor:
     """The decoder stack for a loss: each layer attends over the sequence's
     own K/V (``forward`` on a fresh cache of length T written at 0, without
     the in-place cache writes) and is recomputed in the backward pass
     (``torch.utils.checkpoint``, non-reentrant), as the reference
     rematerializes each layer in training.  ``attn_mask [B, T, T]``;
     ``lm_rows [B, R]`` gathers R positions per row before the lm_head, so
-    only those rows are projected onto the vocabulary (``[B, R, V]``)."""
+    only those rows are projected onto the vocabulary (``[B, R, V]``).
+    Under ``tp`` the recompute repeats each layer's two all-reduces in the
+    same order on every rank."""
     x = embeds
     for p in params["layers"]:
-        x = checkpoint(_train_layer, p, cfg, x, positions, attn_mask, use_reentrant=False)
+        x = checkpoint(_train_layer, p, cfg, x, positions, attn_mask, tp, use_reentrant=False)
     x = rms_norm(params["final_ln"], x, cfg.rms_eps)
     x = torch.gather(x, 1, lm_rows[..., None].expand(-1, -1, x.shape[-1]))
-    return _lm_head(params, x)
+    return _lm_head(params, x, tp)
 
 
 # the decode step over dense / int8 weights is the same stack, with T = the
@@ -215,8 +260,30 @@ def forward_train(params: Params, cfg: Phi3Config, embeds: torch.Tensor,
 decode_forward = forward
 
 
-def embed(params: Params, ids: torch.Tensor) -> torch.Tensor:
-    return params["embed_tokens"][ids]
+def embed(params: Params, ids: torch.Tensor, tp=None) -> torch.Tensor:
+    """Token embeddings; under ``tp`` the table is this rank's rows of the
+    vocabulary: ids outside them read zeros and one all-reduce (in f32,
+    exact: one rank's row plus zeros) sums the ranks' rows."""
+    table = params["embed_tokens"]
+    if tp is None:
+        return table[ids]
+    n = table.shape[0]
+    local = ids - group_rank(tp) * n
+    inside = (local >= 0) & (local < n)
+    e = table[local.clamp(0, n - 1)].float() * inside[..., None]
+    return reduce_from_tp(e, tp, "embed").to(table.dtype)
+
+
+def local_config(cfg: Phi3Config, tp) -> Phi3Config:
+    """``cfg`` with one rank's share of the heads under ``tp`` (for
+    :func:`init_cache` and the cache's reshapes)."""
+    n = group_size(tp)
+    if n == 1:
+        return cfg
+    if cfg.num_heads % n or cfg.num_kv_heads % n:
+        raise ValueError(f"{cfg.num_heads} / {cfg.num_kv_heads} heads do not split {n} ways")
+    return dataclasses.replace(cfg, num_heads=cfg.num_heads // n,
+                               num_kv_heads=cfg.num_kv_heads // n)
 
 
 def prefill_mask(attn_valid: torch.Tensor, cache_len: int) -> torch.Tensor:
@@ -362,26 +429,31 @@ def _last_valid_idx(attn_valid: torch.Tensor) -> torch.Tensor:
     return T - 1 - torch.argmax(attn_valid.flip(1).to(torch.int32), dim=1)
 
 
-def _prefill(params, cfg, embeds, attn_valid, total):
-    cache = init_cache(cfg, embeds.shape[0], total, dtype=embeds.dtype, device=embeds.device)
+def _prefill(params, cfg, embeds, attn_valid, total, tp=None):
+    cache = init_cache(local_config(cfg, tp), embeds.shape[0], total, dtype=embeds.dtype,
+                       device=embeds.device)
     positions = torch.clamp(torch.cumsum(attn_valid.to(torch.int64), 1) - 1, min=0)
     mask = prefill_mask(attn_valid, total)
     logits, cache = forward(params, cfg, embeds, positions, cache, 0, mask,
-                            lm_at=_last_valid_idx(attn_valid))
+                            lm_at=_last_valid_idx(attn_valid), tp=tp)
     return logits[:, 0].argmax(-1), cache
 
 
 def greedy_decode(params: Params, cfg: Phi3Config, embeds: torch.Tensor,
                   attn_valid: torch.Tensor, max_new_tokens: int,
-                  stop_token: Optional[int] = None) -> torch.Tensor:
+                  stop_token: Optional[int] = None, tp=None) -> torch.Tensor:
     """Greedy generation over right-padded prompts; returns ``[B, max_new]``
-    ids (stop token included, pad after it)."""
+    ids (stop token included, pad after it).  Under ``tp`` (params sharded
+    by ``parallel.shard_tree``, ``embeds`` whole on every rank) each pass
+    makes two all-reduces a layer, one for the next token's embedding and
+    one gather of the logits, and every rank returns the same ids; the
+    fused kernels never run there."""
     B, T, D = embeds.shape
-    fused = _fused_decode_eligible(params, cfg, B)
+    fused = tp is None and _fused_decode_eligible(params, cfg, B)
     total = T + max_new_tokens
     if fused:
         total = -(-total // ROWS) * ROWS
-    tok, cache = _prefill(params, cfg, embeds, attn_valid, total)
+    tok, cache = _prefill(params, cfg, embeds, attn_valid, total, tp)
     if fused:
         cache = _flat(cache, cfg)
     stop = cfg.end_token_id if stop_token is None else stop_token
@@ -393,12 +465,13 @@ def greedy_decode(params: Params, cfg: Phi3Config, embeds: torch.Tensor,
     i = 0
     while i < max_new_tokens and not bool((done | (tok == stop)).all()):
         out[:, i] = torch.where(done, cfg.pad_token_id, tok)
-        e = embed(params, tok)[:, None, :].to(embeds.dtype)
+        e = embed(params, tok, tp)[:, None, :].to(embeds.dtype)
         pos = (valid.sum(1) - 1)[:, None]
         if fused:
             logits, cache = _decode_forward_fused(params, cfg, e, pos, cache, T + i, valid)
         else:
-            logits, cache = decode_forward(params, cfg, e, pos, cache, T + i, valid[:, None, :])
+            logits, cache = decode_forward(params, cfg, e, pos, cache, T + i, valid[:, None, :],
+                                           tp=tp)
         nxt = logits[:, 0].argmax(-1)
         done = done | (tok == stop)
         nxt = torch.where(done, stop, nxt)

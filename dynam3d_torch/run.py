@@ -12,10 +12,18 @@ types.  Every run writes its log to ``data/logs/running_log/{exp_name}.log``;
 eval writes ``data/eval/{exp_name}/``, inference
 ``data/eval/{exp_name}_preds.json``, training its checkpoints under
 ``train.ckpt_dir`` (all relative to the working directory).  The rank and
-world size come from torchrun's ``RANK`` / ``WORLD_SIZE``: eval and
-inference shard the episodes by rank; training at a world size above one
-is not ported yet and raises.  The run goes on the card; ``main(...,
-device="cpu")`` runs the plain versions on the CPU.
+world size come from torchrun's ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK``
+(``scripts/*.sh`` launch it so): eval and inference shard the episodes by
+rank, each rank on its own.  ``Dynam3D`` training at a world size above
+one trains data-parallel: the process group is initialized (``nccl`` on
+the card, ``gloo`` with ``device="cpu"``; one already initialized by the
+caller is used as it is) and every rank trains from the same seed's
+weights, its gradients averaged with the others' (``VLNTrainer``'s
+lockstep).  ``SS-ETP`` training at a world size above one raises: its
+dispatcher draws a dataset per rank, so a walk rank and a frames rank
+would issue different collectives.  The run goes on the card, rank ``r``
+on ``cuda:{LOCAL_RANK}``; ``main(..., device="cpu")`` runs the plain
+versions on the CPU.
 """
 
 from __future__ import annotations
@@ -76,9 +84,19 @@ def seed_everything(seed: int, rank: int = 0) -> None:
     np.random.seed(seed + rank)
 
 
+def _rank_device(device: DeviceLike) -> torch.device:
+    """The caller's device; the card means ``cuda:{LOCAL_RANK}``, pinned as
+    this process's current device."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device(f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}")
+        torch.cuda.set_device(dev)
+    return dev
+
+
 def main(argv=None, device: DeviceLike = None) -> None:
     args = build_parser().parse_args(argv)
-    dev = resolve_device(device)
+    dev = _rank_device(device)
     from dynam3d_torch.config import Dynam3DConfig, apply_opts, load
 
     cfg = load(args.exp_config) if args.exp_config else Dynam3DConfig()
@@ -87,11 +105,24 @@ def main(argv=None, device: DeviceLike = None) -> None:
 
     rank = int(os.environ.get("RANK", "0"))
     world = int(os.environ.get("WORLD_SIZE", "1"))
-    if args.run_type == "train" and world > 1:
+    dp_train = args.run_type == "train" and world > 1
+    if dp_train and args.trainer != "Dynam3D":
         raise NotImplementedError(
-            f"training at WORLD_SIZE={world}: data-parallel training is not ported yet "
-            "(ROADMAP Queue 1, item 7)")
+            f"{args.trainer} training at WORLD_SIZE={world}: multi-process pretraining is not "
+            "ported (ROADMAP Queue 1, item 9)")
+    import torch.distributed as dist
 
+    own_group = dp_train and not dist.is_initialized()
+    if own_group:
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    try:
+        _run(args, cfg, dev, rank, world, dist.group.WORLD if dp_train else None)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+
+def _run(args, cfg, dev: torch.device, rank: int, world: int, dp) -> None:
     logger = setup_logging(args.exp_name)
     seed_everything(args.seed or cfg.train.seed, rank)
     logger.info("exp=%s type=%s trainer=%s rank=%d/%d device=%s",
@@ -117,7 +148,7 @@ def main(argv=None, device: DeviceLike = None) -> None:
         params = policy_mod.init_policy_params(cfg.train.seed, cfg, device=dev)
         if args.run_type == "train":
             trainer = VLNTrainer(params, cfg, train_feed_factory, rank=rank, world=world,
-                                 device=dev)
+                                 device=dev, dp=dp)
             start = trainer.resume(ckpt_dir) if cfg.train.is_requeue else 0
             trainer.train(cfg.train.iters - start, ckpt_dir=ckpt_dir)
         elif args.run_type == "eval":

@@ -31,6 +31,7 @@ from dynam3d_torch.models.memory3d.state import FieldState, unstack_state
 from dynam3d_torch.models.policy_3dff import perceive_panorama
 from dynam3d_torch.models.render.nerf import render_view, render_view_posed
 from dynam3d_torch.ops.knn import knn_brute
+from dynam3d_torch.parallel.comm import dp_mean_
 from dynam3d_torch.runtime.losses_3dff import (
     balanced_merge_ce, contrastive_loss, cosine_loss, focal_loss, l2n, subspace_cosine_loss,
 )
@@ -225,19 +226,29 @@ def make_pretrain_optimizer(cfg: Dynam3DConfig) -> PretrainOptimizer:
     return PretrainOptimizer(cfg.train.pretrain_lr, cfg.train.grad_clip_value)
 
 
-def make_pretrain_step(cfg: Dynam3DConfig, optimizer: PretrainOptimizer, posed: bool = False):
+def make_pretrain_step(cfg: Dynam3DConfig, optimizer: PretrainOptimizer, posed: bool = False,
+                       dp=None):
     """``step(trainable, opt_state, field_state, batch) -> (new_trainable,
     new_opt_state, new_field_state, metrics)`` over the trainable subtree
-    (``fields`` and ``render``; the encoders stay frozen)."""
+    (``fields`` and ``render``; the encoders stay frozen).
+
+    ``dp``: a data-parallel group, one scene a rank.  The step then takes
+    the gradient of the ranks' mean loss (``__graft_entry__``'s
+    ``_dryrun_pretrain_dp``, the reference's DDP): the gradients are
+    averaged over the group in float32 buckets before the NaN scrub, and
+    ``metrics["loss"]`` is the mean, so a NaN on any rank skips the update
+    on every rank.  The other metrics stay this rank's."""
 
     def step(trainable, opt_state, field_state, batch: PretrainBatch):
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(trainable)]
         tr = tree_unflatten(trainable, leaves)
         loss, new_state, metrics = pretrain_step_loss(tr, cfg, field_state, batch, posed=posed)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None
-                 else torch.where(torch.isnan(g), torch.zeros_like(g), g)
-                 for g, p in zip(grads, leaves)]
+        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
+        loss = loss.detach()
+        if dp is not None:
+            loss = dp_mean_(grads, loss, 1.0, dp)
+        grads = [torch.where(torch.isnan(g), torch.zeros_like(g), g) for g in grads]
         updates, new_opt = optimizer.update(grads, opt_state, trainable)
         skip = bool(torch.isnan(loss))
         if skip:
@@ -246,7 +257,7 @@ def make_pretrain_step(cfg: Dynam3DConfig, optimizer: PretrainOptimizer, posed: 
             new_tr = tree_unflatten(trainable, [p.detach() + u for p, u in
                                                 zip(tree_leaves(trainable), updates)])
         metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["loss"] = loss.detach()
+        metrics["loss"] = loss
         metrics["skipped"] = torch.tensor(skip)
         new_state = FieldState(*(t.detach() for t in new_state))
         return new_tr, new_opt, new_state, metrics

@@ -31,6 +31,7 @@ from dynam3d_torch.models.vlm.tokenizer import ByteTokenizer, build_prompt
 from dynam3d_torch.models.waypoint.trm import (
     Candidates, extract_candidates, init_waypoint_params,
 )
+from dynam3d_torch.parallel.comm import all_reduce_
 from dynam3d_torch.runtime import checkpoint as ckpt_mod
 from dynam3d_torch.runtime import metrics as metrics_mod
 from dynam3d_torch.runtime import trainer_vln
@@ -58,13 +59,29 @@ class VLNTrainer:
     norm, skip flag, the candidates and whether the predictor gave them, the
     gt text, the step's ms (synchronized before and after) and, on the
     card, the peak of allocated memory so far (``torch.cuda`` counts it
-    from the caller's last reset)."""
+    from the caller's last reset).
+
+    Data-parallel training (``dp``: a process group; every rank builds its
+    trainer from the same weights, one episode at a time on its own feed):
+    each step averages the ranks' gradients (``make_train_step``), so the
+    replicas stay identical.  Teacher-forced episodes differ in length (and
+    so may the ranks' ``max_steps``), so the ranks step in lockstep by this
+    rule: before each step of an episode the ranks all-reduce whether any
+    of them is still in its episode; if none is, the episode ends on every
+    rank; otherwise a rank whose episode has ended runs an idle step (zero
+    gradients at weight 0, no perception, no log entry, counted in
+    ``idle_steps``), and the others train on their rows.  A step whose
+    teacher label is ``"error."`` (a looping episode) ends the episode
+    without an update, so under ``dp`` it is such an idle step too.  Rank 0 saves the
+    checkpoints (whole trees, the format of a one-process run); ``resume``
+    loads on every rank."""
 
     def __init__(self, params, cfg: Dynam3DConfig, feed_factory: Callable[[], Feed],
                  tokenizer=None, recycle_every: Optional[int] = None, rank: int = 0,
                  world: int = 1, waypoint_params=None, depth_enc_params=None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, dp=None):
         self.device = resolve_device(device)
+        self.dp = dp
         self.cfg = cfg
         self.feed_factory = feed_factory
         self.tok = tokenizer or ByteTokenizer(cfg.llava.phi3.vocab_size)
@@ -79,7 +96,8 @@ class VLNTrainer:
         self.trainable, self.frozen = trainer_vln.split_params(params)
         self.optimizer = trainer_vln.make_optimizer(cfg)
         self.opt_state = self.optimizer.init(self.trainable)
-        self._step_fn = trainer_vln.make_train_step(cfg, self.optimizer, self.splice_start)
+        self._step_fn = trainer_vln.make_train_step(cfg, self.optimizer, self.splice_start,
+                                                    dp=dp)
         if (waypoint_params is None and depth_enc_params is None
                 and cfg.train.use_waypoint_predictor):
             gen = torch.Generator(device=self.device).manual_seed(cfg.train.seed + 17)
@@ -92,6 +110,7 @@ class VLNTrainer:
                              if waypoint_params is not None and depth_enc_params is not None
                              else None)
         self._episodes_done = 0
+        self.idle_steps = 0
         self.logs: Dict[str, List[float]] = {"IL_loss": []}
         self.step_log: List[Dict] = []
 
@@ -130,69 +149,96 @@ class VLNTrainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _any_live(self, live: bool) -> bool:
+        """Whether any rank of the dp group is still in its episode."""
+        flag = torch.tensor([1.0 if live else 0.0], device=self.device)
+        return bool(all_reduce_(flag, self.dp, "live") > 0)
+
     def train_episode(self, feed: Optional[Feed] = None, max_steps: Optional[int] = None) -> Dict:
-        """One teacher-forced episode with an update per step."""
-        cfg, dev = self.cfg, self.device
+        """One teacher-forced episode with an update per step (in lockstep
+        with the other ranks under ``dp``: class docstring)."""
+        cfg = self.cfg
         feed = feed or self.feed_factory()
         max_steps = max_steps or cfg.train.max_traj_len
-        obs = feed.reset()
-        act_state = EpisodeActionState()
-        field_state = policy_mod.batched_init_state(cfg, 1, dev)
-        losses = []
+        ep = {"feed": feed, "obs": feed.reset(), "act": EpisodeActionState(),
+              "state": policy_mod.batched_init_state(cfg, 1, self.device), "losses": []}
         self._episodes_done += 1
-
-        for stepk in range(max_steps):
-            cands, from_predictor = self._candidates(feed, obs)
-            dists = [feed.cand_dist_to_goal(a, d) for a, d in zip(*cands)]
-            oracle = STOP if feed.oracle_distance() < 1.5 else int(np.argmin(dists))
-            angle, dist, stop = teacher_targets(act_state, cands[0], cands[1], oracle)
-            gt = make_gt_text(act_state, angle, dist, stop, cfg.action)
-            if gt.startswith("error."):
-                feed = self.feed_factory()
+        live, stepk = True, 0
+        while True:
+            live = live and stepk < max_steps
+            if not (self._any_live(live) if self.dp is not None else live):
                 break
-
-            ids, tvalid, labels, label_mask = self._tokenize_full(
-                obs.instruction, act_state.history_actions, gt)
-            turn_w = 0.0 if ("stop" in gt or "error" in gt) else 1.0
-            # the policy sees the forward view only; a 12-view feed is for
-            # the waypoint predictor's panorama
-            batch = trainer_vln.TrainBatch(
-                rgb=torch.from_numpy(np.ascontiguousarray(obs.rgb[None, :1])).to(dev),
-                depth=torch.from_numpy(np.ascontiguousarray(obs.depth[None, :1])).to(dev),
-                position=torch.from_numpy(np.asarray(obs.position, np.float32)[None]).to(dev),
-                heading=torch.tensor([obs.heading], dtype=torch.float32, device=dev),
-                input_ids=ids, text_valid=tvalid, label_ids=labels, label_mask=label_mask,
-                turn_weight=torch.tensor([turn_w], dtype=torch.float32, device=dev),
-            )
-            self._sync()
-            t0 = time.perf_counter()
-            self.trainable, self.opt_state, field_state, m = self._step_fn(
-                self.trainable, self.frozen, self.opt_state, field_state, batch)
-            self._sync()
-            ms = (time.perf_counter() - t0) * 1e3
-            loss = float(m["loss"])
-            losses.append(loss)
-            self.step_log.append({
-                "episode": self._episodes_done, "step": stepk, "gt": gt, "loss": loss,
-                "grad_norm": float(m["grad_norm"]), "skipped": m["skipped"], "ms": ms,
-                "candidates": [list(c) for c in cands], "from_predictor": from_predictor,
-                "tokens": int(tvalid.sum()),
-                "peak_mem_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
-                                 if dev.type == "cuda" else None),
-            })
-            act_state.push_history(gt.replace("<|end|>", "\n"))
-
-            action = parse_action(gt, cfg.action)
-            if action == STOP or stepk == max_steps - 1:
-                feed.step(STOP)
-                break
-            obs, done, _ = feed.step(action)
-            if done:
-                break
+            if live:
+                live = self._teacher_step(ep, stepk, max_steps)
+            else:
+                self._idle_step(ep)
+            stepk += 1
+        losses = ep["losses"]
         mean_loss = float(np.mean(losses)) if losses else float("nan")
         mean_loss *= cfg.train.ml_weight
         self.logs["IL_loss"].append(mean_loss)
         return {"loss": mean_loss, "steps": len(losses)}
+
+    def _idle_step(self, ep: Dict) -> None:
+        """A data-parallel step with nothing to contribute: zero gradients
+        at weight 0 into the group's collectives."""
+        self._step_fn(self.trainable, self.frozen, self.opt_state, ep["state"], None)
+        self.idle_steps += 1
+
+    def _teacher_step(self, ep: Dict, stepk: int, max_steps: int) -> bool:
+        """One teacher-forced step of the episode ``ep`` (its feed,
+        observation, action state, memory and losses, updated); whether the
+        episode goes on."""
+        cfg, dev = self.cfg, self.device
+        feed, obs, act_state = ep["feed"], ep["obs"], ep["act"]
+        cands, from_predictor = self._candidates(feed, obs)
+        dists = [feed.cand_dist_to_goal(a, d) for a, d in zip(*cands)]
+        oracle = STOP if feed.oracle_distance() < 1.5 else int(np.argmin(dists))
+        angle, dist, stop = teacher_targets(act_state, cands[0], cands[1], oracle)
+        gt = make_gt_text(act_state, angle, dist, stop, cfg.action)
+        if gt.startswith("error."):
+            self.feed_factory()      # the reference draws a new feed here
+            if self.dp is not None:  # the live peers step now: keep the collectives matched
+                self._idle_step(ep)
+            return False
+
+        ids, tvalid, labels, label_mask = self._tokenize_full(
+            obs.instruction, act_state.history_actions, gt)
+        turn_w = 0.0 if ("stop" in gt or "error" in gt) else 1.0
+        # the policy sees the forward view only; a 12-view feed is for
+        # the waypoint predictor's panorama
+        batch = trainer_vln.TrainBatch(
+            rgb=torch.from_numpy(np.ascontiguousarray(obs.rgb[None, :1])).to(dev),
+            depth=torch.from_numpy(np.ascontiguousarray(obs.depth[None, :1])).to(dev),
+            position=torch.from_numpy(np.asarray(obs.position, np.float32)[None]).to(dev),
+            heading=torch.tensor([obs.heading], dtype=torch.float32, device=dev),
+            input_ids=ids, text_valid=tvalid, label_ids=labels, label_mask=label_mask,
+            turn_weight=torch.tensor([turn_w], dtype=torch.float32, device=dev),
+        )
+        self._sync()
+        t0 = time.perf_counter()
+        self.trainable, self.opt_state, ep["state"], m = self._step_fn(
+            self.trainable, self.frozen, self.opt_state, ep["state"], batch)
+        self._sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        loss = float(m["loss"])
+        ep["losses"].append(loss)
+        self.step_log.append({
+            "episode": self._episodes_done, "step": stepk, "gt": gt, "loss": loss,
+            "grad_norm": float(m["grad_norm"]), "skipped": m["skipped"], "ms": ms,
+            "candidates": [list(c) for c in cands], "from_predictor": from_predictor,
+            "tokens": int(tvalid.sum()),
+            "peak_mem_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
+                             if dev.type == "cuda" else None),
+        })
+        act_state.push_history(gt.replace("<|end|>", "\n"))
+
+        action = parse_action(gt, cfg.action)
+        if action == STOP or stepk == max_steps - 1:
+            feed.step(STOP)
+            return False
+        ep["obs"], done, _ = feed.step(action)
+        return not done
 
     def _candidates(self, feed: Feed, obs):
         """``((angles, distances), from_predictor)``: the waypoint

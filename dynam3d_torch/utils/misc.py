@@ -4,12 +4,11 @@ common/utils.py and models/utils.py):
   - the per-character instruction codec (``ord`` packing,
     common/utils.py:8-31, decoded with ``chr`` as ss_trainer_Dynam3D.py:615
     does);
+  - metric aggregation across ranks (``gather_list_and_concat``,
+    common/utils.py:33-44) as an all-gather of the ranks' rows;
   - the discrete -> continuous path densifier (common/utils.py:46-61);
   - the 12-camera panorama orientations (common/utils.py:63-69);
   - angle features (models/utils.py:49-57) and ``length2mask`` (":77-81").
-
-The cross-rank ``gather_list_and_concat`` belongs with the parallel
-runtime and is not here.
 """
 
 from __future__ import annotations
@@ -31,6 +30,23 @@ def encode_instruction(text: str, max_length: int = 200, pad_id: int = 0) -> np.
 def decode_instruction(tokens: Sequence[int], pad_id: int = 0) -> str:
     """chr() unpacking (ss_trainer_Dynam3D.py:615)."""
     return "".join(chr(int(t)) for t in tokens if int(t) != pad_id)
+
+
+def gather_list_and_concat(values, group=None) -> np.ndarray:
+    """Every rank's rows of ``values`` concatenated along axis 0 in rank
+    order, on every rank of ``group`` (common/utils.py:33-44, there over
+    the default group: pass ``torch.distributed.group.WORLD``).  As in
+    ``parallel.comm``, ``group=None`` means no parallelism: the identity,
+    as when no process group is initialized.  The ranks may hold different
+    numbers of rows (rank-sharded episodes); the other dims must agree."""
+    import torch.distributed as dist
+
+    arr = np.asarray(values)
+    if group is None or not dist.is_initialized() or dist.get_world_size(group) == 1:
+        return arr
+    parts = [None] * dist.get_world_size(group)
+    dist.all_gather_object(parts, arr, group=group)
+    return np.concatenate([np.asarray(p).reshape(-1, *arr.shape[1:]) for p in parts], axis=0)
 
 
 def densify_path(path: np.ndarray, step: float = 0.25) -> np.ndarray:

@@ -39,7 +39,8 @@ def test_port_imports_no_jax_in_a_fresh_process():
               "tools.parity_run", "runtime.datasets", "runtime.scene_datasets",
               "runtime.dagger", "runtime.episode_store", "utils.graph", "utils.follower",
               "utils.misc", "utils.obs_transforms", "utils.visual", "tools.discrete_to_ce",
-              "tools.check_tokenizer"):
+              "tools.check_tokenizer", "parallel", "parallel.mesh", "parallel.comm",
+              "parallel.spawn", "parallel.dryrun", "tools.train_soak"):
         assert f"dynam3d_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -89,17 +90,22 @@ def test_entry_points_raise_without_a_device(monkeypatch):
         PretrainRunner({}, cfg, device=None)
 
 
-@pytest.mark.parametrize("entry", ["VLNTrainer", "evaluate", "inference"])
+@pytest.mark.parametrize("entry", ["VLNTrainer", "evaluate", "inference", "VLNTrainer_dp",
+                                   "dryrun_multichip"])
 def test_vln_entry_points_raise_without_a_device(entry, monkeypatch):
-    """The trainer, ``evaluate`` and ``inference`` take ``device=None`` as
-    the card and raise without one, before any work."""
+    """The trainer (alone or data-parallel), ``evaluate``, ``inference`` and
+    the multi-process dry run take ``device=None`` as the card and raise
+    without one, before any work (the dry run before spawning a rank)."""
     from dynam3d_torch.config import Dynam3DConfig
+    from dynam3d_torch.parallel.dryrun import dryrun_multichip
     from dynam3d_torch.runtime import vln_loop
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = Dynam3DConfig()
     calls = {
         "VLNTrainer": lambda: vln_loop.VLNTrainer({}, cfg, lambda: None),
+        "VLNTrainer_dp": lambda: vln_loop.VLNTrainer({}, cfg, lambda: None, dp=object()),
+        "dryrun_multichip": lambda: dryrun_multichip(2),
         "evaluate": lambda: vln_loop.evaluate({}, cfg, [], []),
         "inference": lambda: vln_loop.inference({}, cfg, [], []),
     }
@@ -107,18 +113,25 @@ def test_vln_entry_points_raise_without_a_device(entry, monkeypatch):
         calls[entry]()
 
 
-@pytest.mark.parametrize("entry", ["run", "eval_soak", "convert_reference_ckpt", "parity_run"])
+@pytest.mark.parametrize("entry", ["run", "eval_soak", "convert_reference_ckpt", "parity_run",
+                                   "run_train_dp", "train_soak"])
 def test_cli_entry_points_raise_without_a_device(entry, tmp_path, monkeypatch):
-    """``run.main`` and the ``eval_soak``, ``convert_reference_ckpt`` and
-    ``parity_run`` tools take ``device=None`` as the card: without one they
-    raise before writing anything."""
+    """``run.main`` (data-parallel training too) and the ``eval_soak``,
+    ``convert_reference_ckpt``, ``parity_run`` and ``train_soak`` tools take
+    ``device=None`` as the card: without one they raise before writing
+    anything (and before any process group)."""
     from dynam3d_torch import run
-    from dynam3d_torch.tools import convert_reference_ckpt, eval_soak, parity_run
+    from dynam3d_torch.tools import convert_reference_ckpt, eval_soak, parity_run, train_soak
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.chdir(tmp_path)
+    if entry == "run_train_dp":
+        monkeypatch.setenv("WORLD_SIZE", "2")
     calls = {
         "run": lambda: run.main(["--run-type", "eval", "--exp_name", "x"]),
+        "run_train_dp": lambda: run.main(["--run-type", "train", "--exp_name", "x"]),
+        "train_soak": lambda: train_soak.main(["--out", str(tmp_path / "soak.jsonl"),
+                                               "--scale", "tiny"]),
         "eval_soak": lambda: eval_soak.main(["--out", str(tmp_path / "soak"), "--scale", "tiny"]),
         "convert_reference_ckpt": lambda: convert_reference_ckpt.main(
             ["--out", str(tmp_path / "converted")]),

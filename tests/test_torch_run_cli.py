@@ -12,7 +12,9 @@ place where the CLIs differ by design, since their random initialisers do.
 * eval (6 box rooms + 2 floorplans) and inference (4 rooms): the same
   JSON text in every file, from feeds drawn with the same seeds;
 * train: one iteration writes ``ckpt.iter1``; with ``train.is_requeue``
-  the next run resumes from it; at ``WORLD_SIZE`` > 1 training raises;
+  the next run resumes from it; at ``WORLD_SIZE`` > 1 SS-ETP training
+  raises (``Dynam3D`` training there is data-parallel:
+  ``test_torch_dist_train.py``);
 * SS-ETP: the same datasets with the same seeds and generator states, and
   one port iteration logs finite losses;
 * ``profiling``: ``StepTimer.stats()`` equals the reference's on the same
@@ -171,8 +173,9 @@ def test_eval_shards_by_rank(tmp_path, monkeypatch):
               ["train.max_traj_len=1"], device="cpu")
     per_ep = json.loads((tmp_path / "data/eval/r/stats_ep_ckpt_r1_w2.json").read_text())
     assert sorted(per_ep, key=int) == ["1", "3", "5", "7"]
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
-        trun.main(["--exp-config", cfg_path, "--run-type", "train"], device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
+        trun.main(["--exp-config", cfg_path, "--run-type", "train", "--trainer", "SS-ETP"],
+                  device="cpu")
 
 
 def test_train_writes_a_checkpoint_and_resumes(tmp_path, monkeypatch):
