@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases build,convert
     python3 chip_smoke.py --phases build,data
     python3 chip_smoke.py --phases build,dist,soak
+    python3 chip_smoke.py --phases build,tools
 
 Phases, each printed as it finishes:
 
@@ -101,11 +102,26 @@ Phases, each printed as it finishes:
    (E and F), 4 feeds (grouped speculation, kernel B), each with the launch
    counters reset just before and read just after and no plain version on
    the path, then one profiled 12-feed step;
-17. ``yolo``: one full-width ``segment_views`` (FastSAM-x, imgsz 576) of a
+17. ``tools``: the profiling and A/B tools of ``dynam3d_torch/tools/`` on
+   the serving parameters (the default config, int4 Phi-3-mini), each in a
+   window with the launch counters reset just before and read just after
+   and its JSON lines printed: ``prof_decode_parts`` (A, B, F, G, H; the
+   fused and unfused one-step logits within ``LOGITS_TOL`` of their scale,
+   the argmax equal unless the top-2 margin is under ``TIE_TOL`` of it),
+   ``ab_fused_decode`` at B = 1 (A, B, F, G, H) and 4 (A, B, F), each fused
+   route's logits and ids against the unfused route's, ``ab_spec_decode``
+   (A, B; planted-continuation ids equal plain greedy's, force-accept
+   emits the drafts in ceil((n - 1) / k) passes, with and without a
+   lookup), ``ab_spec_batched`` (A, B; no-lookup rows equal plain batched
+   greedy's), ``prof_prefill`` (A at the last position), ``bench_int8_prefill``,
+   ``profile_perceive`` and ``prof_full_step`` (A, B: the B = 1 step's
+   slope, device busy time and idle share); a difference of ids is allowed
+   only at a near-tie, and no plain version may run;
+18. ``yolo``: one full-width ``segment_views`` (FastSAM-x, imgsz 576) of a
    ``SyntheticRoomFeed`` view on the card and, with the same weights, on the
    CPU: ``forward`` within the stated tolerance, the same NMS picks and ids,
    ms per view, and the launches of the NMS loop;
-18. ``stream``: kernels I and J (``csrc/int4_stream.cu``) against their plain
+19. ``stream``: kernels I and J (``csrc/int4_stream.cu``) against their plain
    versions at the int4 tools' shapes (4 weights of 3072 x 16384), every
    ring variant of I and every body of J, each with its work items, blocks
    per SM, dynamic shared memory and share of the bytes bound, then both
@@ -113,7 +129,7 @@ Phases, each printed as it finishes:
    ``bench_int4_unpack``) with the launch counters reset just before and
    read just after, the bytes bound and a bf16 ``torch.matmul`` on the
    dequantized weights as the yardstick;
-19. ``vln``: the VLN second stage at full width — policy parameters with
+20. ``vln``: the VLN second stage at full width — policy parameters with
    Phi-3-mini in bf16 at the default config, the ResNet-50 depth encoder
    (``input_size`` 256) and the TRM waypoint predictor from a
    ``torch.Generator``; ``VLNTrainer.run`` (``cfg.train``: one iteration,
@@ -131,7 +147,7 @@ Phases, each printed as it finishes:
    plain version); then one ``VLNTrainer`` step of a small config on the
    card and on the CPU with the same weights: loss, updated trainable
    tensors, waypoint heatmaps and candidates within the stated tolerances;
-20. ``cli``: the port as a user starts it, at the default ``Dynam3DConfig()``
+21. ``cli``: the port as a user starts it, at the default ``Dynam3DConfig()``
    with random weights, in a temporary working directory:
    ``dynam3d_torch.run.main`` for ``eval`` (8 episodes of at most 3 steps:
    6 ``SyntheticRoomFeed`` rooms and 2 ``FloorplanFeed`` apartments at 336²
@@ -143,7 +159,7 @@ Phases, each printed as it finishes:
    and B); each step's files checked, its wall time and peak memory
    printed, the launch counters reset just before each step and read just
    after (A and B in the soak, C in SS-ETP, no plain version anywhere);
-21. ``convert``: the reference-weights runway at ``parity_run``'s ``full``
+22. ``convert``: the reference-weights runway at ``parity_run``'s ``full``
    config (the soak's: the default with member caps 512 / 128, 32-layer
    Phi-3-mini):
    truth trees on the card from seed 11 (policy, renderer, waypoint
@@ -161,7 +177,7 @@ Phases, each printed as it finishes:
    bytes and seconds of each step, peak memory, and the launch counters
    reset just before each counted step and read just after (A and B in the
    episodes and the soak, C in the render, no plain version);
-22. ``data``: the reference's on-disk data path at the default config
+23. ``data``: the reference's on-disk data path at the default config
    (CLIP-L/14-336, the default fields and renderer), in a temporary
    directory: 2 scenes of 24 frames in each of the four posed-frame layouts
    with their own formats (ScanNet at the 320x240 its halved
@@ -185,7 +201,7 @@ Phases, each printed as it finishes:
    back by ``load_episodes``; ``collect_trajectories`` of 2
    ``FloorplanFeed`` episodes into the port's episode store, replayed by
    ``iterate_store``; each timed;
-23. ``dist``: the parallel layer on two ``gloo`` ranks sharing the card (NCCL
+24. ``dist``: the parallel layer on two ``gloo`` ranks sharing the card (NCCL
    refuses two ranks on one device), each spawned and joined with a time
    limit, printing its wall time, peak memory and launch counters: (1) a
    dp = 2 IL step at the default config (bf16 Phi-3-mini, one 12-view room
@@ -202,9 +218,16 @@ Phases, each printed as it finishes:
    logits' scale), two all-reduces a layer a pass; (5) rank-sharded int4
    ``evaluate`` (2 rooms of 3 steps a rank) merged by
    ``gather_list_and_concat``, equal to one process's over the same 4
-   rooms, kernels A and B on each rank; then the IL step on a one-rank
-   NCCL group;
-24. ``soak``: ``python -m dynam3d_torch.tools.train_soak --scale full
+   rooms, kernels A and B on each rank; (6) ``run.main`` for SS-ETP at
+   ``WORLD_SIZE = 2`` (``train.seed`` 6: a walk of at most 2 steps, then an
+   unposed frames iteration): both ranks draw the same datasets, kernel C
+   on every render of each rank, the trained trees bit-identical after
+   each iteration; (7) ``run.main`` for eval (8 episodes) and inference (4)
+   at ``WORLD_SIZE = 2`` on int4 weights (``init_policy_params`` wrapped to
+   pack Phi-3), A and B on each rank, rank 0's merged ``stats_ckpt.json``
+   and ``_preds.json`` equal to one process's over the same feeds; then
+   the IL step on a one-rank NCCL group;
+25. ``soak``: ``python -m dynam3d_torch.tools.train_soak --scale full
    --il-steps 8 --pretrain-iters 4`` in a temporary work directory: every
    row, finite losses, both resume checks bit-compatible (the IL one in its
    fresh process), kernel C in every pretraining iteration and no plain
@@ -227,8 +250,8 @@ import sys
 import time
 
 PHASES = ("build", "matvec", "ring", "parity", "episode", "nerf", "knn", "render", "pretrain",
-          "walk", "matvec2d", "mlp", "attn", "routes", "batched", "yolo", "stream", "vln",
-          "cli", "convert", "data", "dist", "soak")
+          "walk", "matvec2d", "mlp", "attn", "routes", "batched", "tools", "yolo", "stream",
+          "vln", "cli", "convert", "data", "dist", "soak")
 
 # the dense bf16 tensor-core peak and the float32 peak outside the tensor
 # cores (H100 SXM); memory rates are dynam3d_torch.device.MEM_RATES
@@ -3276,6 +3299,14 @@ def _dist_rank(rank, world, dev, small_rows, workdir):
     # 3. run.main at WORLD_SIZE = 2 (the group above), unequal episodes
     out["cli"] = _dist_cli(torch, dev, rank, workdir)
     dist.barrier()
+    free()
+
+    # 6. run.main's SS-ETP at WORLD_SIZE = 2: a walk, then a frames iteration
+    out["ssetp"] = _dist_ssetp(torch, dev, rank, workdir)
+    free()
+
+    # 7. run.main's eval and inference at WORLD_SIZE = 2 on int4 weights, merged
+    out["cli_eval"] = _dist_cli_eval(torch, dev, rank, workdir)
     return out
 
 
@@ -3488,6 +3519,134 @@ def _dist_cli(torch, dev, rank, workdir):
                 digest=seen["digest"] if rank == 0 else None)
 
 
+SSETP_SEED = 6   # draw_dataset_id(6, it, 3) = 0, 1: the walk, then the unposed frames
+
+
+def _dist_ssetp(torch, dev, rank, workdir):
+    """``run.main`` for SS-ETP at this world size: 2 iterations (a walk of
+    at most 2 steps, then a frames iteration), recording the dataset drawn
+    and the renders of each, the launches, and the trained tree's digest
+    after each iteration."""
+    from dynam3d_torch import run
+    from dynam3d_torch.ops import kernels
+    from dynam3d_torch.runtime import pretrain_loop, trainer_3dff
+
+    draws, renders, digests = [], [], []
+    draw, rv, rvp = (trainer_3dff.draw_dataset_id, trainer_3dff.render_view,
+                     trainer_3dff.render_view_posed)
+    run_iters = pretrain_loop.PretrainRunner.run
+
+    def drawing(*a):
+        draws.append(draw(*a))
+        renders.append(0)
+        return draws[-1]
+
+    def counted(fn):
+        def render(*a, **k):
+            renders[-1] += 1
+            return fn(*a, **k)
+        return render
+
+    def stepwise(self, datasets, iters, logger=None, ckpt_dir=None, log_every=100):
+        hist = []
+        for _ in range(iters):
+            hist += run_iters(self, datasets, 1, logger, ckpt_dir, log_every)
+            digests.append(_digest(torch, {"fields": self.params["fields"],
+                                           "render": self.params["render"]}))
+        return hist
+
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    trainer_3dff.draw_dataset_id = drawing
+    trainer_3dff.render_view, trainer_3dff.render_view_posed = counted(rv), counted(rvp)
+    pretrain_loop.PretrainRunner.run = stepwise
+    try:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        run.main(["--run-type", "train", "--trainer", "SS-ETP", "--exp_name", "pre",
+                  "--ckpt-dir", os.path.join(workdir, "pre_ckpt"), "train.iters=2",
+                  f"train.seed={SSETP_SEED}", "train.pretrain_traj_len=2",
+                  "train.log_every=2"])
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    finally:
+        trainer_3dff.draw_dataset_id = draw
+        trainer_3dff.render_view, trainer_3dff.render_view_posed = rv, rvp
+        pretrain_loop.PretrainRunner.run = run_iters
+        os.chdir(cwd)
+    return dict(wall_s=wall, draws=draws, renders=renders,
+                identical=[_same_on_every_rank(d) for d in digests],
+                launches={k: v for k, v in kernels.launches.items() if v},
+                plain={k: v for k, v in kernels.plain_calls.items() if v},
+                peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+
+
+def _int4_policy(init):
+    """``init_policy_params`` with Phi-3 packed to int4 (the CLI runs dense
+    bf16 Phi-3, as the reference's does; the int4 decode kernels serve
+    evaluation in the eval soak)."""
+    from dynam3d_torch.models.vlm.phi3 import quantize_phi3
+
+    def init_int4(*a, **k):
+        params = init(*a, **k)
+        params["llava"]["phi3"] = quantize_phi3(params["llava"]["phi3"], bits=4, consume=True)
+        return params
+    return init_int4
+
+
+def _dist_cli_eval(torch, dev, rank, workdir):
+    """``run.main`` for eval and inference at this world size on int4
+    weights (8 and 4 episodes of at most 2 steps, sharded by rank, merged
+    by rank 0), then on rank 0 the same two runs as one process
+    (``WORLD_SIZE=1``) over the same feeds; returns the launches of this
+    rank's window and, on rank 0, both sets of files."""
+    import torch.distributed as dist
+
+    from dynam3d_torch import run
+    from dynam3d_torch.models import policy
+    from dynam3d_torch.ops import kernels
+
+    init = policy.init_policy_params
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    policy.init_policy_params = _int4_policy(init)
+    argv = ["train.max_traj_len=2"]
+    try:
+        torch.cuda.synchronize(dev)
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        for kind in ("eval", "inference"):
+            run.main(["--run-type", kind, "--exp_name", "merged"] + argv)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.launches.items() if v}
+        plain = {k: v for k, v in kernels.plain_calls.items() if v}
+        dist.barrier()
+        files = None
+        if rank == 0:
+            env = {k: os.environ[k] for k in ("RANK", "WORLD_SIZE")}
+            os.environ.update(RANK="0", WORLD_SIZE="1")
+            try:
+                for kind in ("eval", "inference"):
+                    run.main(["--run-type", kind, "--exp_name", "one"] + argv)
+            finally:
+                os.environ.update(env)
+            files = {}
+            for name in ("merged", "one"):
+                with open(os.path.join("data", "eval", name, "stats_ckpt.json")) as f:
+                    stats = json.load(f)
+                with open(os.path.join("data", "eval", f"{name}_preds.json")) as f:
+                    files[name] = (stats, json.load(f))
+            files["rank_files"] = sorted(os.listdir(os.path.join("data", "eval", "merged")))
+        dist.barrier()
+    finally:
+        policy.init_policy_params = init
+        os.chdir(cwd)
+    return dict(wall_s=wall, launches=launches, plain=plain, files=files)
+
+
 def _nccl_rank(rank, world, dev):
     """The full-width IL step on a one-rank NCCL group (the NCCL path of
     the gradient average)."""
@@ -3654,12 +3813,146 @@ def phase_dist(ctx):
     log(f"[dist] eval merged {json.dumps(merged)} vs one process, max diff {err:.2e}")
     if sorted(merged) != sorted(one) or err > 1e-6:
         fails.append("eval: merged metrics differ from one process's")
+
+    # 6. SS-ETP through run.main
+    for r, out in enumerate(ranks):
+        p = out["ssetp"]
+        log(f"[dist] rank {r} run.main SS-ETP WORLD_SIZE=2: datasets {p['draws']} renders "
+            f"{p['renders']} wall_s={p['wall_s']:.1f} peak_gib={p['peak_gib']:.2f} launches "
+            f"{json.dumps(p['launches'])} identical after each iteration {p['identical']}")
+        pre_launch = {k: pre_launch.get(k, 0) + v for k, v in p["launches"].items()}
+        if (p["draws"] != [0, 1] or p["draws"] != ranks[0]["ssetp"]["draws"]
+                or not all(p["identical"]) or len(p["identical"]) != 2
+                or not 0 < sum(p["renders"]) <= p["launches"].get("nerf_mlp", 0)
+                or p["plain"]):
+            fails.append(f"run.main SS-ETP rank {r}: {p}")
+
+    # 7. eval and inference through run.main, merged by rank 0
+    for r, out in enumerate(ranks):
+        c = out["cli_eval"]
+        log(f"[dist] rank {r} run.main eval + inference WORLD_SIZE=2 (int4): "
+            f"wall_s={c['wall_s']:.1f} launches {json.dumps(c['launches'])}")
+        eval_launch = {k: eval_launch.get(k, 0) + v for k, v in c["launches"].items()}
+        if not c["launches"].get("int4_matvec") or not c["launches"].get("decode_attn") \
+                or c["plain"]:
+            fails.append(f"run.main eval rank {r}: launches {c['launches']}, plain {c['plain']}")
+    files = ranks[0]["cli_eval"]["files"]
+    (m_stats, m_preds), (o_stats, o_preds) = files["merged"], files["one"]
+    err = max(abs(m_stats[k] - o_stats[k]) for k in o_stats)
+    log(f"[dist] run.main merged stats {json.dumps(m_stats)}, max diff from one process "
+        f"{err:.2e}; preds {sorted(m_preds)} equal {m_preds == o_preds}; rank files "
+        f"{files['rank_files']}")
+    if (sorted(m_stats) != sorted(o_stats) or err > 1e-6 or m_preds != o_preds
+            or list(m_preds) != list(o_preds)
+            or files["rank_files"] != ["stats_ckpt.json", "stats_ep_ckpt_r0_w2.json",
+                                       "stats_ep_ckpt_r1_w2.json"]):
+        fails.append("run.main eval / inference: merged files differ from one process's")
     log(f"[dist] gloo ranks {gloo_s:.1f} s, NCCL rank {nccl_s:.1f} s, the phase "
         f"{time.perf_counter() - t_phase:.1f} s")
     ctx["dist_launches"] = {k: eval_launch.get(k, 0) + pre_launch.get(k, 0)
                             for k in ("int4_matvec", "decode_attn", "nerf_mlp")}
     if fails:
         raise AssertionError("dist: " + "; ".join(str(f) for f in fails))
+
+
+# over the logits' scale: a top-2 margin under TIE_TOL is a near-tie, where
+# two routes may pick different ids; the fused and unfused routes round the
+# bf16 residual stream at other points in each of 32 layers, and their
+# one-step logits may differ by LOGITS_TOL
+TIE_TOL = 0.05
+LOGITS_TOL = 0.10
+
+
+def _tool_window(torch, name, fn, want=(), fails=None):
+    """``fn()`` with the launch counters reset just before and read just
+    after: each kernel of ``want`` must launch, no plain version may run."""
+    from dynam3d_torch.ops import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in kernels.launches.items() if v}
+    plain = {k: v for k, v in kernels.plain_calls.items() if v}
+    log(f"[tools] {name}: {wall:.1f} s, launches {json.dumps(launches)}")
+    missing = [k for k in want if not launches.get(k)]
+    if missing or plain:
+        fails.append(f"{name}: kernels {missing} not launched, plain versions {plain}")
+    return out, launches
+
+
+def phase_tools(ctx):
+    """The profiling and A/B tools at full width on one policy (the default
+    config, int4 Phi-3-mini), each in a counted window: decode parts, the
+    fused routes, speculation at B = 1 and batched, the prefill split and
+    its products, the perceive stages and the B = 1 step's host / device
+    split."""
+    torch = ctx["torch"]
+    from dynam3d_torch.ops import kernels
+    from dynam3d_torch.tools import (
+        ab_fused_decode, ab_spec_batched, ab_spec_decode, bench_int8_prefill, prof_decode_parts,
+        prof_full_step, prof_prefill, profile_perceive,
+    )
+
+    kernels.build_all()
+    cfg, params = _serving_params(ctx)
+    pcfg, phi3 = cfg.llava.phi3, params["llava"]["phi3"]
+    dev = torch.device("cuda")
+    fails, total = [], {}
+
+    def window(name, fn, want=()):
+        out, launches = _tool_window(torch, name, fn, want, fails)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        return out
+
+    A, B, F, G, H = ("int4_matvec", "decode_attn", "int4_mlp", "int4_mlp_block",
+                     "decode_attn_layer")
+    parts = window("prof_decode_parts", lambda: prof_decode_parts.run(
+        phi3, pcfg, dev, iters=10), (A, B, F, G, H))
+    par = parts["parity"]
+    tol, tie = LOGITS_TOL * par["scale"], TIE_TOL * par["scale"]
+    log(f"[tools] decode parts fused vs unfused logits: max abs {par['max_abs']:.4f} "
+        f"(tolerance {tol:.4f}), argmax same {par['argmax_same']}, unfused top-2 margin "
+        f"{par['top1_gap_unfused']:.4f} (a near-tie under {tie:.4f})")
+    if par["max_abs"] > tol or (not par["argmax_same"] and par["top1_gap_unfused"] >= tie):
+        fails.append(f"prof_decode_parts parity {par['max_abs']} > {tol} or argmax differs")
+    for b, want in ((1, (A, B, F, G, H)), (4, (A, B, F))):
+        ab = window(f"ab_fused_decode B={b}", lambda b=b: ab_fused_decode.run(
+            phi3, pcfg, dev, batch=b, tokens=(12, 4), reps=2, tol=TIE_TOL,
+            logits_tol=LOGITS_TOL), want)
+        fails += [f"ab_fused_decode B={b} {name}: {r}" for name, r in ab["parity"].items()
+                  if not r["ok"]]
+    spec = window("ab_spec_decode", lambda: ab_spec_decode.run(
+        phi3, pcfg, dev, tokens=(24, 8), reps=2, tol=TIE_TOL), (A, B))
+    fails += [f"ab_spec_decode n={n}: {r['checks']}" for n, r in spec["runs"].items()
+              if not r["ok"]]
+    bat = window("ab_spec_batched", lambda: ab_spec_batched.run(
+        phi3, pcfg, dev, tokens=(16, 4), reps=2, tol=TIE_TOL), (A, B))
+    fails += [f"ab_spec_batched B={b} n={n}: {r['nolookup_vs_plain']}"
+              for b, rb in bat.items() for n, r in rb["runs"].items() if not r["ok"]]
+    pre = window("prof_prefill", lambda: prof_prefill.run(phi3, pcfg, dev, iters=3), (A,))
+    window("bench_int8_prefill", lambda: bench_int8_prefill.run(dev, iters=10))
+    stages = window("profile_perceive", lambda: profile_perceive.run(params, cfg, dev, reps=3))
+    log("[tools] perceive stages p50 ms: " + ", ".join(
+        f"{k} {v['p50_ms']:.1f}" for k, v in stages.items()))
+    if "attribution" in pre:
+        log(f"[tools] prefill: forward {pre['forward_w8a8']['ms']:.2f} ms, attributed "
+            f"{pre['attribution']['attributed_ms']:.2f}, unattributed "
+            f"{pre['attribution']['unattributed_ms']:.2f}")
+    step = window("prof_full_step", lambda: prof_full_step.run(
+        params, cfg, dev, n1=2, n2=5, reps=2), (A, B))
+    log(f"[tools] B=1 step: {step['step_ms']:.1f} ms a step, device busy "
+        f"{step['device_busy_step_ms'] or float('nan'):.1f} ms, host "
+        f"{step['host_step_ms'] or float('nan'):.1f} ms, idle share "
+        f"{step['idle_share'] if step['idle_share'] is not None else 'not measured'}")
+    if not (step["step_ms"] and step["step_ms"] > 0):
+        fails.append(f"prof_full_step: {step}")
+    ctx["tools_launches"] = total
+    if fails:
+        raise AssertionError("tools: " + "; ".join(fails))
 
 
 def phase_soak(ctx):
@@ -3831,7 +4124,10 @@ def main(argv=None) -> int:
     data = ctx.get("data_launches", {})
     dist_l = ctx.get("dist_launches", {})
     soak_l = ctx.get("soak_launches", {})
+    tools_l = ctx.get("tools_launches", {})
     for rec in kernels_rec:
+        if rec["name"] in tools_l:
+            rec["launches_tools"] = tools_l[rec["name"]]
         if rec["name"] in dist_l:
             rec["launches_dist"] = dist_l[rec["name"]]
         if rec["name"] in soak_l:

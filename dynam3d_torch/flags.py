@@ -36,6 +36,15 @@ def spec_decode() -> bool:
     return _on("DYNAM3D_SPEC_DECODE", "1")
 
 
+def spec_force_accept() -> bool:
+    """Timing only: speculative decode accepts every draft, on the same
+    compute path (a pass without a draft verifies all the same), so a run
+    times full acceptance; the emitted ids are then not greedy.  Read by
+    ``greedy_decode_spec`` and ``greedy_decode_spec_batched`` alone, never
+    on by default (``tools/ab_spec_decode``, ``ab_spec_batched``)."""
+    return _on("DYNAM3D_SPEC_FORCE_ACCEPT")
+
+
 def fused_attn() -> bool:
     """Int4 decode through the fused decode-layer kernels (the ring, or the
     split attention + MLP-block pair at B=1); off runs the unfused

@@ -521,7 +521,9 @@ def greedy_decode_spec(params: Params, cfg: Phi3Config, embeds: torch.Tensor,
     Greedy-exact: a draft token is accepted only when the pass's own argmax
     at the previous position equals it, so the ids equal
     :func:`greedy_decode`'s.  A pass without a draft runs a plain one-token
-    step.  ``stats`` (if given) receives ``tokens`` and ``passes``."""
+    step.  ``stats`` (if given) receives ``tokens`` and ``passes``.  Under
+    ``flags.spec_force_accept()`` every pass verifies and accepts all ``k``
+    rows (timing only)."""
     B, T, D = embeds.shape
     if B != 1:
         raise ValueError("speculative decode is a B=1 serving path")
@@ -552,6 +554,7 @@ def greedy_decode_spec(params: Params, cfg: Phi3Config, embeds: torch.Tensor,
     t_iota = torch.arange(total, device=dev)
     kk = torch.arange(k, device=dev)
     n_em, last, prev, prev2, npass = 1, next_tok, -1, -1, 0
+    force = flags.spec_force_accept()
     while n_em < max_new_tokens and not done:
         b3 = S + n_em - 4
         prev3 = int(hist[b3]) if b3 >= 0 else -1
@@ -559,7 +562,7 @@ def greedy_decode_spec(params: Params, cfg: Phi3Config, embeds: torch.Tensor,
         d = np.concatenate([[last], drf])
         pos0 = n_pos0 + n_em - 1
         wslot = T + n_em - 1
-        if (drf >= 0).any():
+        if force or (drf >= 0).any():
             e = embed(params, torch.as_tensor(np.clip(d, 0, None), device=dev))[None]
             e = e.to(embeds.dtype)
             if fused:
@@ -579,7 +582,7 @@ def greedy_decode_spec(params: Params, cfg: Phi3Config, embeds: torch.Tensor,
                 m1 = (valid | (t_iota == wslot)[None])[:, None, :]
                 lg, cache = decode_forward(params, cfg, e1, pos, cache, wslot, m1)
             a = [int(lg[0].argmax(-1)[0])] + [-2] * (k - 1)
-        acc = 1
+        acc = k if force else 1
         while acc < k and d[acc] == a[acc - 1]:
             acc += 1
         stop_pos = next((j for j in range(acc) if a[j] == stop), k)
@@ -659,7 +662,8 @@ def greedy_decode_spec_batched(params: Params, cfg: Phi3Config, embeds: torch.Te
     each row's ids equal :func:`greedy_decode`'s; rows accept independently
     and finished rows coast.  ``lookup_ids [B, S]`` (-1 never matches) seed
     the drafts.  ``stats`` (if given) receives ``tokens`` (per row) and
-    ``passes``."""
+    ``passes``.  Under ``flags.spec_force_accept()`` every row accepts all
+    ``g`` rows of each pass (timing only)."""
     B, T, D = embeds.shape
     if B < 2:
         raise ValueError("use greedy_decode_spec at B == 1")
@@ -702,7 +706,10 @@ def greedy_decode_spec_batched(params: Params, cfg: Phi3Config, embeds: torch.Te
             params, cfg, e, torch.as_tensor(n_pos0 + n_em - 1, device=dev), cache,
             torch.as_tensor(wslot, device=dev), valid, fused)
         a = lg.argmax(-1).cpu().numpy().astype(np.int64)            # [B, g]
-        match = (d[:, 1:] == a[:, :-1]).astype(np.int64)
+        if flags.spec_force_accept():
+            match = np.ones((B, g - 1), np.int64)
+        else:
+            match = (d[:, 1:] == a[:, :-1]).astype(np.int64)
         acc = 1 + np.cumprod(match, axis=1).sum(axis=1)
         stop_pos = np.where((a == stop) & (gg[None] < acc[:, None]), gg[None], g).min(axis=1)
         acc = np.minimum(np.minimum(acc, stop_pos + 1), max_new_tokens - n_em)

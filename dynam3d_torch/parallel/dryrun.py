@@ -1,5 +1,7 @@
 """The multi-process dry run: five checks of the parallel layer on ``n``
 ranks at a tiny config; port of ``__graft_entry__.py:111 dryrun_multichip``.
+Beside it :func:`entry`, the single-card compile check
+(``__graft_entry__.py:15-60``).
 
     python -m dynam3d_torch.parallel.dryrun 4 [--cpu]
 
@@ -189,6 +191,50 @@ def _rank_checks(rank: int, world: int, dev: torch.device) -> List[str]:
     lines.append(_pretrain(mesh, dev))
     lines.append(_eval_aggregation(mesh))
     return lines
+
+
+def compile_check_config():
+    """Real feature widths at a reduced depth (``__graft_entry__.py:15-38``):
+    8192 / 512 / 256 table slots, 4 CLIP vision layers, 4 Phi-3 layers,
+    YOLOv8-seg at FastSAM-x widths and imgsz 576 at a third of its depth."""
+    from dynam3d_torch.config import (
+        CLIPConfig, Dynam3DConfig, FieldsConfig, LLaVAConfig, Phi3Config, SegmenterConfig,
+    )
+
+    return Dynam3DConfig(
+        fields=FieldsConfig(patch_capacity=8192, instance_capacity=512, zone_capacity=256,
+                            max_segments=32, max_members=256, max_zone_members=64),
+        clip=CLIPConfig(vision_layers=4, text_layers=2),
+        llava=LLaVAConfig(phi3=Phi3Config(num_layers=4), max_new_tokens=20),
+        segmenter=SegmenterConfig(depth_mult=0.34),
+    )
+
+
+def entry(cfg=None, device: DeviceLike = None):
+    """``(fn, args)``: the perceive step of the VLN policy
+    (``fn(*args) -> (mm_tokens, mm_valid)``) at :func:`compile_check_config`
+    (or ``cfg``) on the card, or on ``device``; weights from seed 0, one
+    view of ``cfg.clip.image_size``² RGB and 256² depth from numpy seed 0."""
+    from dynam3d_torch.models import policy
+
+    dev = resolve_device(device)
+    cfg = cfg or compile_check_config()
+    params = policy.init_policy_params(0, cfg, device=dev)
+    state = policy.batched_init_state(cfg, 1, dev)
+    rng = np.random.default_rng(0)
+    size = cfg.clip.image_size
+    rgb = torch.as_tensor(rng.integers(0, 255, (1, 1, size, size, 3), dtype=np.uint8),
+                          device=dev)
+    depth = torch.as_tensor(rng.uniform(0.05, 0.95, (1, 1, 256, 256)).astype(np.float32),
+                            device=dev)
+    pos = torch.tensor([[1.0, 1.25, 2.0]], device=dev)
+    hd = torch.zeros(1, device=dev)
+
+    def fn(params, state, rgb, depth, pos, hd):
+        out = policy.perceive(params, cfg, state, rgb, depth, pos, hd)
+        return out.mm_tokens, out.mm_valid
+
+    return fn, (params, state, rgb, depth, pos, hd)
 
 
 def dryrun_multichip(n: int, device: DeviceLike = None, timeout: float = 900.0) -> List[str]:

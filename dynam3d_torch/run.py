@@ -13,17 +13,20 @@ eval writes ``data/eval/{exp_name}/``, inference
 ``data/eval/{exp_name}_preds.json``, training its checkpoints under
 ``train.ckpt_dir`` (all relative to the working directory).  The rank and
 world size come from torchrun's ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK``
-(``scripts/*.sh`` launch it so): eval and inference shard the episodes by
-rank, each rank on its own.  ``Dynam3D`` training at a world size above
-one trains data-parallel: the process group is initialized (``nccl`` on
-the card, ``gloo`` with ``device="cpu"``; one already initialized by the
-caller is used as it is) and every rank trains from the same seed's
-weights, its gradients averaged with the others' (``VLNTrainer``'s
-lockstep).  ``SS-ETP`` training at a world size above one raises: its
-dispatcher draws a dataset per rank, so a walk rank and a frames rank
-would issue different collectives.  The run goes on the card, rank ``r``
-on ``cuda:{LOCAL_RANK}``; ``main(..., device="cpu")`` runs the plain
-versions on the CPU.
+(``scripts/*.sh`` launch it so).  At a world size above one every run type
+joins the process group (``nccl`` on the card, ``gloo`` with
+``device="cpu"``; one already initialized by the caller is used as it
+is).  Eval and inference shard the episodes by rank and merge them: rank 0
+writes the stats over all episodes and one file of every path.
+``Dynam3D`` training trains data-parallel, every rank from the same
+seed's weights, its gradients averaged with the others'
+(``VLNTrainer``'s lockstep).  ``SS-ETP`` training draws each iteration's
+dataset from the seed every rank shares, and its scenes, views and walks
+from the rank's own: a frames iteration averages the ranks' gradients in
+the step, a walk its episode's accumulated gradient before the update.
+Rank 0 alone writes checkpoints and metrics logs.  The run goes on the
+card, rank ``r`` on ``cuda:{LOCAL_RANK}``; ``main(..., device="cpu")``
+runs the plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -105,18 +108,13 @@ def main(argv=None, device: DeviceLike = None) -> None:
 
     rank = int(os.environ.get("RANK", "0"))
     world = int(os.environ.get("WORLD_SIZE", "1"))
-    dp_train = args.run_type == "train" and world > 1
-    if dp_train and args.trainer != "Dynam3D":
-        raise NotImplementedError(
-            f"{args.trainer} training at WORLD_SIZE={world}: multi-process pretraining is not "
-            "ported (ROADMAP Queue 1, item 9)")
     import torch.distributed as dist
 
-    own_group = dp_train and not dist.is_initialized()
+    own_group = world > 1 and not dist.is_initialized()
     if own_group:
         dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
     try:
-        _run(args, cfg, dev, rank, world, dist.group.WORLD if dp_train else None)
+        _run(args, cfg, dev, rank, world, dist.group.WORLD if world > 1 else None)
     finally:
         if own_group:
             dist.destroy_process_group()
@@ -133,8 +131,12 @@ def _run(args, cfg, dev: torch.device, rank: int, world: int, dp) -> None:
 
     ckpt_dir = args.ckpt_dir or cfg.train.ckpt_dir
 
+    # eval and inference episodes: the same list on every rank (each runs
+    # its shard), drawn from the seed the ranks share
+    episodes = random.Random(args.seed or cfg.train.seed)
+
     def feed_factory():
-        return SyntheticRoomFeed(seed=random.randint(0, 1 << 30))
+        return SyntheticRoomFeed(seed=episodes.randint(0, 1 << 30))
 
     def train_feed_factory():
         # 12-view depth panorama at the depth encoder's input size for the
@@ -159,14 +161,14 @@ def _run(args, cfg, dev: torch.device, rank: int, world: int, dp) -> None:
             feeds = [feed_factory() for _ in range(6)] + [FloorplanFeed(seed=s) for s in (1, 2)]
             gt = [np.zeros((2, 3), np.float32) for _ in feeds]
             agg = evaluate(params, cfg, feeds, gt, rank=rank, world=world,
-                           out_dir=f"data/eval/{args.exp_name}", device=dev)
+                           out_dir=f"data/eval/{args.exp_name}", device=dev, dp=dp)
             logger.info("eval: %s", json.dumps(agg))
         else:
             feeds = [feed_factory() for _ in range(4)]
             out_path = f"data/eval/{args.exp_name}_preds.json"
             os.makedirs(os.path.dirname(out_path), exist_ok=True)
             inference(params, cfg, feeds, [str(i) for i in range(len(feeds))],
-                      out_path=out_path, rank=rank, world=world, device=dev)
+                      out_path=out_path, rank=rank, world=world, device=dev, dp=dp)
     else:  # SS-ETP pretraining: one walk corpus and two posed-frame corpora
         from dynam3d_torch.models.encoders.clip import init_clip_params
         from dynam3d_torch.models.encoders.depth_resnet import feature_dim, init_depth_params
@@ -187,7 +189,11 @@ def _run(args, cfg, dev: torch.device, rank: int, world: int, dp) -> None:
             "waypoint": init_waypoint_params(gen, cfg.waypoint,
                                              depth_feat_dim=feature_dim(cfg.depth), device=dev),
         }
-        runner = PretrainRunner(pre_params, cfg, seed=cfg.train.seed + rank, device=dev)
+        # the dataset draw is shared by every rank (a walk rank and a frames
+        # rank would issue different collectives); the scene and view draws
+        # and each rank's frames datasets are the rank's own
+        runner = PretrainRunner(pre_params, cfg, seed=cfg.train.seed + rank, device=dev, dp=dp,
+                                draw_seed=cfg.train.seed)
         walk_feed = SyntheticRoomFeed(views=12, depth_size=cfg.depth.input_size,
                                       seed=random.randint(0, 1 << 30))
         datasets = [
@@ -199,15 +205,17 @@ def _run(args, cfg, dev: torch.device, rank: int, world: int, dp) -> None:
                 waypoint_aug=cfg.train.waypoint_aug,
                 teacher_prob=cfg.train.sample_ratio * 0.5,
             ),
-            SyntheticFramesDataset(seed=cfg.train.seed),
-            SyntheticFramesDataset(seed=cfg.train.seed + 1, posed=True),
+            SyntheticFramesDataset(seed=cfg.train.seed + 2 * rank),
+            SyntheticFramesDataset(seed=cfg.train.seed + 1 + 2 * rank, posed=True),
         ]
-        mlogger = MetricsLogger(f"data/logs/{args.exp_name}")
+        # rank 0 alone logs and saves (the ranks' trees are identical)
+        mlogger = MetricsLogger(f"data/logs/{args.exp_name}") if rank == 0 else None
         try:
-            runner.run(datasets, iters=cfg.train.iters, logger=mlogger, ckpt_dir=ckpt_dir,
-                       log_every=cfg.train.log_every)
+            runner.run(datasets, iters=cfg.train.iters, logger=mlogger,
+                       ckpt_dir=ckpt_dir if rank == 0 else None, log_every=cfg.train.log_every)
         finally:
-            mlogger.close()
+            if mlogger is not None:
+                mlogger.close()
 
 
 if __name__ == "__main__":

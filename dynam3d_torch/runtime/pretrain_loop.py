@@ -254,7 +254,7 @@ class WalkDriver:
 
         t4 = runner._sync()
         new_tr, runner._tr_opt = trainer_3dff.apply_accumulated_grads(
-            runner.opt, trainable, runner._tr_opt, grad_sum, len(per_step))
+            runner.opt, trainable, runner._tr_opt, grad_sum, len(per_step), dp=runner.dp)
         runner.params["fields"] = new_tr["fields"]
         runner.params["render"] = new_tr["render"]
         t5 = runner._sync()
@@ -287,9 +287,18 @@ class PretrainRunner:
     iteration; for a walk the episode's ``walk_s``, its sums over steps
     ``heatmap_s`` (heatmap and candidates), ``views_s`` (novel views and
     their CLIP targets) and ``grad_s`` (the step's loss and gradients),
-    the final ``update_s``, and ``walk_steps``."""
+    the final ``update_s``, and ``walk_steps``.
 
-    def __init__(self, params, cfg: Dynam3DConfig, seed: int = 0, device: DeviceLike = None):
+    ``seed`` draws the synthetic supervision of a batch (``seed + it``);
+    ``draw_seed`` (default ``seed``) each iteration's dataset.  ``dp``: a
+    data-parallel group whose ranks share ``draw_seed``, so they draw the
+    same dataset each iteration; a frames iteration then averages the
+    ranks' gradients in its step, a walk its episode's mean gradient
+    before the update (no collective runs inside a walk step, so walks of
+    different lengths keep the lockstep)."""
+
+    def __init__(self, params, cfg: Dynam3DConfig, seed: int = 0, device: DeviceLike = None,
+                 dp=None, draw_seed: Optional[int] = None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -297,12 +306,15 @@ class PretrainRunner:
         self._steps = {}
         self._walk_grad = trainer_3dff.make_walk_grad_step(cfg)
         self.seed = seed
+        self.draw_seed = seed if draw_seed is None else draw_seed
+        self.dp = dp
         self.it = 0
         self.timings: List[Dict[str, float]] = []
 
     def _get_step(self, posed: bool):
         if posed not in self._steps:
-            self._steps[posed] = trainer_3dff.make_pretrain_step(self.cfg, self.opt, posed=posed)
+            self._steps[posed] = trainer_3dff.make_pretrain_step(self.cfg, self.opt, posed=posed,
+                                                                 dp=self.dp)
         return self._steps[posed]
 
     def _ensure_opt(self, trainable):
@@ -453,7 +465,7 @@ class PretrainRunner:
         ``ckpt_dir/ckpt.iter{it}``."""
         history = []
         for _ in range(iters):
-            ds = datasets[trainer_3dff.draw_dataset_id(self.seed, self.it, len(datasets))]
+            ds = datasets[trainer_3dff.draw_dataset_id(self.draw_seed, self.it, len(datasets))]
             if hasattr(ds, "run_iteration"):
                 m = ds.run_iteration(self)
             else:

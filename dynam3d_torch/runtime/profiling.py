@@ -22,20 +22,26 @@ from dynam3d_torch.utils.tree import tree_leaves
 
 
 @contextlib.contextmanager
-def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
+def trace(log_dir: Optional[str], activities=None) -> Iterator[torch.profiler.profile]:
     """Profile the region and write ``trace_{pid}_{ms}.json`` (Chrome
-    format) into ``log_dir``; yields the profiler, whose
-    ``key_averages()`` sum the region by operator and kernel."""
-    os.makedirs(log_dir, exist_ok=True)
-    prof = torch.profiler.profile(activities=sorted(torch.profiler.supported_activities(),
-                                                    key=lambda a: a.value))
+    format) into ``log_dir`` (none with ``log_dir=None``); yields the
+    profiler, whose ``key_averages()`` sum the region by operator and
+    kernel.  ``activities``: what to record, by default every activity the
+    build supports (``[ProfilerActivity.CUDA]`` records the card's kernels
+    alone, at a fraction of the host overhead)."""
+    if log_dir is not None:
+        os.makedirs(log_dir, exist_ok=True)
+    if activities is None:
+        activities = sorted(torch.profiler.supported_activities(), key=lambda a: a.value)
+    prof = torch.profiler.profile(activities=activities)
     prof.start()
     try:
         yield prof
     finally:
         prof.stop()
-        prof.export_chrome_trace(os.path.join(
-            log_dir, f"trace_{os.getpid()}_{int(time.time() * 1000)}.json"))
+        if log_dir is not None:
+            prof.export_chrome_trace(os.path.join(
+                log_dir, f"trace_{os.getpid()}_{int(time.time() * 1000)}.json"))
 
 
 def sync(tree) -> None:

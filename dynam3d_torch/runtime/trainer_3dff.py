@@ -353,12 +353,15 @@ def make_walk_grad_step(cfg: Dynam3DConfig):
 
 @torch.no_grad()
 def apply_accumulated_grads(optimizer: PretrainOptimizer, trainable, opt_state, grad_sum,
-                            n_steps: int):
-    """The episode's update: the summed gradients over ``n_steps``, NaN
-    elements read as zero (a NaN at any step zeroes that element for the
-    episode), then one optimizer step.  Returns ``(new_trainable,
-    new_opt_state)``."""
+                            n_steps: int, dp=None):
+    """The episode's update: the summed gradients over ``n_steps``, averaged
+    over the ``dp`` group when there is one (each rank's episode mean
+    weighs the same), NaN elements read as zero (a NaN at any step zeroes
+    that element for the episode, on every rank), then one optimizer step.
+    Returns ``(new_trainable, new_opt_state)``."""
     grads = [g / max(n_steps, 1) for g in tree_leaves(grad_sum)]
+    if dp is not None:
+        dp_mean_(grads, grads[0].new_zeros(()), 1.0, dp)
     grads = [torch.where(torch.isnan(g), torch.zeros_like(g), g) for g in grads]
     updates, new_opt = optimizer.update(grads, opt_state, trainable)
     new_tr = tree_unflatten(trainable, [p.detach() + u for p, u in

@@ -8,7 +8,7 @@ from the frozen waypoint predictor over the 12-view depth panorama when the
 feed gives one, else from a geometric fan of 12 headings x 3 ranges.  The
 feeds rebuild every ``recycle_every`` episodes.  Eval and inference run
 ``EpisodeRunner`` episodes sharded over ranks and write the stats and path
-files.
+files, merged over the ranks of a process group.
 """
 
 from __future__ import annotations
@@ -299,14 +299,30 @@ class VLNTrainer:
         return ckpt_mod.checkpoint_step(path)
 
 
+def _gather_by_index(items: Dict[int, object], dp) -> List[tuple]:
+    """``(index, value)`` pairs of every rank of ``dp`` (this rank's alone
+    when ``dp`` is None), in index order, on every rank."""
+    mine = sorted(items.items())
+    if dp is None:
+        return mine
+    import torch.distributed as dist
+
+    parts = [None] * dist.get_world_size(dp)
+    dist.all_gather_object(parts, mine, group=dp)
+    return sorted(pair for part in parts for pair in part)
+
+
 def evaluate(params, cfg: Dynam3DConfig, feeds: Sequence[Feed], gt_paths: Sequence[np.ndarray],
              tokenizer=None, out_dir: Optional[str] = None, ckpt_name: str = "ckpt",
              rank: int = 0, world: int = 1, fast_eval: bool = False, ignore_stop: bool = False,
-             device: DeviceLike = None) -> Dict[str, float]:
+             device: DeviceLike = None, dp=None) -> Dict[str, float]:
     """Evaluation: this rank's episodes (``feeds[rank::world]``, every
-    ``fast_eval_stride``-th with ``fast_eval``), per-episode metrics and
-    their mean, written to ``stats_ep_{ckpt}_r{rank}_w{world}.json`` and
-    ``stats_{ckpt}.json`` under ``out_dir``.  ``ignore_stop`` goes to
+    ``fast_eval_stride``-th with ``fast_eval``), per-episode metrics
+    written to ``stats_ep_{ckpt}_r{rank}_w{world}.json`` under ``out_dir``,
+    and their mean to ``stats_{ckpt}.json``.  With a process group ``dp``
+    the ranks' per-episode metrics are gathered: every rank returns the
+    mean over all episodes (the reference's weighted merge) and only rank
+    0 writes ``stats_{ckpt}.json``.  ``ignore_stop`` goes to
     ``EpisodeRunner.run``."""
     idxs = metrics_mod.shard_episodes(range(len(feeds)), rank, world)
     if fast_eval:
@@ -321,33 +337,37 @@ def evaluate(params, cfg: Dynam3DConfig, feeds: Sequence[Feed], gt_paths: Sequen
             pred_path, dists, gt_paths[i], res["steps"],
             collisions=int(res.get("collisions", 0)),
             success_distance=cfg.eval.success_distance)
-    agg = metrics_mod.aggregate(list(stat_eps.values()))
+    merged = _gather_by_index({int(i): m for i, m in stat_eps.items()}, dp)
+    agg = metrics_mod.aggregate([m for _, m in merged])
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, f"stats_ep_{ckpt_name}_r{rank}_w{world}.json"), "w") as f:
             json.dump(stat_eps, f, indent=2)
-        with open(os.path.join(out_dir, f"stats_{ckpt_name}.json"), "w") as f:
-            json.dump(agg, f, indent=2)
+        if dp is None or rank == 0:
+            with open(os.path.join(out_dir, f"stats_{ckpt_name}.json"), "w") as f:
+                json.dump(agg, f, indent=2)
     return agg
 
 
 def inference(params, cfg: Dynam3DConfig, feeds: Sequence[Feed], episode_ids: Sequence[str],
               tokenizer=None, out_path: Optional[str] = None, rank: int = 0, world: int = 1,
-              fmt: str = "r2r", device: DeviceLike = None) -> Dict[str, list]:
+              fmt: str = "r2r", device: DeviceLike = None, dp=None) -> Dict[str, list]:
     """Inference: each episode's path with consecutive duplicates
     dropped, at most ``max_infer_positions`` poses.  ``fmt="r2r"`` writes
     one JSON dict of paths; ``fmt="rxr"`` JSON lines ``{"instruction_id",
-    "path": [[x, y, z], ...]}``."""
+    "path": [[x, y, z], ...]}``.  With a process group ``dp`` the ranks'
+    paths are gathered: every rank returns all of them and only rank 0
+    writes ``out_path``, in episode order."""
     idxs = metrics_mod.shard_episodes(range(len(feeds)), rank, world)
     runner = EpisodeRunner(params, cfg, tokenizer, device=device)
-    paths: Dict[str, list] = {}
+    mine: Dict[int, list] = {}
     for i in idxs:
         res = runner.run([feeds[i]], max_steps=cfg.train.max_traj_len)[0]
         pos = res.get("position", [[0.0, 0.0, 0.0]])
         hds = res.get("heading", [0.0] * len(pos))
-        paths[str(episode_ids[i])] = metrics_mod.dedup_path(pos, hds,
-                                                            cfg.eval.max_infer_positions)
-    if out_path:
+        mine[i] = metrics_mod.dedup_path(pos, hds, cfg.eval.max_infer_positions)
+    paths = {str(episode_ids[i]): path for i, path in _gather_by_index(mine, dp)}
+    if out_path and (dp is None or rank == 0):
         with open(out_path, "w") as f:
             if fmt == "rxr":
                 for ep_id, path in paths.items():

@@ -1,6 +1,7 @@
 #!/usr/bin/env bash
 # VLN evaluation (scripts/main.bash eval equivalent) on NPROC ranks of this
-# host, one card each; the episodes are sharded by rank.
+# host, one card each; the episodes are sharded by rank and rank 0 writes
+# the stats merged over all of them.
 set -euo pipefail
 EXP=${1:-vln_exp}
 shift || true

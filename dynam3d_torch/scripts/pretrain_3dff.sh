@@ -1,7 +1,7 @@
 #!/usr/bin/env bash
-# 3DFF pretraining (run_3dff/3dff.bash equivalent).  One rank: the port
-# refuses SS-ETP training at NPROC > 1 (its dispatcher draws a dataset per
-# rank; ROADMAP Queue 1, item 9).
+# 3DFF pretraining (run_3dff/3dff.bash equivalent) on NPROC ranks of this
+# host, one card each, data-parallel: every rank draws the same dataset each
+# iteration and its own scenes and walks; rank 0 saves and logs.
 set -euo pipefail
 EXP=${1:-3dff_exp}
 shift || true

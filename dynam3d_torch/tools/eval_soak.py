@@ -23,16 +23,28 @@ import argparse
 import json
 import os
 import time
+from typing import Optional
 
 import numpy as np
 
 from dynam3d_torch.device import DeviceLike, resolve_device
 
 
-def soak_config(scale: str):
+def soak_config(scale: str, llm_layers: Optional[int] = None):
     """``full``: the default config with the memory's member caps at 512 /
-    128 (the reference benchmark's full-scale config); ``tiny``: the
-    reference's tiny slice config."""
+    128 (the reference benchmark's full-scale config), 32-layer Phi-3-mini;
+    ``tiny``: the reference's tiny slice config (2 Phi-3 layers).
+    ``llm_layers`` sets Phi-3's depth in place of the scale's."""
+    import dataclasses
+
+    cfg = _scale_config(scale)
+    if llm_layers is None:
+        return cfg
+    phi3 = dataclasses.replace(cfg.llava.phi3, num_layers=llm_layers)
+    return dataclasses.replace(cfg, llava=dataclasses.replace(cfg.llava, phi3=phi3))
+
+
+def _scale_config(scale: str):
     from dynam3d_torch.config import (
         CLIPConfig, Dynam3DConfig, FieldsConfig, LLaVAConfig, Phi3Config, SegmenterConfig,
     )
@@ -86,6 +98,8 @@ def main(argv=None, device: DeviceLike = None) -> dict:
     p.add_argument("--out", required=True)
     p.add_argument("--episodes", type=int, default=20)
     p.add_argument("--scale", default="full", choices=("full", "tiny"))
+    p.add_argument("--llm-layers", type=int, default=None,
+                   help="Phi-3 depth (default: the scale's, 32 at full, 2 at tiny)")
     p.add_argument("--quant-bits", type=int, default=4, choices=(0, 4, 8))
     p.add_argument("--converted", default=None,
                    help="a converted checkpoint (convert_reference_ckpt, parity_run "
@@ -100,7 +114,7 @@ def main(argv=None, device: DeviceLike = None) -> dict:
     from dynam3d_torch.models import policy as policy_mod
     from dynam3d_torch.runtime import vln_loop
 
-    cfg = soak_config(args.scale)
+    cfg = soak_config(args.scale, args.llm_layers)
     if args.converted:
         from dynam3d_torch.runtime.checkpoint import load_to_device
 

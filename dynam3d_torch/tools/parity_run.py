@@ -15,7 +15,8 @@ converter's ``torch.load``.  ``--save-converted DIR`` writes the converted
 tree, ``--converted CKPT`` runs from one such file (or one from
 ``convert_reference_ckpt``) instead of converting, ``--no-episode`` stops
 after the conversion.  The configs are the eval soak's
-(``eval_soak.soak_config``: ``full`` and ``tiny``).  Phi-3 is quantized by ``quantize_phi3(bits=
+(``eval_soak.soak_config``: ``full`` and ``tiny``, Phi-3's depth set by
+``--llm-layers``).  Phi-3 is quantized by ``quantize_phi3(bits=
 --quant-bits)`` (0 keeps it dense) before the episode, which runs on the
 card (``main(argv, device="cpu")`` on the host).
 
@@ -259,6 +260,8 @@ def main(argv=None, device: DeviceLike = None) -> dict:
                    help="run from a saved converted checkpoint instead of converting")
     p.add_argument("--no-episode", action="store_true", help="stop after the conversion")
     p.add_argument("--scale", default="full", choices=("full", "tiny"))
+    p.add_argument("--llm-layers", type=int, default=None,
+                   help="Phi-3 depth (default: the scale's, 32 at full, 2 at tiny)")
     p.add_argument("--steps", type=int, default=16)
     p.add_argument("--quant-bits", type=int, default=4, choices=(0, 4, 8))
     p.add_argument("--dump-logits", action="store_true")
@@ -266,7 +269,7 @@ def main(argv=None, device: DeviceLike = None) -> dict:
     dev = resolve_device(device)
 
     os.makedirs(args.out, exist_ok=True)
-    cfg = soak_config(args.scale)
+    cfg = soak_config(args.scale, args.llm_layers)
     report = {"device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
               "scale": args.scale}
     if args.converted:

@@ -16,7 +16,11 @@ first writes the ``meta`` row of each):
   midpoint, and the loss of a fixed probe batch written beside it.  A
   fresh process (``--il-resume-check``) builds the policy from the same
   seed, loads the checkpoint into its trainable tensors and computes the
-  probe's loss: ``bit_compatible`` when it equals the saved one exactly.
+  probe's loss at the trainer's ``splice_start`` (saved beside it):
+  ``bit_compatible`` when it equals the saved one exactly.  When that
+  process fails, the row says ``"bit_compatible": false`` with the error,
+  and the soak returns the child's exit code (the reference tool logs the
+  error and returns 0).
 * pretrain: 3DFF iterations over posed synthetic frames
   (ss_trainer_3DFF.py:504-519), a checkpoint of ``fields`` / ``render`` at
   the midpoint, then a fresh runner from that checkpoint reproduces the
@@ -137,7 +141,8 @@ def il_soak(args, dev, out):
             np.savez(os.path.join(args.workdir, "il_probe.npz"),
                      **{k: v.cpu().numpy() for k, v in batch._asdict().items()})
             with open(os.path.join(args.workdir, "il_probe.json"), "w") as f:
-                json.dump({"loss_before": probe["loss_before"], "saved_at": probe["saved_at"]}, f)
+                json.dump({"loss_before": probe["loss_before"], "saved_at": probe["saved_at"],
+                           "splice_start": trainer.splice_start}, f)
         # land an episode boundary on the midpoint, so the save above runs
         end = mid if "loss_before" not in probe else args.il_steps
         trainer.train_episode(max_steps=min(end - len(rows), cfg.train.max_traj_len))
@@ -150,7 +155,8 @@ def il_soak(args, dev, out):
     rc = subprocess.call([sys.executable, "-m", "dynam3d_torch.tools.train_soak",
                           *_child_args(args), "--il-resume-check"])
     if rc:
-        _emit(out, {"phase": "il_resume_check", "error": f"child rc={rc}"})
+        _emit(out, {"phase": "il_resume_check", "bit_compatible": False,
+                    "error": f"child rc={rc}"})
 
     losses = [r["loss"] for r in rows if np.isfinite(r["loss"])]
     k = max(len(losses) // 4, 1)
@@ -165,6 +171,7 @@ def il_soak(args, dev, out):
             [r["step_s"] for r in rows if not r["compile"]] or [0.0])), 3),
         "lr": args.lr,
     })
+    return rc
 
 
 def _probe_batch(trainer):
@@ -190,7 +197,6 @@ def il_resume_check(args, dev):
     the midpoint checkpoint loaded into its trainable tensors, the probe's
     loss."""
     from dynam3d_torch.models import policy as policy_mod
-    from dynam3d_torch.models.vlm.tokenizer import ByteTokenizer, build_prompt
     from dynam3d_torch.runtime import checkpoint as ckpt_mod
     from dynam3d_torch.runtime import trainer_vln
     from dynam3d_torch.utils.tree import tree_leaves
@@ -201,8 +207,7 @@ def il_resume_check(args, dev):
     d = np.load(os.path.join(args.workdir, "il_probe.npz"))
     batch = trainer_vln.TrainBatch(**{k: torch.from_numpy(d[k]).to(dev)
                                       for k in trainer_vln.TrainBatch._fields})
-    tok = ByteTokenizer(cfg.llava.phi3.vocab_size)
-    splice = tok.encode(build_prompt("x", ["none\n"] * 4, 1)).index(tok.image_id)
+    splice = meta["splice_start"]
 
     trainable, frozen = trainer_vln.split_params(policy_mod.init_policy_params(0, cfg, device=dev))
     path = ckpt_mod.newest_checkpoint(os.path.join(args.workdir, "il_ckpt"))
@@ -335,6 +340,7 @@ def main(argv=None, device: DeviceLike = None) -> int:
         rc2 = subprocess.call(base + ["--skip-pretrain"])
         return rc1 or rc2
 
+    rc = 0
     with open(args.out, "a") as out:
         _emit(out, {
             "phase": "meta", "backend": dev.type, "scale": args.scale,
@@ -344,8 +350,8 @@ def main(argv=None, device: DeviceLike = None) -> int:
         if not args.skip_pretrain:
             pretrain_soak(args, dev, out)
         if not args.skip_il:
-            il_soak(args, dev, out)
-    return 0
+            rc = il_soak(args, dev, out)
+    return rc
 
 
 if __name__ == "__main__":

@@ -40,7 +40,11 @@ def test_port_imports_no_jax_in_a_fresh_process():
               "runtime.dagger", "runtime.episode_store", "utils.graph", "utils.follower",
               "utils.misc", "utils.obs_transforms", "utils.visual", "tools.discrete_to_ce",
               "tools.check_tokenizer", "parallel", "parallel.mesh", "parallel.comm",
-              "parallel.spawn", "parallel.dryrun", "tools.train_soak"):
+              "parallel.spawn", "parallel.dryrun", "tools.train_soak", "tools.card",
+              "tools.spec_acceptance", "tools.copycheck", "tools.prof_decode_parts",
+              "tools.ab_fused_decode", "tools.ab_spec_decode", "tools.ab_spec_batched",
+              "tools.prof_prefill", "tools.bench_int8_prefill", "tools.profile_perceive",
+              "tools.prof_full_step"):
         assert f"dynam3d_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -235,7 +239,8 @@ def test_decode_gates_are_read_at_call_time(monkeypatch):
              "DYNAM3D_FUSED_ATTN": (flags.fused_attn, True),
              "DYNAM3D_FUSED_RING": (flags.fused_ring, True),
              "DYNAM3D_INT4_FUSED_MLP": (flags.int4_fused_mlp, True),
-             "DYNAM3D_INT4_GRID2D": (flags.int4_grid2d, False)}
+             "DYNAM3D_INT4_GRID2D": (flags.int4_grid2d, False),
+             "DYNAM3D_SPEC_FORCE_ACCEPT": (flags.spec_force_accept, False)}
     for name, (gate, default) in gates.items():
         monkeypatch.delenv(name, raising=False)
         assert gate() is default, name

@@ -11,10 +11,11 @@ place where the CLIs differ by design, since their random initialisers do.
 
 * eval (6 box rooms + 2 floorplans) and inference (4 rooms): the same
   JSON text in every file, from feeds drawn with the same seeds;
+* eval at ``WORLD_SIZE = 2`` shards the episodes by rank;
 * train: one iteration writes ``ckpt.iter1``; with ``train.is_requeue``
-  the next run resumes from it; at ``WORLD_SIZE`` > 1 SS-ETP training
-  raises (``Dynam3D`` training there is data-parallel:
-  ``test_torch_dist_train.py``);
+  the next run resumes from it (at ``WORLD_SIZE`` > 1 both trainers are
+  data-parallel: ``test_torch_dist_train.py``,
+  ``test_torch_dist_pretrain.py``);
 * SS-ETP: the same datasets with the same seeds and generator states, and
   one port iteration logs finite losses;
 * ``profiling``: ``StepTimer.stats()`` equals the reference's on the same
@@ -161,21 +162,25 @@ def test_parsers_agree():
     assert sorted(trun.TRAINER_REGISTRY) == sorted(jrun.TRAINER_REGISTRY)
 
 
-def test_eval_shards_by_rank(tmp_path, monkeypatch):
-    """Eval as rank 1 of 2 (torchrun's variables) runs episodes 1, 3, 5, 7
-    and writes its own stats file; no process group is needed."""
+def test_eval_shards_by_rank(tmp_path):
+    """Eval on two ranks (torchrun's variables, a gloo group): rank 1 runs
+    episodes 1, 3, 5, 7 and writes its own stats file, rank 0 episodes 0,
+    2, 4, 6 and the stats merged over all 8 (``test_torch_dist_eval.py``
+    holds the merged files against one process; SS-ETP at ``WORLD_SIZE`` >
+    1 trains data-parallel: ``test_torch_dist_pretrain.py``)."""
+    from dynam3d_torch.parallel.spawn import run_ranks
+    from tests import torch_dist
+
     jcfg = slice_config()
     cfg_path = _write_config(tmp_path / "cfg.json", jcfg)
-    monkeypatch.chdir(tmp_path)
-    monkeypatch.setenv("RANK", "1")
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    trun.main(["--exp-config", cfg_path, "--run-type", "eval", "--exp_name", "r"] + OPTS +
-              ["train.max_traj_len=1"], device="cpu")
-    per_ep = json.loads((tmp_path / "data/eval/r/stats_ep_ckpt_r1_w2.json").read_text())
-    assert sorted(per_ep, key=int) == ["1", "3", "5", "7"]
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-        trun.main(["--exp-config", cfg_path, "--run-type", "train", "--trainer", "SS-ETP"],
-                  device="cpu")
+    run_ranks(torch_dist.run_cli, 2, args=(str(tmp_path), [
+        ["--exp-config", cfg_path, "--run-type", "eval", "--exp_name", "r"] + OPTS +
+        ["train.max_traj_len=1"]], False), timeout=300)
+    for rank, want in ((0, ["0", "2", "4", "6"]), (1, ["1", "3", "5", "7"])):
+        per_ep = json.loads((tmp_path / f"data/eval/r/stats_ep_ckpt_r{rank}_w2.json").read_text())
+        assert sorted(per_ep, key=int) == want
+    assert sorted(json.loads((tmp_path / "data/eval/r/stats_ckpt.json").read_text())) == sorted(
+        per_ep["1"])
 
 
 def test_train_writes_a_checkpoint_and_resumes(tmp_path, monkeypatch):

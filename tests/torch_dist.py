@@ -202,3 +202,91 @@ def dp_train(rank, world, dev, il, pre, lock, cli):
 
     run.main(argv, device="cpu")
     return out
+
+
+def ss_etp_run(rank, world, dev, workdir, argv):
+    """``run.main`` for SS-ETP training at this world size, recording per
+    iteration the dataset drawn and the inputs and result of its update: a
+    frames step's trainable tree, optimizer state and batch; a walk's
+    trainable tree, optimizer state, accumulated gradient and step count."""
+    import os
+
+    from dynam3d_torch import run
+    from dynam3d_torch.runtime import trainer_3dff
+
+    def snap(tree):
+        return tree_map(lambda t: t.detach().clone() if isinstance(t, torch.Tensor) else t, tree)
+
+    recs = []
+    draw, make_step = trainer_3dff.draw_dataset_id, trainer_3dff.make_pretrain_step
+    apply = trainer_3dff.apply_accumulated_grads
+
+    def drawing(seed, it, n):
+        recs.append({"dataset": draw(seed, it, n)})
+        return recs[-1]["dataset"]
+
+    def making(cfg, opt, posed=False, dp=None):
+        step = make_step(cfg, opt, posed=posed, dp=dp)
+
+        def recorded(tr, opt_state, field_state, batch):
+            recs[-1].update(kind="frames", posed=posed, before=snap(tr), opt=snap(opt_state),
+                            batch=tuple(None if t is None else t.clone() for t in batch))
+            out = step(tr, opt_state, field_state, batch)
+            recs[-1].update(after=snap(out[0]), loss=float(out[3]["loss"]))
+            return out
+        return recorded
+
+    def applying(opt, tr, opt_state, grad_sum, n_steps, dp=None):
+        recs[-1].update(kind="walk", before=snap(tr), opt=snap(opt_state),
+                        grad_sum=snap(grad_sum), n_steps=n_steps)
+        out = apply(opt, tr, opt_state, grad_sum, n_steps, dp=dp)
+        recs[-1]["after"] = snap(out[0])
+        return out
+
+    trainer_3dff.draw_dataset_id = drawing
+    trainer_3dff.make_pretrain_step = making
+    trainer_3dff.apply_accumulated_grads = applying
+    os.chdir(workdir)
+    try:
+        run.main(argv, device="cpu")
+    finally:
+        trainer_3dff.draw_dataset_id = draw
+        trainer_3dff.make_pretrain_step = make_step
+        trainer_3dff.apply_accumulated_grads = apply
+    return recs
+
+
+def run_cli(rank, world, dev, workdir, argvs, rxr=True):
+    """``run.main(argv, device="cpu")`` for each of ``argvs`` at this world
+    size, in ``workdir``, then with ``rxr`` the rxr inference file of 3
+    rooms."""
+    import os
+
+    from dynam3d_torch import run
+
+    os.chdir(workdir)
+    for argv in argvs:
+        run.main(argv, device="cpu")
+    return rxr_inference(rank, world, workdir, argvs[0]) if rxr else None
+
+
+def rxr_inference(rank, world, workdir, argv):
+    """``vln_loop.inference(fmt="rxr")`` over 3 rooms on the config of
+    ``argv`` (its ``--exp-config`` and overrides), into
+    ``{workdir}/rxr_w{world}.jsonl``; with a group at ``world`` > 1."""
+    import os
+
+    import torch.distributed as dist
+
+    from dynam3d_torch.config import apply_opts, load
+    from dynam3d_torch.models import policy
+    from dynam3d_torch.runtime.feed import SyntheticRoomFeed
+    from dynam3d_torch.runtime.vln_loop import inference
+
+    cfg = apply_opts(load(argv[argv.index("--exp-config") + 1]), [a for a in argv if "=" in a])
+    params = policy.init_policy_params(cfg.train.seed, cfg, device="cpu")
+    feeds = [SyntheticRoomFeed(seed=40 + i) for i in range(3)]
+    out = os.path.join(workdir, f"rxr_w{world}.jsonl")
+    return inference(params, cfg, feeds, [f"ep{i}" for i in range(3)], out_path=out,
+                     rank=rank, world=world, fmt="rxr", device="cpu",
+                     dp=dist.group.WORLD if world > 1 else None)
