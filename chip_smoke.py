@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phases build,data
     python3 chip_smoke.py --phases build,dist,soak
     python3 chip_smoke.py --phases build,tools
+    python3 chip_smoke.py --phases build,bench
 
 Phases, each printed as it finishes:
 
@@ -39,7 +40,11 @@ Phases, each printed as it finishes:
    default config (YOLOv8-seg at FastSAM-x width, imgsz 576) on the card
    from a ``torch.Generator``, ``quantize_phi3(bits=4)``, then a 3-step
    ``EpisodeRunner.run`` on ``SyntheticRoomFeed`` — with every launch
-   counter reset just before and read just after;
+   counter reset just before and read just after; then the same runner
+   takes 2 steps on ``runtime.habitat_feed.HabitatFeed`` over
+   ``tests/habitat_sim_stub.py`` (336² RGBA cut to RGB, 256² depth over
+   10 m), its counters reset and read the same way (A and B, no plain
+   version);
 7. ``nerf``: kernel C (``csrc/nerf_mlp.cu``) against its plain version at
    N = 1152 (one novel view), 1152 + 37 (a ragged row tile) and 16 x 1152
    rows, D = 768, on the weights of ``init_render_params``: the clusters
@@ -117,11 +122,20 @@ Phases, each printed as it finishes:
    ``profile_perceive`` and ``prof_full_step`` (A, B: the B = 1 step's
    slope, device busy time and idle share); a difference of ids is allowed
    only at a near-tie, and no plain version may run;
-18. ``yolo``: one full-width ``segment_views`` (FastSAM-x, imgsz 576) of a
+18. ``bench``: ``dynam3d_torch.tools.bench.main`` in this process for each
+   of its six modes at full width with few steps: ``main`` (8 steps, the
+   breakdown on; kernels A and B), ``serve`` (B = 4, 2 steps a route; B),
+   ``render`` (4 views at the default gates; C, then 4 under the k-NN
+   gates; C and D), ``train`` (2 steps), ``pretrain`` (2 iterations; C),
+   ``waypoint`` (3 calls), each with the launch counters reset just before
+   and read just after (no plain version may run), its JSON line checked
+   (the mode's metric, a finite positive value, the card's name and power
+   limit) and printed with its wall time;
+19. ``yolo``: one full-width ``segment_views`` (FastSAM-x, imgsz 576) of a
    ``SyntheticRoomFeed`` view on the card and, with the same weights, on the
    CPU: ``forward`` within the stated tolerance, the same NMS picks and ids,
    ms per view, and the launches of the NMS loop;
-19. ``stream``: kernels I and J (``csrc/int4_stream.cu``) against their plain
+20. ``stream``: kernels I and J (``csrc/int4_stream.cu``) against their plain
    versions at the int4 tools' shapes (4 weights of 3072 x 16384), every
    ring variant of I and every body of J, each with its work items, blocks
    per SM, dynamic shared memory and share of the bytes bound, then both
@@ -129,7 +143,7 @@ Phases, each printed as it finishes:
    ``bench_int4_unpack``) with the launch counters reset just before and
    read just after, the bytes bound and a bf16 ``torch.matmul`` on the
    dequantized weights as the yardstick;
-20. ``vln``: the VLN second stage at full width — policy parameters with
+21. ``vln``: the VLN second stage at full width — policy parameters with
    Phi-3-mini in bf16 at the default config, the ResNet-50 depth encoder
    (``input_size`` 256) and the TRM waypoint predictor from a
    ``torch.Generator``; ``VLNTrainer.run`` (``cfg.train``: one iteration,
@@ -147,7 +161,7 @@ Phases, each printed as it finishes:
    plain version); then one ``VLNTrainer`` step of a small config on the
    card and on the CPU with the same weights: loss, updated trainable
    tensors, waypoint heatmaps and candidates within the stated tolerances;
-21. ``cli``: the port as a user starts it, at the default ``Dynam3DConfig()``
+22. ``cli``: the port as a user starts it, at the default ``Dynam3DConfig()``
    with random weights, in a temporary working directory:
    ``dynam3d_torch.run.main`` for ``eval`` (8 episodes of at most 3 steps:
    6 ``SyntheticRoomFeed`` rooms and 2 ``FloorplanFeed`` apartments at 336²
@@ -159,7 +173,7 @@ Phases, each printed as it finishes:
    and B); each step's files checked, its wall time and peak memory
    printed, the launch counters reset just before each step and read just
    after (A and B in the soak, C in SS-ETP, no plain version anywhere);
-22. ``convert``: the reference-weights runway at ``parity_run``'s ``full``
+23. ``convert``: the reference-weights runway at ``parity_run``'s ``full``
    config (the soak's: the default with member caps 512 / 128, 32-layer
    Phi-3-mini):
    truth trees on the card from seed 11 (policy, renderer, waypoint
@@ -177,7 +191,7 @@ Phases, each printed as it finishes:
    bytes and seconds of each step, peak memory, and the launch counters
    reset just before each counted step and read just after (A and B in the
    episodes and the soak, C in the render, no plain version);
-23. ``data``: the reference's on-disk data path at the default config
+24. ``data``: the reference's on-disk data path at the default config
    (CLIP-L/14-336, the default fields and renderer), in a temporary
    directory: 2 scenes of 24 frames in each of the four posed-frame layouts
    with their own formats (ScanNet at the 320x240 its halved
@@ -201,7 +215,7 @@ Phases, each printed as it finishes:
    back by ``load_episodes``; ``collect_trajectories`` of 2
    ``FloorplanFeed`` episodes into the port's episode store, replayed by
    ``iterate_store``; each timed;
-24. ``dist``: the parallel layer on two ``gloo`` ranks sharing the card (NCCL
+25. ``dist``: the parallel layer on two ``gloo`` ranks sharing the card (NCCL
    refuses two ranks on one device), each spawned and joined with a time
    limit, printing its wall time, peak memory and launch counters: (1) a
    dp = 2 IL step at the default config (bf16 Phi-3-mini, one 12-view room
@@ -227,7 +241,7 @@ Phases, each printed as it finishes:
    pack Phi-3), A and B on each rank, rank 0's merged ``stats_ckpt.json``
    and ``_preds.json`` equal to one process's over the same feeds; then
    the IL step on a one-rank NCCL group;
-25. ``soak``: ``python -m dynam3d_torch.tools.train_soak --scale full
+26. ``soak``: ``python -m dynam3d_torch.tools.train_soak --scale full
    --il-steps 8 --pretrain-iters 4`` in a temporary work directory: every
    row, finite losses, both resume checks bit-compatible (the IL one in its
    fresh process), kernel C in every pretraining iteration and no plain
@@ -250,8 +264,8 @@ import sys
 import time
 
 PHASES = ("build", "matvec", "ring", "parity", "episode", "nerf", "knn", "render", "pretrain",
-          "walk", "matvec2d", "mlp", "attn", "routes", "batched", "tools", "yolo", "stream",
-          "vln", "cli", "convert", "data", "dist", "soak")
+          "walk", "matvec2d", "mlp", "attn", "routes", "batched", "tools", "bench", "yolo",
+          "stream", "vln", "cli", "convert", "data", "dist", "soak")
 
 # the dense bf16 tensor-core peak and the float32 peak outside the tensor
 # cores (H100 SXM); memory rates are dynam3d_torch.device.MEM_RATES
@@ -656,9 +670,64 @@ def phase_episode(ctx):
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[episode] steps={res[0]['steps']} peak_mem_gib={peak:.2f}")
     ctx["launches"] = counts
+    _habitat_steps(torch, runner)
     steady = [st["ms"] for st in runner.step_log[1:]]
     _profile_step(torch, runner, sum(steady) / len(steady),
                   [SyntheticRoomFeed(rgb_size=336, depth_size=256, views=1, seed=1)], "b1")
+
+
+def _habitat_sim_stub():
+    """``tests/habitat_sim_stub.py`` of this checkout, loaded by path (habitat
+    conventions, sliding collision, pose-keyed RGBA and depth renders)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "habitat_sim_stub.py")
+    spec = importlib.util.spec_from_file_location("habitat_sim_stub", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _habitat_steps(torch, runner):
+    """2 more steps of ``runner`` on the port's ``HabitatFeed`` over the
+    stub at 336² RGB / 256² depth, counters reset just before and read just
+    after: the habitat observation (RGBA cut to RGB, depth over 10 m)
+    feeding the full-width step on the card."""
+    from dynam3d_torch.ops import kernels
+    from dynam3d_torch.runtime import habitat_feed
+
+    habitat_feed.habitat_sim = _habitat_sim_stub()
+    episode = {"start_position": [4.0, 0.0, -1.0], "heading": 0.3,
+               "goals": [{"position": [6.5, 0.0, -6.0]}],
+               "instruction": {"instruction_text": "walk to the far corner and stop."}}
+    feed = habitat_feed.HabitatFeed("stub_scene.glb", episode, rgb_size=336, depth_size=256)
+    obs = feed.reset()
+    if (obs.rgb.shape != (1, 336, 336, 3) or obs.rgb.dtype.name != "uint8"
+            or obs.depth.shape != (1, 256, 256) or not 0.0 <= obs.depth.min() <= obs.depth.max()
+            <= 1.0 or obs.depth.max() != 1.0):
+        raise AssertionError(f"habitat observation {obs.rgb.shape} {obs.rgb.dtype} "
+                             f"{obs.depth.shape} [{obs.depth.min()}, {obs.depth.max()}]")
+    n_log = len(runner.step_log)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    res = runner.run([feed], max_steps=2, ignore_stop=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in kernels.launches.items() if v}
+    plain = {k: v for k, v in kernels.plain_calls.items() if v}
+    steps = runner.step_log[n_log:]
+    log(f"[episode] habitat feed: {wall:.1f} s, launches {json.dumps(counts)}, result "
+        f"{json.dumps({k: res[0][k] for k in ('steps', 'collisions', 'distance_to_goal')})}, "
+        f"texts {json.dumps([st['text'] for st in steps])}")
+    if not (counts.get("int4_matvec") and counts.get("decode_attn")) or plain:
+        raise AssertionError(f"habitat steps: launches {counts}, plain versions {plain}")
+    if res[0]["steps"] != 2 or len(steps) != 2 or not all(st["mm_finite"] for st in steps):
+        raise AssertionError(f"habitat steps: {res}")
+    # the start and one move: the last step is the STOP that max_steps forces
+    if not math.isfinite(res[0]["distance_to_goal"]) or len(res[0]["position"]) != 2:
+        raise AssertionError(f"habitat steps: {res}")
 
 
 def _profile_step(torch, runner, steady_ms, feeds, label):
@@ -3863,7 +3932,7 @@ TIE_TOL = 0.05
 LOGITS_TOL = 0.10
 
 
-def _tool_window(torch, name, fn, want=(), fails=None):
+def _tool_window(torch, name, fn, want=(), fails=None, tag="tools"):
     """``fn()`` with the launch counters reset just before and read just
     after: each kernel of ``want`` must launch, no plain version may run."""
     from dynam3d_torch.ops import kernels
@@ -3876,7 +3945,7 @@ def _tool_window(torch, name, fn, want=(), fails=None):
     wall = time.perf_counter() - t0
     launches = {k: v for k, v in kernels.launches.items() if v}
     plain = {k: v for k, v in kernels.plain_calls.items() if v}
-    log(f"[tools] {name}: {wall:.1f} s, launches {json.dumps(launches)}")
+    log(f"[{tag}] {name}: {wall:.1f} s, launches {json.dumps(launches)}")
     missing = [k for k in want if not launches.get(k)]
     if missing or plain:
         fails.append(f"{name}: kernels {missing} not launched, plain versions {plain}")
@@ -3953,6 +4022,56 @@ def phase_tools(ctx):
     ctx["tools_launches"] = total
     if fails:
         raise AssertionError("tools: " + "; ".join(fails))
+
+
+BENCH_MODES = [
+    # (label, argv, gates, metric, kernels that must launch)
+    ("main", ["--mode", "main", "--steps", "8"], {"DYNAM3D_BENCH_BREAKDOWN": "1"},
+     "p50_step_latency_ms", ("int4_matvec", "decode_attn")),
+    ("serve", ["--mode", "serve", "--batch", "4", "--steps", "2"], {},
+     "serve_steps_per_sec", ("decode_attn",)),
+    ("render", ["--mode", "render", "--steps", "4"], {}, "render_view_p50_ms", ("nerf_mlp",)),
+    ("render_knn", ["--mode", "render", "--steps", "4"], KNN_FLAG_ENV, "render_view_p50_ms",
+     ("nerf_mlp", "knn_topk")),
+    ("train", ["--mode", "train", "--steps", "2"], {}, "train_step_p50_ms", ()),
+    ("pretrain", ["--mode", "pretrain", "--steps", "2"], {}, "pretrain_iter_p50_ms",
+     ("nerf_mlp",)),
+    ("waypoint", ["--mode", "waypoint", "--steps", "3"], {}, "waypoint_12view_p50_ms", ()),
+]
+
+
+def phase_bench(ctx):
+    """The bench's six modes at full width through ``tools.bench.main``, each
+    in a counted window."""
+    torch = ctx["torch"]
+    import gc
+
+    from dynam3d_torch.ops import kernels
+    from dynam3d_torch.tools import bench
+
+    kernels.build_all()
+    ctx.pop("serve", None)        # the bench builds its own parameters
+    fails, total = [], {}
+    for label, argv, gates, metric, want in BENCH_MODES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with _flags(gates):
+            rec, launches = _tool_window(torch, label, lambda: bench.main(argv), want, fails,
+                                         tag="bench")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        value, extra = rec.get("value"), rec.get("extra", {})
+        log(f"[bench] {label}: {rec['metric']} = {value} {rec['unit']}, peak_mem_gib={peak:.2f}")
+        if (rec["metric"] != metric or not isinstance(value, (int, float))
+                or not math.isfinite(value) or value <= 0 or extra.get("card") != ctx["card"]):
+            fails.append(f"bench {label}: {json.dumps(rec)}")
+        if label.startswith("render") and extra.get("banded_knn") != (label == "render"):
+            fails.append(f"bench {label}: resolved gates {extra}")
+    ctx["bench_launches"] = total
+    if fails:
+        raise AssertionError("bench: " + "; ".join(fails))
 
 
 def phase_soak(ctx):
@@ -4125,9 +4244,12 @@ def main(argv=None) -> int:
     dist_l = ctx.get("dist_launches", {})
     soak_l = ctx.get("soak_launches", {})
     tools_l = ctx.get("tools_launches", {})
+    bench_l = ctx.get("bench_launches", {})
     for rec in kernels_rec:
         if rec["name"] in tools_l:
             rec["launches_tools"] = tools_l[rec["name"]]
+        if rec["name"] in bench_l:
+            rec["launches_bench"] = bench_l[rec["name"]]
         if rec["name"] in dist_l:
             rec["launches_dist"] = dist_l[rec["name"]]
         if rec["name"] in soak_l:

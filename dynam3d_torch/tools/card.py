@@ -28,6 +28,7 @@ from dynam3d_torch.tools.decompose_int4_mma import _time_ms, read_flush
 # dense peaks of the H100 SXM data sheet (the card's memory rate is
 # ``device.mem_rate`` of its name)
 INT8_PEAK = 1979e12
+BF16_PEAK = 989e12
 FP32_PEAK = 67e12
 
 

@@ -63,20 +63,20 @@ PATCHES = {
 }
 
 
-def walk_table(cfg, seed: int = 0, frames: int = 35, device="cuda"):
-    """A patch table filled the way a walk fills it: 576 frustum-clustered
-    patches per frame around a drifting position, the rest of the
-    ``cfg.patch_capacity`` slots dead at -10000.  Returns ``(pos [P, 3],
-    valid [P], fts [n, fts_dim], dir [n], scale [n])``."""
+def walk_table(cfg, seed: int = 0, frames: int = 35, device="cuda", per_frame: int = 576):
+    """A patch table filled the way a walk fills it: ``per_frame``
+    frustum-clustered patches per frame around a drifting position, the
+    rest of the ``cfg.patch_capacity`` slots dead at -10000.  Returns
+    ``(pos [P, 3], valid [P], fts [n, fts_dim], dir [n], scale [n])``."""
     rng = np.random.default_rng(seed)
     pts, pos = [], np.array([0.0, 0.0, 1.3])
     for _ in range(frames):
         heading = rng.uniform(0, 2 * np.pi)
-        depth = rng.uniform(0.5, 6.0, 576)
-        ang = rng.uniform(-0.7, 0.7, 576)
+        depth = rng.uniform(0.5, 6.0, per_frame)
+        ang = rng.uniform(-0.7, 0.7, per_frame)
         pts.append(np.stack([pos[0] + depth * np.cos(heading + ang),
                              pos[1] + depth * np.sin(heading + ang),
-                             rng.uniform(0, 2.5, 576)], 1))
+                             rng.uniform(0, 2.5, per_frame)], 1))
         pos[:2] += rng.uniform(-0.5, 0.5, 2)
     walk = np.concatenate(pts).astype(np.float32)
     n, P = walk.shape[0], cfg.patch_capacity

@@ -44,7 +44,7 @@ def test_port_imports_no_jax_in_a_fresh_process():
               "tools.spec_acceptance", "tools.copycheck", "tools.prof_decode_parts",
               "tools.ab_fused_decode", "tools.ab_spec_decode", "tools.ab_spec_batched",
               "tools.prof_prefill", "tools.bench_int8_prefill", "tools.profile_perceive",
-              "tools.prof_full_step"):
+              "tools.prof_full_step", "runtime.habitat_feed", "tools.bench"):
         assert f"dynam3d_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -118,14 +118,14 @@ def test_vln_entry_points_raise_without_a_device(entry, monkeypatch):
 
 
 @pytest.mark.parametrize("entry", ["run", "eval_soak", "convert_reference_ckpt", "parity_run",
-                                   "run_train_dp", "train_soak"])
+                                   "run_train_dp", "train_soak", "bench"])
 def test_cli_entry_points_raise_without_a_device(entry, tmp_path, monkeypatch):
     """``run.main`` (data-parallel training too) and the ``eval_soak``,
-    ``convert_reference_ckpt``, ``parity_run`` and ``train_soak`` tools take
+    ``convert_reference_ckpt``, ``parity_run``, ``train_soak`` and ``bench`` tools take
     ``device=None`` as the card: without one they raise before writing
     anything (and before any process group)."""
     from dynam3d_torch import run
-    from dynam3d_torch.tools import convert_reference_ckpt, eval_soak, parity_run, train_soak
+    from dynam3d_torch.tools import bench, convert_reference_ckpt, eval_soak, parity_run, train_soak
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.chdir(tmp_path)
@@ -136,6 +136,7 @@ def test_cli_entry_points_raise_without_a_device(entry, tmp_path, monkeypatch):
         "run_train_dp": lambda: run.main(["--run-type", "train", "--exp_name", "x"]),
         "train_soak": lambda: train_soak.main(["--out", str(tmp_path / "soak.jsonl"),
                                                "--scale", "tiny"]),
+        "bench": lambda: bench.main(["--mode", "main", "--scale", "tiny", "--steps", "1"]),
         "eval_soak": lambda: eval_soak.main(["--out", str(tmp_path / "soak"), "--scale", "tiny"]),
         "convert_reference_ckpt": lambda: convert_reference_ckpt.main(
             ["--out", str(tmp_path / "converted")]),
