@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from dynam3d_torch.device import DeviceLike, resolve_device
 from dynam3d_torch.models.encoders.clip import resize_weights
+from dynam3d_torch.runtime import profiling
 
 Params = Dict[str, Any]
 
@@ -242,6 +243,7 @@ def segment_id_map(
     small = canvas[:, ri][:, :, ci].reshape(canvas.shape[0], -1)
     span = max_masks + 1                   # canvas values are 0..max_masks
     base = torch.arange(small.shape[0], device=dev)[:, None] * span
+    profiling.count("sync")
     uniq = torch.unique(small + base, sorted=True)
     return torch.searchsorted(uniq, small + base) - torch.searchsorted(uniq, base)
 

@@ -35,6 +35,7 @@ from dynam3d_torch.models.memory3d.state import TOMBSTONE, FieldState, cell_cent
 from dynam3d_torch.ops.knn import knn_brute
 from dynam3d_torch.ops.segment import first_free_slots, segment_mean
 from dynam3d_torch.ops.transformer import dense, encoder_stack, gelu, layer_norm, mlp2
+from dynam3d_torch.runtime import profiling
 
 Params = Dict[str, Any]
 _DEAD = 1e6
@@ -194,6 +195,7 @@ def update_view(
         torch.zeros(I_cap, dtype=torch.bool, device=dev),
         torch.where(is_merge, merge_target, I_cap), True)
     merge_ids, merge_fill = _first_k_true(merged_mask, S)
+    profiling.count("sync")
     n_fill = int(merge_fill.sum())
     if n_fill:
         ids = merge_ids[:n_fill]
@@ -201,6 +203,7 @@ def update_view(
         mkeys = torch.where(member_of, ar_p[None, :], P_cap)
         mslots = torch.sort(mkeys, dim=1).values[:, : cfg.max_members]
         mva = mslots < P_cap
+        profiling.count("sync")
         tm = max(1, int(mva.sum(1).max()))
         mslots, mva = mslots[:, :tm], mva[:, :tm]
         msl_c = mslots.clamp(max=P_cap - 1)
@@ -224,6 +227,7 @@ def update_view(
     # ---- 7. zones of the cells touched by this view's segment centers ----
     seg_cells = torch.where(seg_active[:, None], cell_center(centers, cfg),
                             torch.full_like(centers, _PAD_CELL))
+    profiling.count("sync")
     cells = torch.unique(seg_cells, dim=0, sorted=True)
     if cells.shape[0] < S:
         cells = torch.cat([cells, torch.full((S - cells.shape[0], 3), _PAD_CELL,
@@ -244,6 +248,7 @@ def update_view(
 
     zone_key, zone_pos, zone_fts, zone_valid = (
         state.zone_key, state.zone_pos, state.zone_fts, state.zone_valid)
+    profiling.count("sync")
     rows = torch.nonzero(do_write).flatten()
     if rows.numel():
         zm = zmember[rows]
@@ -251,6 +256,7 @@ def update_view(
         zslots = torch.sort(torch.where(zm, ar_i[None, :], I_cap), dim=1).values
         zslots = zslots[:, : cfg.max_zone_members]
         zvalid_m = zslots < I_cap
+        profiling.count("sync")
         km = max(1, int(zvalid_m.sum(1).max()))
         zslots, zvalid_m = zslots[:, :km], zvalid_m[:, :km]
         zslots_c = zslots.clamp(max=I_cap - 1)

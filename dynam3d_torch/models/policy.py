@@ -37,6 +37,7 @@ from dynam3d_torch.models.segmenter import depth_plane_segments
 from dynam3d_torch.models.vlm import llava as llava_mod
 from dynam3d_torch.ops.segment import first_free_slots
 from dynam3d_torch.ops.transformer import init_mlp2, mlp2
+from dynam3d_torch.runtime import profiling
 
 Params = Dict[str, Any]
 
@@ -110,35 +111,41 @@ def perceive(params: Params, cfg: Dynam3DConfig, state: FieldState,
 
     ``rgb [B, V, Hc, Wc, 3]`` uint8, ``depth_raw [B, V, Hd, Wd]`` normalized
     depth (f32, or the uint16 wire format dequantized here), habitat
-    ``position_hab [B, 3]`` and ``heading [B]``; ``state`` is batched."""
-    if depth_raw.dtype == torch.uint16:
-        depth_raw = depth_raw.to(torch.float32) * (1.0 / 65535.0)
+    ``position_hab [B, 3]`` and ``heading [B]``; ``state`` is batched.
+    Spans: ``perceive.depth``, ``.clip``, ``.segment``, ``.forget``,
+    ``.fold``, ``.env`` and ``.tower``."""
     f = cfg.fields
     B, V = rgb.shape[0], rgb.shape[1]
     H, W = f.input_height, f.input_width
     HW = H * W
 
-    d24 = nearest_resize_hw(depth_raw, H, W)
-    d24 = preprocess_depth(d24.reshape(B * V, H, W)[..., None])[..., 0].reshape(B, V, HW)
-    dfull = preprocess_depth(
-        depth_raw.reshape(B * V, *depth_raw.shape[2:])[..., None]
-    )[..., 0].reshape(B, V, *depth_raw.shape[2:])
+    with profiling.span("perceive.depth"):
+        if depth_raw.dtype == torch.uint16:
+            depth_raw = depth_raw.to(torch.float32) * (1.0 / 65535.0)
+        d24 = nearest_resize_hw(depth_raw, H, W)
+        d24 = preprocess_depth(d24.reshape(B * V, H, W)[..., None])[..., 0].reshape(B, V, HW)
+        dfull = preprocess_depth(
+            depth_raw.reshape(B * V, *depth_raw.shape[2:])[..., None]
+        )[..., 0].reshape(B, V, *depth_raw.shape[2:])
 
-    pixels = clip_mod.preprocess_rgb(rgb.reshape(B * V, *rgb.shape[2:]), cfg.clip.image_size)
-    if cfg.clip.compute_dtype == "bf16":
-        pixels = pixels.to(torch.bfloat16)
-    _, grid = clip_mod.encode_image(params["clip"], cfg.clip, pixels)
-    grid = grid.reshape(B, V, HW, f.fts_dim)
-    # the reference rounds grid features through fp16 before the tables
-    grid = grid.to(torch.float16).to(grid.dtype)
+    with profiling.span("perceive.clip"):
+        pixels = clip_mod.preprocess_rgb(rgb.reshape(B * V, *rgb.shape[2:]),
+                                         cfg.clip.image_size)
+        if cfg.clip.compute_dtype == "bf16":
+            pixels = pixels.to(torch.bfloat16)
+        _, grid = clip_mod.encode_image(params["clip"], cfg.clip, pixels)
+        grid = grid.reshape(B, V, HW, f.fts_dim)
+        # the reference rounds grid features through fp16 before the tables
+        grid = grid.to(torch.float16).to(grid.dtype)
 
-    if cfg.segmenter.provider == "yolov8" and "yolo" in params:
-        segm = yolov8_seg.segment_views(params["yolo"], cfg.segmenter,
-                                        rgb.reshape(B * V, *rgb.shape[2:]), (H, W),
-                                        f.max_segments)
-    else:
-        segm = depth_plane_segments(d24.reshape(B * V, HW), H, W, f.max_segments)
-    segm = segm.reshape(B, V, HW)
+    with profiling.span("perceive.segment"):
+        if cfg.segmenter.provider == "yolov8" and "yolo" in params:
+            segm = yolov8_seg.segment_views(params["yolo"], cfg.segmenter,
+                                            rgb.reshape(B * V, *rgb.shape[2:]), (H, W),
+                                            f.max_segments)
+        else:
+            segm = depth_plane_segments(d24.reshape(B * V, HW), H, W, f.max_segments)
+        segm = segm.reshape(B, V, HW)
     pos_world = habitat_to_world(position_hab.to(torch.float32))
     heading = heading.to(torch.float32)
     view_offsets = torch.arange(V, dtype=torch.float32, device=rgb.device) * (-math.pi / 6.0)
@@ -148,44 +155,48 @@ def perceive(params: Params, cfg: Dynam3DConfig, state: FieldState,
     for b in range(B):
         st = unstack_state(state, b)
         if delete_old:
-            # every view culls with the un-offset heading, as the reference does
-            for v in range(V):
-                st = delete_from_frustum(st, f, dfull[b, v], pos_world[b], headings_v[b, 0])
-        st = update_views(params["fields"], st, f, d24[b], grid[b], segm[b],
-                          pos_world[b], headings_v[b])
+            with profiling.span("perceive.forget"):
+                # every view culls with the un-offset heading, as the reference does
+                for v in range(V):
+                    st = delete_from_frustum(st, f, dfull[b, v], pos_world[b], headings_v[b, 0])
+        with profiling.span("perceive.fold"):
+            st = update_views(params["fields"], st, f, d24[b], grid[b], segm[b],
+                              pos_world[b], headings_v[b])
         new_states.append(st)
     state = stack_states(new_states)
 
-    inst_tok, inst_fill, zone_tok, zone_fill = [], [], [], []
-    for b, st in enumerate(new_states):
-        env = environment_features(st, pos_world[b], heading[b],
-                                   cfg.eval.instance_distance, cfg.eval.zone_distance)
-        ii, ifill = _first_k_true_idx(env.inst_mask, I_ENV)
-        zi, zfill = _first_k_true_idx(env.zone_mask, Z_ENV)
-        inst = torch.cat([env.inst_fts[ii],
-                          mlp2(params["inst_pos_emb"], env.inst_rel_pos[ii])], dim=-1)
-        zone = torch.cat([env.zone_fts[zi],
-                          mlp2(params["zone_pos_emb"], env.zone_rel_pos[zi])], dim=-1)
-        inst_tok.append(mlp2(params["inst_proj"], inst))
-        zone_tok.append(mlp2(params["zone_proj"], zone))
-        inst_fill.append(ifill)
-        zone_fill.append(zfill)
-    inst_tok, zone_tok = torch.stack(inst_tok), torch.stack(zone_tok)
-    inst_fill, zone_fill = torch.stack(inst_fill), torch.stack(zone_fill)
+    with profiling.span("perceive.env"):
+        inst_tok, inst_fill, zone_tok, zone_fill = [], [], [], []
+        for b, st in enumerate(new_states):
+            env = environment_features(st, pos_world[b], heading[b],
+                                       cfg.eval.instance_distance, cfg.eval.zone_distance)
+            ii, ifill = _first_k_true_idx(env.inst_mask, I_ENV)
+            zi, zfill = _first_k_true_idx(env.zone_mask, Z_ENV)
+            inst = torch.cat([env.inst_fts[ii],
+                              mlp2(params["inst_pos_emb"], env.inst_rel_pos[ii])], dim=-1)
+            zone = torch.cat([env.zone_fts[zi],
+                              mlp2(params["zone_pos_emb"], env.zone_rel_pos[zi])], dim=-1)
+            inst_tok.append(mlp2(params["inst_proj"], inst))
+            zone_tok.append(mlp2(params["zone_proj"], zone))
+            inst_fill.append(ifill)
+            zone_fill.append(zfill)
+        inst_tok, zone_tok = torch.stack(inst_tok), torch.stack(zone_tok)
+        inst_fill, zone_fill = torch.stack(inst_fill), torch.stack(zone_fill)
 
-    tower_feats = llava_mod.image_features(params["llava"], cfg.llava, cfg.clip, pixels)
-    px, py, pz, pdir, pscale = patch_3d_info(
-        d24.reshape(B * V, HW), height=H, width=W,
-        hfov_deg=f.input_hfov, vfov_deg=f.input_vfov,
-    )
-    p3d = torch.stack([px, py, pz, torch.sin(pdir), torch.cos(pdir), pscale], dim=-1)
-    patch_tok = (tower_feats + mlp2(params["patch_pos_emb"], p3d)).reshape(B, V * HW, -1)
+    with profiling.span("perceive.tower"):
+        tower_feats = llava_mod.image_features(params["llava"], cfg.llava, cfg.clip, pixels)
+        px, py, pz, pdir, pscale = patch_3d_info(
+            d24.reshape(B * V, HW), height=H, width=W,
+            hfov_deg=f.input_hfov, vfov_deg=f.input_vfov,
+        )
+        p3d = torch.stack([px, py, pz, torch.sin(pdir), torch.cos(pdir), pscale], dim=-1)
+        patch_tok = (tower_feats + mlp2(params["patch_pos_emb"], p3d)).reshape(B, V * HW, -1)
 
-    llm_dtype = params["llava"]["phi3"]["embed_tokens"].dtype
-    mm = torch.cat([patch_tok.to(llm_dtype), inst_tok.to(llm_dtype),
-                    zone_tok.to(llm_dtype)], dim=1)
-    mm_valid = torch.cat([torch.ones(B, V * HW, dtype=torch.bool, device=rgb.device),
-                          inst_fill, zone_fill], dim=1)
+        llm_dtype = params["llava"]["phi3"]["embed_tokens"].dtype
+        mm = torch.cat([patch_tok.to(llm_dtype), inst_tok.to(llm_dtype),
+                        zone_tok.to(llm_dtype)], dim=1)
+        mm_valid = torch.cat([torch.ones(B, V * HW, dtype=torch.bool, device=rgb.device),
+                              inst_fill, zone_fill], dim=1)
     return PerceiveOut(state, mm, mm_valid, inst_fill.sum(1), zone_fill.sum(1))
 
 
@@ -205,15 +216,18 @@ def generate_action_ids(params: Params, cfg: Dynam3DConfig, input_ids: torch.Ten
     the prompt's text ids (the image span and pads never match) followed by
     ``prev_gen``, the previous step's ids with pads masked."""
     p3 = cfg.llava.phi3
-    emb = llava_mod.splice_embeds(params["llava"], cfg.llava, input_ids, mm_tokens, splice_start)
-    attn_valid = _attn_valid(text_valid, mm_valid, splice_start)
-    lookup_ids = torch.where(text_valid & (input_ids != p3.image_token_id), input_ids,
-                             torch.full_like(input_ids, -1))
-    if prev_gen is not None:
-        prev = torch.where(prev_gen == p3.pad_token_id, torch.full_like(prev_gen, -1), prev_gen)
-        lookup_ids = torch.cat([lookup_ids, prev.to(lookup_ids.dtype)], dim=1)
-    return llava_mod.generate(params["llava"], cfg.llava, emb, attn_valid,
-                              lookup_ids=lookup_ids, stats=stats)
+    with profiling.span("generate"):
+        emb = llava_mod.splice_embeds(params["llava"], cfg.llava, input_ids, mm_tokens,
+                                      splice_start)
+        attn_valid = _attn_valid(text_valid, mm_valid, splice_start)
+        lookup_ids = torch.where(text_valid & (input_ids != p3.image_token_id), input_ids,
+                                 torch.full_like(input_ids, -1))
+        if prev_gen is not None:
+            prev = torch.where(prev_gen == p3.pad_token_id, torch.full_like(prev_gen, -1),
+                               prev_gen)
+            lookup_ids = torch.cat([lookup_ids, prev.to(lookup_ids.dtype)], dim=1)
+        return llava_mod.generate(params["llava"], cfg.llava, emb, attn_valid,
+                                  lookup_ids=lookup_ids, stats=stats)
 
 
 def train_loss(params: Params, cfg: Dynam3DConfig, input_ids: torch.Tensor,
@@ -238,10 +252,14 @@ def full_step(params: Params, cfg: Dynam3DConfig, state: FieldState, rgb, depth_
               position_hab, heading, input_ids, text_valid, splice_start: int = 2,
               prev_gen: Optional[torch.Tensor] = None,
               stats: Optional[dict] = None) -> Tuple[FieldState, torch.Tensor]:
-    """Perceive + generate; returns ``(new_state, ids [B, max_new_tokens])``."""
-    out = perceive(params, cfg, state, rgb, depth_raw, position_hab, heading)
-    if stats is not None:
-        stats["mm_finite"] = bool(torch.isfinite(out.mm_tokens.float()).all())
+    """Perceive + generate; returns ``(new_state, ids [B, max_new_tokens])``.
+    The span ``perceive`` closes at the read of ``stats["mm_finite"]``."""
+    with profiling.span("perceive"):
+        out = perceive(params, cfg, state, rgb, depth_raw, position_hab, heading)
+        if stats is not None:
+            with profiling.span("perceive.sync"):
+                profiling.count("sync")
+                stats["mm_finite"] = bool(torch.isfinite(out.mm_tokens.float()).all())
     gen = generate_action_ids(params, cfg, input_ids, text_valid, out.mm_tokens,
                               out.mm_valid, splice_start, prev_gen=prev_gen, stats=stats)
     return out.state, gen

@@ -30,7 +30,10 @@ collectives).  Under TP decode takes the unfused dense route.
 
 Kernels run on CUDA tensors, their plain versions on CPU tensors.  The
 decode loops run on the host (Python control flow), reading the argmax of
-each pass back from the device.
+each pass back from the device.  Each greedy route records the spans
+``generate.prefill`` (closing at the first read of the prefill's token)
+and ``generate.pass`` (one a pass, closing at its argmax read), and counts
+``decode.passes`` and its reads as ``sync`` (``runtime/profiling.py``).
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ from dynam3d_torch.ops.transformer import dot_f32
 from dynam3d_torch.parallel.comm import (
     copy_to_tp, gather_from_tp, group_rank, group_size, reduce_from_tp,
 )
+from dynam3d_torch.runtime import profiling
 
 Params = Dict[str, Any]
 
@@ -453,32 +457,45 @@ def greedy_decode(params: Params, cfg: Phi3Config, embeds: torch.Tensor,
     total = T + max_new_tokens
     if fused:
         total = -(-total // ROWS) * ROWS
-    tok, cache = _prefill(params, cfg, embeds, attn_valid, total, tp)
-    if fused:
-        cache = _flat(cache, cfg)
     stop = cfg.end_token_id if stop_token is None else stop_token
     dev = embeds.device
-    out = torch.full((B, max_new_tokens), cfg.pad_token_id, dtype=torch.int64, device=dev)
-    done = tok == stop
-    valid = torch.cat([attn_valid, torch.zeros(B, total - T, dtype=torch.bool, device=dev)], 1)
-    valid[:, T] = True
-    i = 0
-    while i < max_new_tokens and not bool((done | (tok == stop)).all()):
-        out[:, i] = torch.where(done, cfg.pad_token_id, tok)
-        e = embed(params, tok, tp)[:, None, :].to(embeds.dtype)
-        pos = (valid.sum(1) - 1)[:, None]
+
+    def more(i):
+        if i >= max_new_tokens:
+            return False
+        profiling.count("sync")
+        return not bool((done | (tok == stop)).all())
+
+    with profiling.span("generate.prefill"):
+        tok, cache = _prefill(params, cfg, embeds, attn_valid, total, tp)
         if fused:
-            logits, cache = _decode_forward_fused(params, cfg, e, pos, cache, T + i, valid)
-        else:
-            logits, cache = decode_forward(params, cfg, e, pos, cache, T + i, valid[:, None, :],
-                                           tp=tp)
-        nxt = logits[:, 0].argmax(-1)
-        done = done | (tok == stop)
-        nxt = torch.where(done, stop, nxt)
-        if T + i + 1 < total:
-            valid[:, T + i + 1] = True
-        tok = nxt
-        i += 1
+            cache = _flat(cache, cfg)
+        out = torch.full((B, max_new_tokens), cfg.pad_token_id, dtype=torch.int64, device=dev)
+        done = tok == stop
+        valid = torch.cat([attn_valid, torch.zeros(B, total - T, dtype=torch.bool, device=dev)],
+                          1)
+        valid[:, T] = True
+        i = 0
+        going = more(i)
+    while going:
+        with profiling.span("generate.pass"):
+            out[:, i] = torch.where(done, cfg.pad_token_id, tok)
+            e = embed(params, tok, tp)[:, None, :].to(embeds.dtype)
+            pos = (valid.sum(1) - 1)[:, None]
+            if fused:
+                logits, cache = _decode_forward_fused(params, cfg, e, pos, cache, T + i, valid)
+            else:
+                logits, cache = decode_forward(params, cfg, e, pos, cache, T + i,
+                                               valid[:, None, :], tp=tp)
+            nxt = logits[:, 0].argmax(-1)
+            done = done | (tok == stop)
+            nxt = torch.where(done, stop, nxt)
+            if T + i + 1 < total:
+                valid[:, T + i + 1] = True
+            tok = nxt
+            i += 1
+            profiling.count("decode.passes")
+            going = more(i)
     if i < max_new_tokens:
         out[:, i] = torch.where(done, out[:, i], tok)
     return out
@@ -533,20 +550,26 @@ def greedy_decode_spec(params: Params, cfg: Phi3Config, embeds: torch.Tensor,
     total = T + max_new_tokens + k
     if fused:
         total = -(-total // ROWS) * ROWS
-    first, cache = _prefill(params, cfg, embeds, attn_valid, total)
-    if fused:
-        cache = _flat(cache, cfg)
-    stop = cfg.end_token_id if stop_token is None else stop_token
-    dev = embeds.device
-    next_tok = int(first[0])
+    with profiling.span("generate.prefill"):
+        first, cache = _prefill(params, cfg, embeds, attn_valid, total)
+        if fused:
+            cache = _flat(cache, cfg)
+        stop = cfg.end_token_id if stop_token is None else stop_token
+        dev = embeds.device
+        profiling.count("sync")
+        next_tok = int(first[0])
 
-    lk = np.zeros(0, np.int64) if lookup_ids is None else \
-        lookup_ids.reshape(-1).to("cpu", torch.int64).numpy()
-    S = lk.shape[0]
-    hist = np.full(S + max_new_tokens + k + 2, -1, np.int64)
-    hist[:S] = lk
-    hist[S] = next_tok
-    n_pos0 = int(attn_valid.sum())
+        if lookup_ids is None:
+            lk = np.zeros(0, np.int64)
+        else:
+            profiling.count("sync")
+            lk = lookup_ids.reshape(-1).to("cpu", torch.int64).numpy()
+        S = lk.shape[0]
+        hist = np.full(S + max_new_tokens + k + 2, -1, np.int64)
+        hist[:S] = lk
+        hist[S] = next_tok
+        profiling.count("sync")
+        n_pos0 = int(attn_valid.sum())
     out = np.full(max_new_tokens, cfg.pad_token_id, np.int64)
     out[0] = next_tok
     done = next_tok == stop
@@ -556,47 +579,53 @@ def greedy_decode_spec(params: Params, cfg: Phi3Config, embeds: torch.Tensor,
     n_em, last, prev, prev2, npass = 1, next_tok, -1, -1, 0
     force = flags.spec_force_accept()
     while n_em < max_new_tokens and not done:
-        b3 = S + n_em - 4
-        prev3 = int(hist[b3]) if b3 >= 0 else -1
-        drf = _ngram_draft(hist, S + n_em, prev3, prev2, prev, last, k)
-        d = np.concatenate([[last], drf])
-        pos0 = n_pos0 + n_em - 1
-        wslot = T + n_em - 1
-        if force or (drf >= 0).any():
-            e = embed(params, torch.as_tensor(np.clip(d, 0, None), device=dev))[None]
-            e = e.to(embeds.dtype)
-            if fused:
-                lg, cache = _verify_forward_fused(params, cfg, e, pos0, cache, wslot, valid)
+        with profiling.span("generate.pass"):
+            b3 = S + n_em - 4
+            prev3 = int(hist[b3]) if b3 >= 0 else -1
+            drf = _ngram_draft(hist, S + n_em, prev3, prev2, prev, last, k)
+            d = np.concatenate([[last], drf])
+            pos0 = n_pos0 + n_em - 1
+            wslot = T + n_em - 1
+            if force or (drf >= 0).any():
+                e = embed(params, torch.as_tensor(np.clip(d, 0, None), device=dev))[None]
+                e = e.to(embeds.dtype)
+                if fused:
+                    lg, cache = _verify_forward_fused(params, cfg, e, pos0, cache, wslot, valid)
+                else:
+                    row_extra = ((t_iota[None, :] >= wslot)
+                                 & (t_iota[None, :] <= wslot + kk[:, None]))
+                    m = valid[:, None, :] | row_extra[None]
+                    lg, cache = decode_forward(params, cfg, e, (pos0 + kk)[None], cache, wslot,
+                                               m)
+                profiling.count("sync")
+                a = lg[0].argmax(-1).tolist()
             else:
-                row_extra = (t_iota[None, :] >= wslot) & (t_iota[None, :] <= wslot + kk[:, None])
-                m = valid[:, None, :] | row_extra[None]
-                lg, cache = decode_forward(params, cfg, e, (pos0 + kk)[None], cache, wslot, m)
-            a = lg[0].argmax(-1).tolist()
-        else:
-            e1 = embed(params, torch.as_tensor([max(last, 0)], device=dev))[None]
-            e1 = e1.to(embeds.dtype)
-            pos = torch.full((1, 1), pos0, device=dev)
-            if fused:
-                lg, cache = _decode_forward_fused(params, cfg, e1, pos, cache, wslot, valid)
-            else:
-                m1 = (valid | (t_iota == wslot)[None])[:, None, :]
-                lg, cache = decode_forward(params, cfg, e1, pos, cache, wslot, m1)
-            a = [int(lg[0].argmax(-1)[0])] + [-2] * (k - 1)
-        acc = k if force else 1
-        while acc < k and d[acc] == a[acc - 1]:
-            acc += 1
-        stop_pos = next((j for j in range(acc) if a[j] == stop), k)
-        acc = min(acc, stop_pos + 1, max_new_tokens - n_em)
-        out[n_em: n_em + acc] = a[:acc]
-        hist[S + n_em: S + n_em + acc] = a[:acc]
-        valid[:, wslot: wslot + acc] = True
-        new_last = a[acc - 1]
-        new_prev = a[acc - 2] if acc >= 2 else last
-        new_prev2 = a[acc - 3] if acc >= 3 else (last if acc == 2 else prev)
-        done = stop_pos < acc
-        last, prev, prev2 = new_last, new_prev, new_prev2
-        n_em += acc
-        npass += 1
+                e1 = embed(params, torch.as_tensor([max(last, 0)], device=dev))[None]
+                e1 = e1.to(embeds.dtype)
+                pos = torch.full((1, 1), pos0, device=dev)
+                if fused:
+                    lg, cache = _decode_forward_fused(params, cfg, e1, pos, cache, wslot, valid)
+                else:
+                    m1 = (valid | (t_iota == wslot)[None])[:, None, :]
+                    lg, cache = decode_forward(params, cfg, e1, pos, cache, wslot, m1)
+                profiling.count("sync")
+                a = [int(lg[0].argmax(-1)[0])] + [-2] * (k - 1)
+            acc = k if force else 1
+            while acc < k and d[acc] == a[acc - 1]:
+                acc += 1
+            stop_pos = next((j for j in range(acc) if a[j] == stop), k)
+            acc = min(acc, stop_pos + 1, max_new_tokens - n_em)
+            out[n_em: n_em + acc] = a[:acc]
+            hist[S + n_em: S + n_em + acc] = a[:acc]
+            valid[:, wslot: wslot + acc] = True
+            new_last = a[acc - 1]
+            new_prev = a[acc - 2] if acc >= 2 else last
+            new_prev2 = a[acc - 3] if acc >= 3 else (last if acc == 2 else prev)
+            done = stop_pos < acc
+            last, prev, prev2 = new_last, new_prev, new_prev2
+            n_em += acc
+            npass += 1
+            profiling.count("decode.passes")
     if stats is not None:
         stats.update(tokens=n_em, passes=npass)
     return torch.as_tensor(out, device=dev)[None]
@@ -621,6 +650,7 @@ def _verify_forward_grouped(params: Params, cfg: Phi3Config, e: torch.Tensor,
         cos, sin = _rope_table(cfg, (pos0[:, None] + gg[None]).reshape(-1))
         x = e.reshape(B * g, 1, D)
         mask_rows = valid.repeat_interleave(g, dim=0)     # [B*g, Tmax]
+        profiling.count("sync")
         posr = wslot.repeat_interleave(g).tolist()
         for li in range(cfg.num_layers):
             p = params["layers"][li]
@@ -673,19 +703,23 @@ def greedy_decode_spec_batched(params: Params, cfg: Phi3Config, embeds: torch.Te
     total = T + max_new_tokens + g
     if fused:
         total = -(-total // ROWS) * ROWS
-    first, cache = _prefill(params, cfg, embeds, attn_valid, total)
-    if fused:
-        cache = _flat(cache, cfg)
-    stop = cfg.end_token_id if stop_token is None else stop_token
-    dev = embeds.device
-    first = first.cpu().numpy().astype(np.int64)
+    with profiling.span("generate.prefill"):
+        first, cache = _prefill(params, cfg, embeds, attn_valid, total)
+        if fused:
+            cache = _flat(cache, cfg)
+        stop = cfg.end_token_id if stop_token is None else stop_token
+        dev = embeds.device
+        profiling.count("sync")
+        first = first.cpu().numpy().astype(np.int64)
 
-    S = 0 if lookup_ids is None else int(lookup_ids.shape[-1])
-    hist = np.full((B, S + max_new_tokens + g + 2), -1, np.int64)
-    if lookup_ids is not None:
-        hist[:, :S] = lookup_ids.reshape(B, S).to("cpu", torch.int64).numpy()
-    hist[:, S] = first
-    n_pos0 = attn_valid.sum(1).cpu().numpy().astype(np.int64)
+        S = 0 if lookup_ids is None else int(lookup_ids.shape[-1])
+        hist = np.full((B, S + max_new_tokens + g + 2), -1, np.int64)
+        if lookup_ids is not None:
+            profiling.count("sync")
+            hist[:, :S] = lookup_ids.reshape(B, S).to("cpu", torch.int64).numpy()
+        hist[:, S] = first
+        profiling.count("sync")
+        n_pos0 = attn_valid.sum(1).cpu().numpy().astype(np.int64)
     out = np.full((B, max_new_tokens), cfg.pad_token_id, np.int64)
     out[:, 0] = first
     done = first == stop
@@ -695,42 +729,46 @@ def greedy_decode_spec_batched(params: Params, cfg: Phi3Config, embeds: torch.Te
     last, prev, prev2 = first.copy(), np.full(B, -1, np.int64), np.full(B, -1, np.int64)
     npass = 0
     while bool(np.any(~done & (n_em < max_new_tokens))):
-        b3 = S + n_em - 4
-        prev3 = np.where(b3 >= 0, hist[rows, np.maximum(b3, 0)], -1)
-        drf = np.stack([_ngram_draft(hist[b], int(S + n_em[b]), int(prev3[b]), int(prev2[b]),
-                                     int(prev[b]), int(last[b]), g) for b in range(B)])
-        d = np.concatenate([last[:, None], drf], axis=1)             # [B, g]
-        e = embed(params, torch.as_tensor(np.clip(d, 0, None), device=dev)).to(embeds.dtype)
-        wslot = T + n_em - 1
-        lg, cache = _verify_forward_grouped(
-            params, cfg, e, torch.as_tensor(n_pos0 + n_em - 1, device=dev), cache,
-            torch.as_tensor(wslot, device=dev), valid, fused)
-        a = lg.argmax(-1).cpu().numpy().astype(np.int64)            # [B, g]
-        if flags.spec_force_accept():
-            match = np.ones((B, g - 1), np.int64)
-        else:
-            match = (d[:, 1:] == a[:, :-1]).astype(np.int64)
-        acc = 1 + np.cumprod(match, axis=1).sum(axis=1)
-        stop_pos = np.where((a == stop) & (gg[None] < acc[:, None]), gg[None], g).min(axis=1)
-        acc = np.minimum(np.minimum(acc, stop_pos + 1), max_new_tokens - n_em)
-        acc = np.where(done, 0, acc)
-        for b in range(B):
-            n, w, c = int(n_em[b]), int(wslot[b]), int(acc[b])
-            out[b, n: n + c] = a[b, :c]
-            hist[b, S + n: S + n + c] = a[b, :c]
-            valid[b, w: w + c] = True
+        with profiling.span("generate.pass"):
+            b3 = S + n_em - 4
+            prev3 = np.where(b3 >= 0, hist[rows, np.maximum(b3, 0)], -1)
+            drf = np.stack([_ngram_draft(hist[b], int(S + n_em[b]), int(prev3[b]),
+                                         int(prev2[b]), int(prev[b]), int(last[b]), g)
+                            for b in range(B)])
+            d = np.concatenate([last[:, None], drf], axis=1)             # [B, g]
+            e = embed(params, torch.as_tensor(np.clip(d, 0, None), device=dev)).to(embeds.dtype)
+            wslot = T + n_em - 1
+            lg, cache = _verify_forward_grouped(
+                params, cfg, e, torch.as_tensor(n_pos0 + n_em - 1, device=dev), cache,
+                torch.as_tensor(wslot, device=dev), valid, fused)
+            profiling.count("sync")
+            a = lg.argmax(-1).cpu().numpy().astype(np.int64)            # [B, g]
+            if flags.spec_force_accept():
+                match = np.ones((B, g - 1), np.int64)
+            else:
+                match = (d[:, 1:] == a[:, :-1]).astype(np.int64)
+            acc = 1 + np.cumprod(match, axis=1).sum(axis=1)
+            stop_pos = np.where((a == stop) & (gg[None] < acc[:, None]), gg[None], g).min(axis=1)
+            acc = np.minimum(np.minimum(acc, stop_pos + 1), max_new_tokens - n_em)
+            acc = np.where(done, 0, acc)
+            for b in range(B):
+                n, w, c = int(n_em[b]), int(wslot[b]), int(acc[b])
+                out[b, n: n + c] = a[b, :c]
+                hist[b, S + n: S + n + c] = a[b, :c]
+                valid[b, w: w + c] = True
 
-        def a_at(off):
-            return a[rows, np.clip(acc - off, 0, g - 1)]
+            def a_at(off):
+                return a[rows, np.clip(acc - off, 0, g - 1)]
 
-        new_last = np.where(acc > 0, a_at(1), last)
-        new_prev = np.where(acc >= 2, a_at(2), np.where(acc == 1, last, prev))
-        new_prev2 = np.where(acc >= 3, a_at(3),
-                             np.where(acc == 2, last, np.where(acc == 1, prev, prev2)))
-        done = done | (stop_pos < acc)
-        last, prev, prev2 = new_last, new_prev, new_prev2
-        n_em = n_em + acc
-        npass += 1
+            new_last = np.where(acc > 0, a_at(1), last)
+            new_prev = np.where(acc >= 2, a_at(2), np.where(acc == 1, last, prev))
+            new_prev2 = np.where(acc >= 3, a_at(3),
+                                 np.where(acc == 2, last, np.where(acc == 1, prev, prev2)))
+            done = done | (stop_pos < acc)
+            last, prev, prev2 = new_last, new_prev, new_prev2
+            n_em = n_em + acc
+            npass += 1
+            profiling.count("decode.passes")
     if stats is not None:
         stats.update(tokens=n_em.tolist(), passes=npass)
     return torch.as_tensor(out, device=dev)

@@ -24,6 +24,7 @@ from dynam3d_torch.device import DeviceLike, resolve_device
 from dynam3d_torch.models import policy as policy_mod
 from dynam3d_torch.models.policy import I_ENV, Z_ENV
 from dynam3d_torch.models.vlm.tokenizer import ByteTokenizer, build_prompt
+from dynam3d_torch.runtime import profiling
 from dynam3d_torch.runtime.feed import STOP, Feed
 from dynam3d_torch.utils.actions import EpisodeActionState, parse_action
 
@@ -39,7 +40,10 @@ class EpisodeRunner:
     ``step_log`` records, per step, the generated ids of row 0, its text,
     the ids and texts of every live row with their feed indices, the prompt
     length, the speculative-decode tokens and passes and the step's wall
-    time (synchronized)."""
+    time (synchronized).  With recording on (``runtime/profiling.py``) each
+    step is a span ``step`` over the interval of its ``ms``, tagged with its
+    index in ``step_log``, and each row's ``feeds[i].step`` a span
+    ``step.feed``."""
 
     def __init__(self, params, cfg: Dynam3DConfig, tokenizer=None, views: int = 1,
                  device: DeviceLike = None):
@@ -134,64 +138,71 @@ class EpisodeRunner:
                             device=self.device)
 
         for stepk in range(max_steps):
+            profiling.set_step(len(self.step_log))
             t0 = time.perf_counter()
-            rgb = torch.stack([dev_obs[i][0] for i in live])
-            depth = torch.stack([dev_obs[i][1] for i in live])
-            pos = torch.stack([dev_obs[i][2] for i in live])
-            hd = torch.tensor([obs[i].heading for i in live], dtype=torch.float32,
-                              device=self.device)
-            ids, tvalid, lens = self._prompt_ids(
-                [obs[i].instruction for i in live],
-                [act_state[i].history_actions for i in live],
-            )
-            prev = torch.stack([last_gen.get(i, no_gen) for i in live])
-            stats: Dict = {}
-            state, gen = self._full_step(state, rgb, depth, pos, hd, ids, tvalid, prev,
-                                         stats=stats)
-            for row, i in enumerate(live):
-                last_gen[i] = gen[row]
-            gen_np = gen.cpu().numpy()
+            with profiling.span("step"):
+                rgb = torch.stack([dev_obs[i][0] for i in live])
+                depth = torch.stack([dev_obs[i][1] for i in live])
+                pos = torch.stack([dev_obs[i][2] for i in live])
+                hd = torch.tensor([obs[i].heading for i in live], dtype=torch.float32,
+                                  device=self.device)
+                ids, tvalid, lens = self._prompt_ids(
+                    [obs[i].instruction for i in live],
+                    [act_state[i].history_actions for i in live],
+                )
+                prev = torch.stack([last_gen.get(i, no_gen) for i in live])
+                stats: Dict = {}
+                state, gen = self._full_step(state, rgb, depth, pos, hd, ids, tvalid, prev,
+                                             stats=stats)
+                for row, i in enumerate(live):
+                    last_gen[i] = gen[row]
+                profiling.count("sync")
+                gen_np = gen.cpu().numpy()
 
-            done_now: List[int] = []
-            texts = []
-            for row, i in enumerate(list(live)):
-                text = self.tok.decode(gen_np[row])
-                cut = text.find("<|end|>")
-                if cut != -1:
-                    text = text[:cut]
-                texts.append(text)
-                act_state[i].push_history(text + "\n")
-                action = parse_action(text, cfg.action)
-                if ignore_stop and stepk < max_steps - 1 and (
-                    action == STOP or (action[0] == 0.0 and action[1] == 0.0)
-                ):
-                    action = (0.1, 0.25)
-                if action == STOP or stepk == max_steps - 1 or (
-                    action != STOP and action[0] == 0.0 and action[1] == 0.0
-                ):
-                    o, d, info = feeds[i].step(STOP)
-                    results[i] = {"steps": stepk + 1,
-                                  "distance_to_goal": feeds[i].oracle_distance(), **info}
-                    done_now.append(i)
-                else:
-                    o, d, info = feeds[i].step(action)
-                    obs[i] = o
-                    if not d:
-                        dev_obs[i] = self._upload(o)
-                    if d:
+                done_now: List[int] = []
+                texts = []
+                for row, i in enumerate(list(live)):
+                    text = self.tok.decode(gen_np[row])
+                    cut = text.find("<|end|>")
+                    if cut != -1:
+                        text = text[:cut]
+                    texts.append(text)
+                    act_state[i].push_history(text + "\n")
+                    action = parse_action(text, cfg.action)
+                    if ignore_stop and stepk < max_steps - 1 and (
+                        action == STOP or (action[0] == 0.0 and action[1] == 0.0)
+                    ):
+                        action = (0.1, 0.25)
+                    if action == STOP or stepk == max_steps - 1 or (
+                        action != STOP and action[0] == 0.0 and action[1] == 0.0
+                    ):
+                        with profiling.span("step.feed"):
+                            o, d, info = feeds[i].step(STOP)
                         results[i] = {"steps": stepk + 1,
                                       "distance_to_goal": feeds[i].oracle_distance(), **info}
                         done_now.append(i)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self.step_log.append({
-                "step": stepk, "gen": gen_np[0].tolist(), "text": texts[0],
-                "feeds": list(live), "gens": gen_np.tolist(), "texts": texts,
-                "prompt_tokens": int(lens[0]), "bucket": int(ids.shape[1]),
-                "passes": stats.get("passes"), "tokens": stats.get("tokens"),
-                "mm_finite": stats.get("mm_finite"),
-                "ms": (time.perf_counter() - t0) * 1e3,
-            })
+                    else:
+                        with profiling.span("step.feed"):
+                            o, d, info = feeds[i].step(action)
+                        obs[i] = o
+                        if not d:
+                            dev_obs[i] = self._upload(o)
+                        if d:
+                            results[i] = {"steps": stepk + 1,
+                                          "distance_to_goal": feeds[i].oracle_distance(),
+                                          **info}
+                            done_now.append(i)
+                if self.device.type == "cuda":
+                    profiling.count("sync")
+                    torch.cuda.synchronize(self.device)
+                self.step_log.append({
+                    "step": stepk, "gen": gen_np[0].tolist(), "text": texts[0],
+                    "feeds": list(live), "gens": gen_np.tolist(), "texts": texts,
+                    "prompt_tokens": int(lens[0]), "bucket": int(ids.shape[1]),
+                    "passes": stats.get("passes"), "tokens": stats.get("tokens"),
+                    "mm_finite": stats.get("mm_finite"),
+                    "ms": (time.perf_counter() - t0) * 1e3,
+                })
 
             for i in done_now:
                 state = policy_mod.pop_state(state, live.index(i))
