@@ -13,6 +13,7 @@
     python3 chip_smoke.py --phases build,dist,soak
     python3 chip_smoke.py --phases build,tools
     python3 chip_smoke.py --phases build,bench
+    python3 chip_smoke.py --phases build,graph
 
 Phases, each printed as it finishes:
 
@@ -245,7 +246,20 @@ Phases, each printed as it finishes:
    --il-steps 8 --pretrain-iters 4`` in a temporary work directory: every
    row, finite losses, both resume checks bit-compatible (the IL one in its
    fresh process), kernel C in every pretraining iteration and no plain
-   version.
+   version;
+27. ``graph``: the B=1 ring pass at Phi-3-mini widths replayed as a CUDA
+   graph (``phi3._ring_pass``) against the same pass run eagerly: logits,
+   argmax and the written cache rows bit for bit at 8 and 1 rows and
+   t_scan 1024 and 1536 (at 1 row also against ``_decode_forward_fused``),
+   and again after a larger request replaced the shared ticket buffer;
+   then two ``greedy_decode_spec`` calls of one Tmax (plain passes, then
+   verify passes) with the program's counters on: ``decode.graph_captures`` equals the keys captured,
+   ``decode.graph_replays`` equals ``decode.passes``, kernels A and B
+   counted once a layer for every pass and every capture's warm run, and
+   one more replay adds its capture's tally; the host time of a pass, split
+   into the draft, the staging copy, the replay's launch and the wait for
+   its argmax, and a pass's time eager and replayed; a fourth cache length
+   drops the least recently used one's buffers and graphs.
 
 Any failure exits non-zero.  The line before the last is the kernels' JSON
 record; the last line is ``{"ok": true, "device": {...}}``.
@@ -265,7 +279,7 @@ import time
 
 PHASES = ("build", "matvec", "ring", "parity", "episode", "nerf", "knn", "render", "pretrain",
           "walk", "matvec2d", "mlp", "attn", "routes", "batched", "tools", "bench", "yolo",
-          "stream", "vln", "cli", "convert", "data", "dist", "soak")
+          "stream", "vln", "cli", "convert", "data", "dist", "soak", "graph")
 
 # the dense bf16 tensor-core peak and the float32 peak outside the tensor
 # cores (H100 SXM); memory rates are dynam3d_torch.device.MEM_RATES
@@ -1027,6 +1041,186 @@ def phase_routes(ctx):
         if any(counts[k] < 1 for k in want) or any(plain.values()):
             raise AssertionError(f"route {route}: kernels {want} not all launched ({counts}, "
                                  f"plain {plain})")
+
+
+def phase_graph(ctx):
+    """The B=1 ring pass replayed from a CUDA graph against the eager pass,
+    and the counters of two speculative calls."""
+    torch = ctx["torch"]
+    import numpy as np
+
+    from dynam3d_torch.config import Phi3Config
+    from dynam3d_torch.models.vlm import phi3
+    from dynam3d_torch.ops import kernels
+    from dynam3d_torch.runtime import profiling
+
+    cfg, dev = Phi3Config(), torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    params = phi3.quantize_phi3(phi3.init_phi3_params(gen, cfg, device="cuda"), bits=4,
+                                consume=True)
+    rng = np.random.default_rng(7)
+
+    def prompt(T):
+        e = torch.randn(1, T, cfg.hidden_size, generator=gen, device=dev) * 0.5
+        v = torch.ones(1, T, dtype=torch.bool, device=dev)
+        v[0, 40:45] = False
+        return e.to(torch.bfloat16), v
+
+    # (1) replay against the eager body, bit for bit
+    T, tmax = 1000, 2048
+    embeds, valid = prompt(T)
+    phi3._graphs.clear()
+    phi3._claim_graphs(params, cfg, torch.bfloat16)
+    buf = phi3._buffers(cfg, tmax, torch.bfloat16, dev)
+    phi3._prefill(params, cfg, embeds, valid, tmax, cache=buf.cache)
+    buf.valid.zero_()
+    buf.valid[:, :T] = valid
+    pos0 = int(valid.sum())
+    flat = phi3._flat(buf.cache, cfg)
+    def replay_vs_eager(rows, wslot, t_scan):
+        ids = rng.integers(0, cfg.vocab_size, rows)
+        key = phi3._graph_key(rows, tmax, wslot)
+        if key[2] != t_scan:
+            raise AssertionError(f"[graph] key {key}, expected t_scan {t_scan}")
+        iota = torch.arange(rows, device=dev)
+        buf.inputs[0, :rows] = torch.as_tensor(ids, device=dev)
+        buf.inputs[1, :rows] = pos0 + iota
+        buf.inputs[2, :rows] = wslot + iota
+        lg_e, top_e = phi3._ring_body(params, cfg, buf, rows, t_scan)
+        k_e = flat.k[:, 0, wslot: wslot + rows].clone()
+        v_e = flat.v[:, 0, wslot: wslot + rows].clone()
+        lg_e = lg_e.clone()
+        flat.k[:, 0, wslot: wslot + rows] = 0
+        flat.v[:, 0, wslot: wslot + rows] = 0
+        lg_g, top_g = phi3._ring_pass(params, cfg, buf, ids, pos0, wslot)
+        same = (torch.equal(lg_g, lg_e) and torch.equal(top_g, top_e)
+                and torch.equal(flat.k[:, 0, wslot: wslot + rows], k_e)
+                and torch.equal(flat.v[:, 0, wslot: wslot + rows], v_e))
+        return ids, lg_g, same, (lg_g - lg_e).abs().max().item()
+
+    for wslot, t_scan in ((T, 1024), (1200, 1536)):
+        for rows in (8, 1):
+            ids, lg_g, same, diff = replay_vs_eager(rows, wslot, t_scan)
+            old = None
+            if rows == 1:
+                e = phi3.embed(params, torch.as_tensor(ids, device=dev))[None]
+                lg_o, _ = phi3._decode_forward_fused(
+                    params, cfg, e, torch.full((1, 1), pos0, device=dev), flat, wslot,
+                    buf.valid)
+                old = torch.equal(lg_o, lg_g)
+            log(f"[graph] rows {rows} wslot {wslot} t_scan {t_scan}: replay == eager {same} "
+                f"(max |dlogit| {diff}), == _decode_forward_fused {old}")
+            if not same or old is False:
+                raise AssertionError(f"[graph] rows {rows} t_scan {t_scan}: replay differs")
+
+    # a larger request elsewhere replaces the shared ticket buffer: the graphs
+    # keep the one they were captured on, so a tensor made now cannot take it
+    from dynam3d_torch.ops import int4
+
+    tdev = buf.valid.device
+    n_tickets = int4._tickets[tdev].numel()
+    int4._ticket_buffer(tdev, 4 * n_tickets)
+    fill = torch.full((n_tickets,), 7, dtype=torch.int32, device=tdev)
+    _, _, same, diff = replay_vs_eager(8, 1200, 1536)
+    untouched = bool((fill == 7).all())
+    log(f"[graph] after the ticket buffer grew {n_tickets} -> {int4._tickets[tdev].numel()}: "
+        f"replay == eager {same} (max |dlogit| {diff}), a new tensor untouched {untouched}")
+    if not (same and untouched):
+        raise AssertionError("[graph] a replay after the ticket buffer grew differs")
+    del fill
+
+    # (2) two calls of one Tmax: captures, replays and launches
+    phi3._graphs.clear()
+    phi3._graphs_owner = None
+    calls = [prompt(900), prompt(950)]
+    n_new = 20
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    profiling.reset()
+    profiling.enable()
+    try:
+        stats = []
+        # the first call's passes are plain (no draft hits), the second's
+        # verify all 8 rows (timing mode: every draft accepted)
+        for (e, v), env in zip(calls, ({}, {"DYNAM3D_SPEC_FORCE_ACCEPT": "1"})):
+            st = {}
+            with _flags(env):
+                phi3.greedy_decode_spec(params, cfg, e, v, n_new, stop_token=-1, stats=st)
+            stats.append(st)
+        torch.cuda.synchronize()
+        c, launches = profiling.counts(), dict(kernels.launches)
+    finally:
+        profiling.disable()
+    keys = sorted(phi3._graphs)
+    passes, caps = c.get("decode.passes", 0), c.get("decode.graph_captures", 0)
+    replays = c.get("decode.graph_replays", 0)
+    tally = {k: g.launches for k, g in phi3._graphs.items()}
+    per_pass = {"int4_matvec": 4 * cfg.num_layers + 1, "decode_attn": cfg.num_layers}
+    want = {n: m * (passes + caps) for n, m in per_pass.items()}
+    want["int4_matvec"] += len(calls)              # each prefill's head, one row
+    log(f"[graph] two calls (T 900, 950; Tmax 1024): keys {keys}, captures {caps}, "
+        f"replays {replays}, passes {passes}, stats {stats}, tally {tally}, "
+        f"launches A {launches['int4_matvec']} B {launches['decode_attn']} (want {want})")
+    if caps != len(keys) or replays != passes or passes < 2:
+        raise AssertionError(f"[graph] captures {caps} / keys {len(keys)}, replays {replays} / "
+                             f"passes {passes}")
+    if any(t != per_pass for t in tally.values()):
+        raise AssertionError(f"[graph] a capture's tally is not one pass: {tally}")
+    if any(launches[n] != want[n] for n in want) or any(kernels.plain_calls.values()):
+        raise AssertionError(f"[graph] launches {launches} != {want}")
+    key = keys[0]
+    rows, _, t_scan = key
+    buf = phi3._buffers(cfg, 1024, torch.bfloat16, dev)
+    before = dict(kernels.launches)
+    phi3._ring_pass(params, cfg, buf, rng.integers(0, 64, rows), 940, 960)
+    added = {n: v - before[n] for n, v in kernels.launches.items() if v != before[n]}
+    log(f"[graph] one more replay of {key} adds {added}")
+    if added != per_pass:
+        raise AssertionError(f"[graph] a replay added {added}, its capture tallied {per_pass}")
+
+    # (3) the host time of a pass, and a pass eager against replayed
+    hist = np.concatenate([rng.integers(0, 64, 40), rng.integers(0, 64, 20), np.full(12, -1)])
+    g = phi3._graphs[key]
+    parts = {"draft": [], "stage": [], "launch": [], "wait": [], "eager": [], "replayed": []}
+    for i in range(30):
+        t0 = time.perf_counter()
+        phi3._ngram_draft(hist, 60, int(hist[56]), int(hist[57]), int(hist[58]),
+                          int(hist[59]), 8)
+        t1 = time.perf_counter()
+        st = buf.staged.numpy()
+        st[0, :rows] = hist[:rows]
+        st[1, :rows] = 940 + np.arange(rows)
+        st[2, :rows] = 960 + np.arange(rows)
+        buf.inputs.copy_(buf.staged, non_blocking=True)
+        t2 = time.perf_counter()
+        g.graph.replay()
+        t3 = time.perf_counter()
+        g.out[1].tolist()
+        t4 = time.perf_counter()
+        _, top = phi3._ring_body(params, cfg, buf, rows, t_scan)
+        top.tolist()
+        t5 = time.perf_counter()
+        if i >= 5:
+            for name, a, b in (("draft", t0, t1), ("stage", t1, t2), ("launch", t2, t3),
+                               ("wait", t3, t4), ("eager", t4, t5), ("replayed", t1, t4)):
+                parts[name].append((b - a) * 1e3)
+    med = {n: round(float(np.median(v)), 4) for n, v in parts.items()}
+    log(f"[graph] host ms of a {rows}-row pass (median of 25): {json.dumps(med)}")
+    # (4) a new cache length past the kept ones drops the least recently
+    # used length's buffers and the graphs that read them
+    for t in (1536, 2560, 3072):
+        phi3._buffers(cfg, t, torch.bfloat16, dev)
+    kept = sorted(k[-1] for k in phi3._ring_buffers)
+    log(f"[graph] buffers kept for Tmax {kept}, graphs left {sorted(phi3._graphs)}")
+    if kept != [1536, 2560, 3072] or phi3._graphs:
+        raise AssertionError(f"[graph] kept {kept} and graphs {sorted(phi3._graphs)}")
+    ctx["graph"] = dict(keys=[list(k) for k in keys], captures=caps, replays=replays,
+                        passes=passes, ms=med)
+    phi3._graphs.clear()
+    phi3._graphs_owner = None
+    phi3._ring_buffers.clear()
+    del params, buf, flat
+    torch.cuda.empty_cache()
 
 
 BATCHED = [

@@ -6,8 +6,8 @@ Port of ``models/vlm/phi3.py``: ``rms_norm``, ``_rope``,
 ``_mm`` (dense, int8 W8A8 prefill, int4 matvec) and ``_mlp`` (fused int4
 MLP), ``_lm_head``, ``decode_forward``, the route checks
 ``_fused_decode_eligible`` / ``_ring_eligible`` / ``_fused_layer_eligible``,
-``_decode_forward_fused`` (ring and split), ``_verify_forward_fused``,
-``_verify_forward_grouped``, ``_last_valid_idx``, ``_ngram_draft``,
+``_decode_forward_fused`` (ring and split), the B=1 speculative ring pass
+``_ring_pass``, ``_verify_forward_grouped``, ``_last_valid_idx``, ``_ngram_draft``,
 ``greedy_decode``, ``greedy_decode_spec``, ``greedy_decode_spec_batched``,
 ``init_phi3_params`` and ``quantize_phi3``.
 
@@ -30,7 +30,9 @@ collectives).  Under TP decode takes the unfused dense route.
 
 Kernels run on CUDA tensors, their plain versions on CPU tensors.  The
 decode loops run on the host (Python control flow), reading the argmax of
-each pass back from the device.  Each greedy route records the spans
+each pass back from the device.  ``greedy_decode_spec``'s ring passes run
+over long-lived buffers (``_ring_pass``), so that on the card each pass is
+the replay of a CUDA graph captured once per ``(rows, Tmax, t_scan)``.  Each greedy route records the spans
 ``generate.prefill`` (closing at the first read of the prefill's token)
 and ``generate.pass`` (one a pass, closing at its argmax read), and counts
 ``decode.passes`` and its reads as ``sync`` (``runtime/profiling.py``).
@@ -40,7 +42,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, NamedTuple, Optional
+import threading
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,7 +52,10 @@ from torch.utils.checkpoint import checkpoint
 from dynam3d_torch import flags
 from dynam3d_torch.config import Phi3Config
 from dynam3d_torch.device import resolve_device
-from dynam3d_torch.ops.decode import MAX_ROWS, ROWS, decode_attn_layer, decode_layer_ring
+from dynam3d_torch.ops import int4, kernels
+from dynam3d_torch.ops.decode import (
+    MAX_ROWS, ROWS, decode_attn_layer, decode_layer_ring, scan_length,
+)
 from dynam3d_torch.ops.int4 import int4_matmul, int4_mlp, int4_mlp_block, pack_int4
 from dynam3d_torch.ops.transformer import dot_f32
 from dynam3d_torch.parallel.comm import (
@@ -403,27 +409,192 @@ def _decode_forward_fused(params: Params, cfg: Phi3Config, embeds: torch.Tensor,
     return _lm_head(params, x), cache
 
 
-def _verify_forward_fused(params: Params, cfg: Phi3Config, embeds: torch.Tensor,
-                          pos0: int, cache: KVCache, wslot: int, valid: torch.Tensor):
-    """Speculative verify pass: ``embeds [1, k, D]`` draft rows share one
-    weight stream and one cache row (shared-cache mode); row r folds draft
-    rows 0..r.  ``valid [1, Tmax]`` holds the ACCEPTED slots only.  Writes
-    the drafts' k/v at ``wslot..wslot+k-1`` and returns logits ``[1, k, V]``."""
-    _, k, D = embeds.shape
-    cos, sin = _rope_table(cfg, pos0 + torch.arange(k, device=embeds.device))
-    x = embeds[0][:, None, :]
+def _ring_layers(params: Params, cfg: Phi3Config, x: torch.Tensor, cos: torch.Tensor,
+                 sin: torch.Tensor, slots: torch.Tensor, t_scan: int, cache: KVCache,
+                 valid: torch.Tensor) -> torch.Tensor:
+    """The B=1 ring's layers, final norm and head over ``x [r, 1, D]``: the
+    r rows share one weight stream and cache row 0 (shared-cache mode, row j
+    folds rows 0..j; at r = 1 the plain one-row pass).  ``valid [1, Tmax]``
+    holds the accepted slots; each layer reads the first ``t_scan`` cache
+    rows and writes its new k/v at ``slots [r]`` (a long tensor on the
+    cache's device).  Returns logits ``[1, r, V]``."""
+    r, _, D = x.shape
     for li in range(cfg.num_layers):
         p = params["layers"][li]
+        # the layer reads the slot only for its scan length, which t_scan,
+        # a multiple of ROWS, is its own
         x, k_new, v_new = decode_layer_ring(
             x, p["input_ln"], p["qkv"]["q4"], p["o"]["q4"], p["post_ln"],
-            p["gate_up"]["q4"], p["down"]["q4"], cache.k, cache.v, li, wslot,
+            p["gate_up"]["q4"], p["down"]["q4"], cache.k, cache.v, li, t_scan,
             valid, cos, sin, eps=cfg.rms_eps, heads=cfg.num_heads, hd=cfg.head_dim,
             shared_cache=True,
         )
-        cache.k[li, 0, wslot: wslot + k] = k_new
-        cache.v[li, 0, wslot: wslot + k] = v_new
-    x = rms_norm(params["final_ln"], x.reshape(1, k, D), cfg.rms_eps)
-    return _lm_head(params, x), cache
+        cache.k[li, 0].index_copy_(0, slots, k_new.to(cache.k.dtype))
+        cache.v[li, 0].index_copy_(0, slots, v_new.to(cache.v.dtype))
+    x = rms_norm(params["final_ln"], x.reshape(1, r, D), cfg.rms_eps)
+    return _lm_head(params, x)
+
+
+# --------------------------------------------- the B=1 ring pass as a CUDA graph
+#
+# greedy_decode_spec's ring passes read everything that changes from pass
+# to pass from long-lived tensors: the cache and the accepted-slot mask of
+# the call's Tmax, and three rows of MAX_ROWS longs on the device (ids,
+# positions, write slots) filled from a host copy before the pass.  On the
+# card each (rows, Tmax, t_scan) is captured once as a CUDA graph and then
+# replayed; on the CPU the same body runs eagerly.  The buffers of at most
+# _TMAX_KEPT cache lengths are kept, the least recently used dropped first
+# with the graphs that read them.
+
+class _RingBuffers(NamedTuple):
+    cache: KVCache          # [L, 1, Tmax, H, hd], zeroed by each call's prefill
+    valid: torch.Tensor     # [1, Tmax] bool: the accepted slots
+    inputs: torch.Tensor    # [3, MAX_ROWS] int64: ids, positions, write slots
+    staged: torch.Tensor    # its host copy (pinned for a card)
+
+
+class _Graph(NamedTuple):
+    graph: Any              # torch.cuda.CUDAGraph
+    out: tuple              # (logits [1, r, V], argmax [r]), rewritten by each replay
+    launches: Dict[str, int]    # kernel launches a replay makes
+    reads: tuple            # what it reads by address besides the weights: its
+                            # _RingBuffers, then the ticket buffers it was captured on
+
+
+# the ring's buffers and graphs serve one call at a time (run_interleaved
+# decodes from threads)
+_ring_lock = threading.Lock()
+_ring_buffers: Dict[tuple, _RingBuffers] = {}
+_graphs: Dict[tuple, _Graph] = {}
+_graphs_owner: Optional[tuple] = None
+_TMAX_KEPT = 3
+
+
+def _buffers(cfg: Phi3Config, tmax: int, dtype: torch.dtype, device: torch.device) -> _RingBuffers:
+    """The ring's buffers of one cache length, made at its first call;
+    ``_ring_buffers`` runs from the least to the most recently used."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (device, dtype, cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, tmax)
+    buf = _ring_buffers.pop(key, None)
+    if buf is None:
+        while len(_ring_buffers) >= _TMAX_KEPT:
+            old = _ring_buffers.pop(next(iter(_ring_buffers)))
+            for gk in [gk for gk, g in _graphs.items() if g.reads[0] is old]:
+                del _graphs[gk]
+        inputs = torch.zeros((3, MAX_ROWS), dtype=torch.int64, device=device)
+        buf = _RingBuffers(
+            init_cache(cfg, 1, tmax, dtype=dtype, device=device),
+            torch.zeros((1, tmax), dtype=torch.bool, device=device), inputs,
+            torch.zeros_like(inputs, device="cpu", pin_memory=device.type == "cuda"))
+    _ring_buffers[key] = buf
+    return buf
+
+
+def _claim_graphs(params: Params, cfg: Phi3Config, dtype: torch.dtype) -> None:
+    """Drop the graphs unless they were captured on these weights."""
+    global _graphs_owner
+    owner = _graph_owner(params, cfg, dtype)
+    if owner != _graphs_owner:
+        _graphs.clear()
+        _graphs_owner = owner
+
+
+def _graph_key(rows: int, tmax: int, wslot: int) -> Tuple[int, int, int]:
+    """``(rows, Tmax, t_scan)``: what a captured pass depends on besides its
+    buffers and weights."""
+    return rows, tmax, scan_length(wslot, tmax)
+
+
+def _graph_owner(params: Params, cfg: Phi3Config, dtype: torch.dtype) -> tuple:
+    """What the graphs bake in besides the buffers: the address of every
+    weight tensor and each int4 pack's shape and group size (the other
+    shapes follow from the configuration), the configuration, the cache's
+    dtype and the head's matvec flag.  Graphs of another owner are dropped."""
+    ptrs = []
+
+    def walk(w):
+        if isinstance(w, torch.Tensor):
+            ptrs.append(w.data_ptr())
+        elif isinstance(w, dict):
+            for v in w.values():
+                walk(v)
+        elif isinstance(w, list):
+            for v in w:
+                walk(v)
+        elif w is not None:                     # Int4Weight
+            ptrs.extend((w.q4.data_ptr(), w.s_lo.data_ptr(), w.s_hi.data_ptr(), w.q4.shape,
+                         w.dblk))
+
+    walk([params[n] for n in ("embed_tokens", "layers", "final_ln", "lm_head")])
+    return tuple(ptrs), cfg, dtype, flags.int4_grid2d()
+
+
+def _ring_body(params: Params, cfg: Phi3Config, buf: _RingBuffers, rows: int, t_scan: int):
+    """One pass over the buffers: ``rows`` ids at their positions, written
+    at their slots.  Returns ``(logits [1, rows, V], argmax [rows])``."""
+    ids, pos, slots = buf.inputs[:, :rows]
+    x = embed(params, ids).to(buf.cache.k.dtype)[:, None, :]
+    cos, sin = _rope_table(cfg, pos)
+    logits = _ring_layers(params, cfg, x, cos, sin, slots, t_scan, _flat(buf.cache, cfg),
+                          buf.valid)
+    return logits, logits[0].argmax(-1)
+
+
+def _ring_pass(params: Params, cfg: Phi3Config, buf: _RingBuffers, ids: np.ndarray,
+               pos0: int, wslot: int):
+    """Stage a pass's ids, positions and slots and run it: eagerly on the
+    CPU, on the card as the replay of its key's graph (captured at the key's
+    first pass over these buffers).  Returns the body's ``(logits, argmax)``."""
+    rows = len(ids)
+    key = _graph_key(rows, buf.valid.shape[1], wslot)
+    st = buf.staged.numpy()
+    st[0, :rows] = ids
+    st[1, :rows] = pos0 + np.arange(rows)
+    st[2, :rows] = wslot + np.arange(rows)
+    buf.inputs.copy_(buf.staged, non_blocking=True)
+    if not buf.valid.is_cuda:
+        return _ring_body(params, cfg, buf, rows, key[2])
+    g = _graphs.get(key)
+    if g is None or g.reads[0] is not buf:
+        g = _graphs[key] = _capture(lambda: _ring_body(params, cfg, buf, rows, key[2]), buf)
+        profiling.count("decode.graph_captures")
+    g.graph.replay()
+    for name, n in g.launches.items():
+        kernels.count(kernels.launches, name, n)
+    profiling.count("decode.graph_replays")
+    return g.out
+
+
+def _capture(body, buf: _RingBuffers) -> _Graph:
+    """Run ``body`` once eagerly on a side stream (the launch plans, ticket
+    buffers and the kernels' one-time attribute calls happen there), then
+    capture it.  The capture launches nothing: the launches it tallied are
+    taken back off ``kernels.launches`` and added at each replay.  The graph
+    holds the ticket buffers it was captured on, which a larger request
+    elsewhere may replace (each launch leaves its tickets zero, so a held
+    buffer stays ready for the replays)."""
+    device = buf.valid.device
+    cur = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        body()
+        before = dict(kernels.launches)
+        tickets = int4._tickets.get(device)
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            out = body()
+        finally:
+            graph.capture_end()
+        tickets = (tickets, int4._tickets.get(device))
+        tally = {n: v - before[n] for n, v in kernels.launches.items() if v != before[n]}
+        for name, n in tally.items():
+            kernels.count(kernels.launches, name, -n)
+    cur.wait_stream(side)
+    return _Graph(graph, out, tally, (buf,) + tickets)
 
 
 def _last_valid_idx(attn_valid: torch.Tensor) -> torch.Tensor:
@@ -433,9 +604,15 @@ def _last_valid_idx(attn_valid: torch.Tensor) -> torch.Tensor:
     return T - 1 - torch.argmax(attn_valid.flip(1).to(torch.int32), dim=1)
 
 
-def _prefill(params, cfg, embeds, attn_valid, total, tp=None):
-    cache = init_cache(local_config(cfg, tp), embeds.shape[0], total, dtype=embeds.dtype,
-                       device=embeds.device)
+def _prefill(params, cfg, embeds, attn_valid, total, tp=None, cache=None):
+    """The prompt's pass into a fresh cache of ``total`` rows, or into
+    ``cache`` zeroed first; returns the first token and the cache."""
+    if cache is None:
+        cache = init_cache(local_config(cfg, tp), embeds.shape[0], total, dtype=embeds.dtype,
+                           device=embeds.device)
+    else:
+        cache.k.zero_()
+        cache.v.zero_()
     positions = torch.clamp(torch.cumsum(attn_valid.to(torch.int64), 1) - 1, min=0)
     mask = prefill_mask(attn_valid, total)
     logits, cache = forward(params, cfg, embeds, positions, cache, 0, mask,
@@ -540,22 +717,36 @@ def greedy_decode_spec(params: Params, cfg: Phi3Config, embeds: torch.Tensor,
     :func:`greedy_decode`'s.  A pass without a draft runs a plain one-token
     step.  ``stats`` (if given) receives ``tokens`` and ``passes``.  Under
     ``flags.spec_force_accept()`` every pass verifies and accepts all ``k``
-    rows (timing only)."""
-    B, T, D = embeds.shape
-    if B != 1:
+    rows (timing only).
+
+    On the ring every pass runs over long-lived buffers of the call's
+    cache length (``_ring_pass``): replayed as a CUDA graph on the card,
+    counted as ``decode.graph_replays`` and ``decode.graph_captures``."""
+    if embeds.shape[0] != 1:
         raise ValueError("speculative decode is a B=1 serving path")
+    with _ring_lock:
+        return _greedy_decode_spec(params, cfg, embeds, attn_valid, max_new_tokens, stop_token,
+                                   lookup_ids, draft_len, stats)
+
+
+def _greedy_decode_spec(params, cfg, embeds, attn_valid, max_new_tokens, stop_token,
+                        lookup_ids, draft_len, stats):
+    B, T, D = embeds.shape
     k = int(draft_len or flags.SPEC_DRAFT_LEN)
     k = max(2, min(k, max_new_tokens, 8))
     fused = _fused_decode_eligible(params, cfg, 1) and _ring_eligible(params, cfg)
     total = T + max_new_tokens + k
+    dev = embeds.device
+    buf = None
     if fused:
         total = -(-total // ROWS) * ROWS
+        buf = _buffers(cfg, total, embeds.dtype, dev)
+        if dev.type == "cuda":
+            _claim_graphs(params, cfg, embeds.dtype)
     with profiling.span("generate.prefill"):
-        first, cache = _prefill(params, cfg, embeds, attn_valid, total)
-        if fused:
-            cache = _flat(cache, cfg)
+        first, cache = _prefill(params, cfg, embeds, attn_valid, total,
+                                cache=buf.cache if fused else None)
         stop = cfg.end_token_id if stop_token is None else stop_token
-        dev = embeds.device
         profiling.count("sync")
         next_tok = int(first[0])
 
@@ -573,7 +764,13 @@ def greedy_decode_spec(params: Params, cfg: Phi3Config, embeds: torch.Tensor,
     out = np.full(max_new_tokens, cfg.pad_token_id, np.int64)
     out[0] = next_tok
     done = next_tok == stop
-    valid = torch.cat([attn_valid, torch.zeros(1, total - T, dtype=torch.bool, device=dev)], 1)
+    if fused:
+        valid = buf.valid
+        valid.zero_()
+        valid[:, :T] = attn_valid
+    else:
+        valid = torch.cat([attn_valid, torch.zeros(1, total - T, dtype=torch.bool, device=dev)],
+                          1)
     t_iota = torch.arange(total, device=dev)
     kk = torch.arange(k, device=dev)
     n_em, last, prev, prev2, npass = 1, next_tok, -1, -1, 0
@@ -586,30 +783,30 @@ def greedy_decode_spec(params: Params, cfg: Phi3Config, embeds: torch.Tensor,
             d = np.concatenate([[last], drf])
             pos0 = n_pos0 + n_em - 1
             wslot = T + n_em - 1
-            if force or (drf >= 0).any():
+            verify = force or bool((drf >= 0).any())
+            if fused:
+                ids = np.clip(d if verify else d[:1], 0, None)
+                top = _ring_pass(params, cfg, buf, ids, pos0, wslot)[1]
+                profiling.count("sync")
+                a = top.tolist()
+            elif verify:
                 e = embed(params, torch.as_tensor(np.clip(d, 0, None), device=dev))[None]
                 e = e.to(embeds.dtype)
-                if fused:
-                    lg, cache = _verify_forward_fused(params, cfg, e, pos0, cache, wslot, valid)
-                else:
-                    row_extra = ((t_iota[None, :] >= wslot)
-                                 & (t_iota[None, :] <= wslot + kk[:, None]))
-                    m = valid[:, None, :] | row_extra[None]
-                    lg, cache = decode_forward(params, cfg, e, (pos0 + kk)[None], cache, wslot,
-                                               m)
+                row_extra = ((t_iota[None, :] >= wslot)
+                             & (t_iota[None, :] <= wslot + kk[:, None]))
+                m = valid[:, None, :] | row_extra[None]
+                lg, cache = decode_forward(params, cfg, e, (pos0 + kk)[None], cache, wslot, m)
                 profiling.count("sync")
                 a = lg[0].argmax(-1).tolist()
             else:
                 e1 = embed(params, torch.as_tensor([max(last, 0)], device=dev))[None]
                 e1 = e1.to(embeds.dtype)
                 pos = torch.full((1, 1), pos0, device=dev)
-                if fused:
-                    lg, cache = _decode_forward_fused(params, cfg, e1, pos, cache, wslot, valid)
-                else:
-                    m1 = (valid | (t_iota == wslot)[None])[:, None, :]
-                    lg, cache = decode_forward(params, cfg, e1, pos, cache, wslot, m1)
+                m1 = (valid | (t_iota == wslot)[None])[:, None, :]
+                lg, cache = decode_forward(params, cfg, e1, pos, cache, wslot, m1)
                 profiling.count("sync")
-                a = [int(lg[0].argmax(-1)[0])] + [-2] * (k - 1)
+                a = [int(lg[0].argmax(-1)[0])]
+            a += [-2] * (k - len(a))
             acc = k if force else 1
             while acc < k and d[acc] == a[acc - 1]:
                 acc += 1

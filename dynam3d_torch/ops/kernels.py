@@ -12,6 +12,8 @@ source may hold several kernels: ``int4_mlp.cu`` holds ``int4_mlp`` and
 ``int4_mlp_block``, ``int4_stream.cu`` ``int4_stream_matvec`` and
 ``int4_unpack_matvec``);
 ``plain_calls`` counts calls of the plain PyTorch versions on CUDA tensors.
+A launch replayed from a CUDA graph is counted at its replay, not at its
+capture (``models/vlm/phi3.py``).
 A run resets both with :func:`reset_counts` and reads them afterwards to
 show which path it went through.  :func:`ptxas_summary` reads the
 registers and spills ``ptxas -v`` reported for each kernel of a source
@@ -54,11 +56,12 @@ _lock = threading.Lock()
 _count_lock = threading.Lock()
 
 
-def count(counter: Dict[str, int], name: str) -> None:
-    """Add one to ``counter[name]`` (``launches`` or ``plain_calls``); under
-    a lock, since ``EpisodeRunner.run_interleaved`` launches from threads."""
+def count(counter: Dict[str, int], name: str, n: int = 1) -> None:
+    """Add ``n`` to ``counter[name]`` (``launches`` or ``plain_calls``);
+    under a lock, since ``EpisodeRunner.run_interleaved`` launches from
+    threads."""
     with _count_lock:
-        counter[name] += 1
+        counter[name] += n
 
 
 def reset_counts() -> None:

@@ -6,11 +6,11 @@ Phi-3-mini with int4 weights.
 
 Port of ``tools/ab_spec_decode.py``; ``DYNAM3D_AB_PROMPT`` is ``--prompt``.
 
-1. The verify pass (``_verify_forward_fused``: k draft rows sharing one
-   weight stream, kernel B in shared-cache mode and four kernel A a layer)
-   at k = 1, 4 and 8, and one plain fused decode pass
-   (``_decode_forward_fused``), each the mean device ms of a call after an
-   L2 read flush, from the cache of one prefill.  Decode streams the
+1. The ring pass as ``greedy_decode_spec`` runs it (``_ring_pass``: k
+   rows sharing one weight stream, kernel B in shared-cache mode and four
+   kernel A a layer, replayed from its CUDA graph) at k = 1 (the plain
+   pass), 4 and 8 (verify passes), each the mean device ms of a pass after
+   an L2 read flush, from the cache of one prefill.  Decode streams the
    weights, so a pass should cost about the same at any k.
 2. ``greedy_decode`` (plain) and ``greedy_decode_spec`` with a planted
    continuation (its own no-lookup output placed in the lookup: every
@@ -35,6 +35,7 @@ import argparse
 import math
 from typing import Dict, Sequence
 
+import numpy as np
 import torch
 
 from dynam3d_torch.device import resolve_device
@@ -42,26 +43,26 @@ from dynam3d_torch.tools import card
 
 
 def verify_costs(params, cfg, dev, embeds, valid, ks=(1, 4, 8), iters: int = 20) -> Dict:
-    """Device ms of one verify pass at each k and of one plain fused pass."""
+    """Device ms of one ring pass of k rows as ``greedy_decode_spec`` runs
+    it (``phi3._ring_pass``: replayed from its CUDA graph on the card)."""
     from dynam3d_torch.models.vlm import phi3
 
     T = embeds.shape[1]
     total = -(-(T + 64) // phi3.ROWS) * phi3.ROWS
-    _, cache = phi3._prefill(params, cfg, embeds, valid, total)
-    cache = phi3._flat(cache, cfg)
-    full = torch.cat([valid, torch.zeros(1, total - T, dtype=torch.bool, device=dev)], 1)
     pos0, wslot = int(valid.sum()), T
     flush = card.read_flush() if dev.type == "cuda" else None
     out = {}
-    for k in ks:
-        e = embeds[:, :k]
-        out[f"verify_k{k}"] = card.kernel_ms(lambda e=e: phi3._verify_forward_fused(
-            params, cfg, e, pos0, cache, wslot, full), dev, flush, iters)
-    step_valid = full.clone()
-    step_valid[0, wslot] = True
-    out["plain_step"] = card.kernel_ms(lambda: phi3._decode_forward_fused(
-        params, cfg, embeds[:, :1], torch.full((1, 1), pos0, device=dev), cache, wslot,
-        step_valid), dev, flush, iters)
+    with phi3._ring_lock:
+        buf = phi3._buffers(cfg, total, embeds.dtype, dev)
+        if dev.type == "cuda":
+            phi3._claim_graphs(params, cfg, embeds.dtype)
+        phi3._prefill(params, cfg, embeds, valid, total, cache=buf.cache)
+        buf.valid.zero_()
+        buf.valid[:, :T] = valid
+        for k in ks:
+            ids = np.arange(k)
+            out[f"verify_k{k}"] = card.kernel_ms(lambda ids=ids: phi3._ring_pass(
+                params, cfg, buf, ids, pos0, wslot), dev, flush, iters)
     return out
 
 

@@ -144,27 +144,40 @@ def prompt(cfg, dev: torch.device, rows: int, T: int, seed: int = 0, holes=None)
 
 @contextlib.contextmanager
 def margins() -> Iterator[list]:
-    """Record every ``phi3._lm_head`` call in the block: for each, the top-2
-    margin and the scale (max |logit|) of every row and position (``[B,
-    T]`` lists) and the last position's logits ``[B, V]`` on the host, for
-    telling a near-tie from a fault where two routes' greedy ids differ."""
+    """Record the logits of every ``phi3._lm_head`` call in the block, and of
+    every B=1 ring pass (``phi3._ring_pass``, whose head a replayed CUDA
+    graph runs without calling it): for each, the top-2 margin and the
+    scale (max |logit|) of every row and position (``[B, T]`` lists) and
+    the last position's logits ``[B, V]`` on the host, for telling a
+    near-tie from a fault where two routes' greedy ids differ."""
     from dynam3d_torch.models.vlm import phi3
 
-    seen, head = [], phi3._lm_head
+    seen, head, ring = [], phi3._lm_head, phi3._ring_pass
 
-    def recording(params, x, tp=None):
-        lg = head(params, x, tp)
+    def record(lg):
         f = lg.float()
         top2 = f.topk(2, dim=-1).values
         seen.append({"margin": (top2[..., 0] - top2[..., 1]).tolist(),
                      "scale": f.abs().amax(-1).tolist(), "logits": f[:, -1].cpu()})
         return lg
 
-    phi3._lm_head = recording
+    def recording(params, x, tp=None):
+        return record(head(params, x, tp))
+
+    def ring_recording(*args):
+        phi3._lm_head = head            # the pass may be captured: no reads inside
+        try:
+            out = ring(*args)
+        finally:
+            phi3._lm_head = recording
+        record(out[0])
+        return out
+
+    phi3._lm_head, phi3._ring_pass = recording, ring_recording
     try:
         yield seen
     finally:
-        phi3._lm_head = head
+        phi3._lm_head, phi3._ring_pass = head, ring
 
 
 def first_difference(got, want):

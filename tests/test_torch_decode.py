@@ -2,7 +2,8 @@
 plain versions of kernels A and B) against the JAX package's oracles, in
 the three modes of the TPU kernel:
 
-* shared_cache (speculative verify): the port's ``_verify_forward_fused``
+* shared_cache (speculative verify): the port's ring layers as its B=1
+  speculative pass runs them (``_ring_layers``, the body of ``_ring_pass``)
   vs ``decode_forward`` with the row-causal mask, including a prompt whose
   draft rows cross the 512-row block boundary;
 * plain (B rows, own caches): ``_decode_forward_fused`` vs
@@ -24,7 +25,7 @@ import torch
 
 from dynam3d_tpu.models.vlm import phi3 as jphi3
 from dynam3d_torch.models.vlm import phi3 as tphi3
-from dynam3d_torch.ops.decode import decode_layer_ring
+from dynam3d_torch.ops.decode import decode_layer_ring, scan_length
 from tests.test_spec_decode import _cfg, _quantized_eligible
 from tests.torch_parity import np32, port_config, to_torch
 
@@ -45,6 +46,15 @@ def _prefilled(cfg, qparams, embeds, av, total):
         torch.from_numpy(np32(cache.k)).to(torch.bfloat16).reshape(L, B, total, -1),
         torch.from_numpy(np32(cache.v)).to(torch.bfloat16).reshape(L, B, total, -1))
     return cache, flat
+
+
+def _verify(params, cfg, e, pos0, flat, wslot, valid):
+    """The ring's verify pass over draft rows ``e [1, k, D]`` at positions
+    ``pos0..`` written at slots ``wslot..`` of ``flat``: logits ``[1, k, V]``."""
+    iota = torch.arange(e.shape[1])
+    cos, sin = tphi3._rope_table(cfg, pos0 + iota)
+    return tphi3._ring_layers(params, cfg, e[0][:, None, :], cos, sin, wslot + iota,
+                              scan_length(wslot, flat.k.shape[2]), flat, valid)
 
 
 def _close(got, ref, tol):
@@ -78,9 +88,9 @@ def test_shared_cache_verify_matches_oracle(T, total, k, holes):
     m = jnp.asarray(valid)[:, None, :] | row_extra[None]
     decode = jax.jit(lambda p, x, pos, c, mm: jphi3.decode_forward(p, cfg, x, pos, c, T, mm))
     lg_ref, c_ref = decode(qparams, jnp.asarray(e, jnp.bfloat16), (n_pos0 + kk)[None], cache, m)
-    lg, c = tphi3._verify_forward_fused(
-        tparams, tcfg, torch.from_numpy(e).to(torch.bfloat16), n_pos0, flat, T,
-        torch.from_numpy(valid))
+    lg = _verify(tparams, tcfg, torch.from_numpy(e).to(torch.bfloat16), n_pos0, flat, T,
+                 torch.from_numpy(valid))
+    c = flat
     _close(lg, lg_ref, 5e-2)
     np.testing.assert_array_equal(np32(lg[0]).argmax(-1), np32(lg_ref[0]).argmax(-1))
     L = cfg.num_layers
