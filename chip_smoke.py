@@ -14,6 +14,7 @@
     python3 chip_smoke.py --phases build,tools
     python3 chip_smoke.py --phases build,bench
     python3 chip_smoke.py --phases build,graph
+    python3 chip_smoke.py --phases build,nerf_grad
 
 Phases, each printed as it finishes:
 
@@ -259,7 +260,14 @@ Phases, each printed as it finishes:
    one more replay adds its capture's tally; the host time of a pass, split
    into the draft, the staging copy, the replay's launch and the wait for
    its argmax, and a pass's time eager and replayed; a fourth cache length
-   drops the least recently used one's buffers and graphs.
+   drops the least recently used one's buffers and graphs;
+28. ``nerf_grad``: the renderer's NeRF MLP on the card
+   (``nerf._KernelNerfMLP``: kernel C forward, the autograd of its
+   arithmetic backward) at ``FieldsConfig()``'s 768 wide on one view's
+   1,152 rows: the gradient of the input and of each weight against the
+   same MLP's in float32 (relative L2 under ``NERF_GRAD_TOL``), and against
+   the autograd of the plain version; the chain's gap (the reference
+   package's VJP) printed beside it.
 
 Any failure exits non-zero.  The line before the last is the kernels' JSON
 record; the last line is ``{"ok": true, "device": {...}}``.
@@ -279,13 +287,17 @@ import time
 
 PHASES = ("build", "matvec", "ring", "parity", "episode", "nerf", "knn", "render", "pretrain",
           "walk", "matvec2d", "mlp", "attn", "routes", "batched", "tools", "bench", "yolo",
-          "stream", "vln", "cli", "convert", "data", "dist", "soak", "graph")
+          "stream", "vln", "cli", "convert", "data", "dist", "soak", "graph", "nerf_grad")
 
 # the dense bf16 tensor-core peak and the float32 peak outside the tensor
 # cores (H100 SXM); memory rates are dynam3d_torch.device.MEM_RATES
 BF16_PEAK = 989e12
 FP32_PEAK = 67e12
 KNN_FLAG_ENV = {"DYNAM3D_DISABLE_BANDED_KNN": "1", "DYNAM3D_ENABLE_PALLAS_KNN": "1"}
+# the renderer's bf16 MLP gradient against float32, relative L2 a leaf: the
+# rounding reads up to 0.10 at 768 wide (the same arithmetic on the CPU); a
+# gradient lost, swapped or taken of the wrong input reads 1 or more
+NERF_GRAD_TOL = 0.2
 
 
 def log(msg: str) -> None:
@@ -1405,6 +1417,68 @@ def phase_nerf(ctx):
                 raise AssertionError(f"nerf_mlp N=1152: {clusters} clusters run in "
                                      f"{row['waves']} waves")
     ctx["nerf"] = dict(entry, max_abs_err=max(r["max_abs_err"] for r in rows), rows=rows)
+
+
+def phase_nerf_grad(ctx):
+    """The renderer's backward after kernel C against float32 (see the
+    module's docstring)."""
+    torch = ctx["torch"]
+    from dynam3d_torch.config import FieldsConfig
+    from dynam3d_torch.models.render.nerf import (
+        _KernelNerfMLP, _nerf_mlp_chain, init_render_params,
+    )
+    from dynam3d_torch.ops import kernels
+    from dynam3d_torch.ops.nerf_mlp import leaky_relu, nerf_mlp_plain
+
+    gen = ctx["gen"]
+    cfg = FieldsConfig()
+    D, N = cfg.fts_dim, cfg.view_height * cfg.view_width * cfg.n_importance
+    mlp = init_render_params(gen, cfg, "cuda")["mlp"]
+    w = [mlp["enc_hidden"][0], mlp["enc_hidden"][1], mlp["enc_out"], mlp["dec_hidden"][0],
+         mlp["dec_hidden"][1], mlp["dec_out"]]
+    x = torch.randn(N, D, generator=gen, device="cuda")
+    g_out = torch.randn(N, D, generator=gen, device="cuda").to(torch.bfloat16)
+    g_dens = torch.randn(N, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def f32(x, e1, e2, eo, d1, d2, do):
+        h = x
+        for t in (e1, e2):
+            h = leaky_relu(h @ t)
+        o = leaky_relu(h @ eo)
+        h = o[:, :-1] + x
+        for t in (d1, d2):
+            h = leaky_relu(h @ t)
+        return h @ do, o[:, -1]
+
+    def chain(x, e1, e2, eo, d1, d2, do):
+        return _nerf_mlp_chain(x, [e1, e2], eo, [d1, d2], do)
+
+    def grads(fn):
+        ins = [t.detach().clone().requires_grad_(True) for t in [x, *w]]
+        out, dens = fn(*ins)
+        return torch.autograd.grad((out, dens), ins, (g_out.to(out.dtype), g_dens.to(dens.dtype)))
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    launches0 = kernels.launches.get("nerf_mlp", 0)
+    card = grads(_KernelNerfMLP.apply)
+    if kernels.launches.get("nerf_mlp", 0) != launches0 + 1:
+        raise AssertionError("nerf_grad: kernel C did not run the forward")
+    ref, plain, ch = grads(f32), grads(nerf_mlp_plain), grads(chain)
+    names = ("x", "enc_hidden/0", "enc_hidden/1", "enc_out", "dec_hidden/0", "dec_hidden/1",
+             "dec_out")
+    row = {"N": N, "D": D, "tol": NERF_GRAD_TOL,
+           "card_vs_f32": {n: rel(a, b) for n, a, b in zip(names, card, ref)},
+           "card_vs_plain": {n: rel(a, b) for n, a, b in zip(names, card, plain)},
+           "chain_vs_f32": {n: rel(a, b) for n, a, b in zip(names, ch, ref)}}
+    log(f"[nerf_grad] {json.dumps(row)}")
+    worst = max(row["card_vs_f32"].values())
+    if not worst <= NERF_GRAD_TOL:
+        raise AssertionError(f"nerf_grad: the card's gradient {worst} off float32 "
+                             f"> {NERF_GRAD_TOL}")
+    if not max(row["card_vs_plain"].values()) <= 1e-3:
+        raise AssertionError("nerf_grad: the card's gradient is not the plain version's")
 
 
 def _knn_agree(torch, label, q, pts, valid, K, dk, ik, exact_ids=False):

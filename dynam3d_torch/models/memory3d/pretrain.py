@@ -22,6 +22,7 @@ from dynam3d_torch.models.memory3d.update import ViewAux, _num_heads, update_vie
 from dynam3d_torch.ops.knn import knn_brute
 from dynam3d_torch.ops.segment import segment_mean
 from dynam3d_torch.ops.transformer import encoder_stack, mlp2
+from dynam3d_torch.runtime import profiling
 
 Params = Dict[str, Any]
 _PAD_CELL = 1e9
@@ -125,6 +126,7 @@ def update_view_pretrain(
     # touched zones and their members' gt ids
     seg_cells = torch.where(aux.seg_active[:, None], cell_center(centers, cfg),
                             torch.full_like(centers, _PAD_CELL))
+    profiling.count("sync")
     cells = torch.unique(seg_cells, dim=0, sorted=True)
     if cells.shape[0] < S:
         cells = torch.cat([cells, cells.new_full((S - cells.shape[0], 3), _PAD_CELL)])

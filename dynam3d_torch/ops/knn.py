@@ -30,6 +30,7 @@ import torch
 from dynam3d_torch import flags
 from dynam3d_torch.ops import kernels
 from dynam3d_torch.ops.int4 import _ticket_buffer
+from dynam3d_torch.runtime import profiling
 
 BIG = 1e10
 MAX_K = 8
@@ -294,7 +295,8 @@ def knn_banded(q_struct: torch.Tensor, points: torch.Tensor, valid: torch.Tensor
     boxes lie at least ``radius`` apart is skipped.  Exact for every
     neighbour within ``radius``; beyond it a distance may read 1e10.  The
     whole ``near [bands, tiles]`` mask is computed on the device and read
-    back once; each band then scans its near tiles, eight at a time.
+    back once (a ``sync`` of ``runtime/profiling.py``); each band then scans
+    its near tiles, eight at a time (counted in ``render.near_tiles``).
     Returns flat ``(sq_dists [R*NS, k], indices [R*NS, k])``; with
     ``with_indices=False`` the indices are all -1."""
     R, NS, _ = q_struct.shape
@@ -318,6 +320,7 @@ def knn_banded(q_struct: torch.Tensor, points: torch.Tensor, valid: torch.Tensor
     b_hi = torch.where(real[..., None], qb, -inf).amax(dim=1)
     gap = torch.clamp(torch.maximum(t_lo[None] - b_hi[:, None], b_lo[:, None] - t_hi[None]),
                       min=0.0)
+    profiling.count("sync")
     near = ((gap * gap).sum(-1) < radius * radius).cpu()                  # [nb, nt], one read
 
     dists, inds = [], []
@@ -325,6 +328,7 @@ def knn_banded(q_struct: torch.Tensor, points: torch.Tensor, valid: torch.Tensor
         qc = qb[b]
         bd, bi = _empty_best(qc.shape[0], k, dev)
         tiles = torch.nonzero(near[b]).flatten().tolist()
+        profiling.count("render.near_tiles", len(tiles))
         for g in range(0, len(tiles), _TILE_GROUP):
             sel = torch.tensor(tiles[g: g + _TILE_GROUP], device=dev)
             ids = (sel[:, None] * tile + torch.arange(tile, device=dev)[None]).flatten()

@@ -46,6 +46,14 @@ def nerf_mlp_plain(x: torch.Tensor, *w: torch.Tensor) -> Tuple[torch.Tensor, tor
     _check_args(x, w)
     if x.is_cuda:
         kernels.count(kernels.plain_calls, "nerf_mlp")
+    return nerf_mlp_math(x, *w)
+
+
+def nerf_mlp_math(x: torch.Tensor, *w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel C's arithmetic in PyTorch, differentiable (the weights'
+    bf16 rounding passes the gradient through), unchecked and uncounted:
+    the body of :func:`nerf_mlp_plain`, and what the renderer's backward
+    differentiates after kernel C's forward."""
     e1, e2, eo, d1, d2, do = (t.to(torch.bfloat16) for t in w)
     xb = x.to(torch.bfloat16)
     h = xb

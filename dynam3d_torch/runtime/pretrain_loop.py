@@ -37,7 +37,7 @@ from dynam3d_torch.models.policy_3dff import (
 )
 from dynam3d_torch.models.segmenter import depth_plane_segments
 from dynam3d_torch.runtime import checkpoint as ckpt_mod
-from dynam3d_torch.runtime import trainer_3dff
+from dynam3d_torch.runtime import profiling, trainer_3dff
 from dynam3d_torch.runtime.feed import STOP, SyntheticRoomFeed
 from dynam3d_torch.runtime.logging import MetricsLogger
 from dynam3d_torch.utils.tree import tree_map
@@ -343,28 +343,29 @@ class PretrainRunner:
         depth = arrs["depth_u16"].to(torch.float32) * arrs["depth_scale"]
         V = rgb.shape[0]
 
-        cls, grid = self._encode_views(clip_params, rgb)
-        d24 = nearest_resize_hw(depth, H, W)
-        d24 = preprocess_depth(d24[..., None], (0.0, 10.0))[..., 0].reshape(V, H * W)
-        world_pos = habitat_to_world(arrs["position"])
-        headings = arrs["heading"]
-        if posed:
-            d_hw = tuple(depth.shape[1:3])
-            geo = [patch_geometry_from_pose(d24[v], scale_intrinsics(arrs["intrinsics"][v], d_hw,
-                                                                     (H, W)),
-                                            arrs["rot"][v], arrs["trans"][v], H, W)
-                   for v in range(V)]
-            novel_k = view_k(arrs["intrinsics"][0], d_hw, (f.view_height, f.view_width))
-        else:
-            geo = []
-            for v in range(V):
-                rx, ry, rz, pd_, ps_ = unproject_depth_habitat(
-                    d24[v], headings[v], height=H, width=W, hfov_deg=f.input_hfov,
-                    vfov_deg=f.input_vfov)
-                geo.append((torch.stack([rx, ry, rz], -1) + world_pos[v][None, :], pd_, ps_))
-            novel_k = torch.eye(3, dtype=torch.float32, device=self.device)
-        ppos, pdir, pscale = (torch.stack(t) for t in zip(*geo))
-        segm = depth_plane_segments(d24, H, W, f.max_segments)
+        with profiling.span("pretrain.build.clip"):
+            cls, grid = self._encode_views(clip_params, rgb)
+        with profiling.span("pretrain.build.geometry"):
+            d24 = nearest_resize_hw(depth, H, W)
+            d24 = preprocess_depth(d24[..., None], (0.0, 10.0))[..., 0].reshape(V, H * W)
+            world_pos = habitat_to_world(arrs["position"])
+            headings = arrs["heading"]
+            if posed:
+                d_hw = tuple(depth.shape[1:3])
+                geo = [patch_geometry_from_pose(
+                    d24[v], scale_intrinsics(arrs["intrinsics"][v], d_hw, (H, W)),
+                    arrs["rot"][v], arrs["trans"][v], H, W) for v in range(V)]
+                novel_k = view_k(arrs["intrinsics"][0], d_hw, (f.view_height, f.view_width))
+            else:
+                geo = []
+                for v in range(V):
+                    rx, ry, rz, pd_, ps_ = unproject_depth_habitat(
+                        d24[v], headings[v], height=H, width=W, hfov_deg=f.input_hfov,
+                        vfov_deg=f.input_vfov)
+                    geo.append((torch.stack([rx, ry, rz], -1) + world_pos[v][None, :], pd_, ps_))
+                novel_k = torch.eye(3, dtype=torch.float32, device=self.device)
+            ppos, pdir, pscale = (torch.stack(t) for t in zip(*geo))
+            segm = depth_plane_segments(d24, H, W, f.max_segments)
 
         if mode == "reuse":
             ngrid, novel_pos, novel_hd = grid, world_pos, headings
@@ -453,6 +454,7 @@ class PretrainRunner:
 
     def _sync(self) -> float:
         if self.device.type == "cuda":
+            profiling.count("sync")
             torch.cuda.synchronize(self.device)
         return time.perf_counter()
 
@@ -481,20 +483,33 @@ class PretrainRunner:
         return history
 
     def _frames_iteration(self, ds) -> Dict[str, float]:
-        t_load = self._sync()
-        scene = ds.sample_scene()
-        t0 = time.perf_counter()
-        sup = {k: scene[k] for k in SUPERVISION_KEYS if k in scene}
-        batch = self.build_batch(scene, self.params["clip"], **sup)
-        t1 = self._sync()
-        trainable = {"fields": self.params["fields"], "render": self.params["render"]}
-        self._ensure_opt(trainable)
-        step = self._get_step(posed="intrinsics" in scene)
-        new_tr, self._tr_opt, _, metrics = step(trainable, self._tr_opt,
-                                                init_state(self.cfg.fields, self.device), batch)
-        self.params["fields"] = new_tr["fields"]
-        self.params["render"] = new_tr["render"]
-        m = {k: float(v) for k, v in metrics.items()}
-        t2 = self._sync()
+        """One frames iteration.  Its spans (``runtime/profiling.py``,
+        each carrying the iteration as its step): ``pretrain.iter`` to the
+        closing synchronize; ``pretrain.load`` (``sample_scene``);
+        ``pretrain.build`` to the synchronize after the batch, with
+        ``.clip`` and ``.geometry``; the step's ``pretrain.fold``,
+        ``.losses`` (a ``pretrain.render`` a novel view), ``.backward`` and
+        ``.update``.  The metrics' reads lie in ``pretrain.iter`` alone."""
+        profiling.set_step(self.it)
+        with profiling.span("pretrain.iter"):
+            profiling.count("pretrain.iters")
+            t_load = self._sync()
+            with profiling.span("pretrain.load"):
+                scene = ds.sample_scene()
+            t0 = time.perf_counter()
+            with profiling.span("pretrain.build"):
+                sup = {k: scene[k] for k in SUPERVISION_KEYS if k in scene}
+                batch = self.build_batch(scene, self.params["clip"], **sup)
+                t1 = self._sync()
+            trainable = {"fields": self.params["fields"], "render": self.params["render"]}
+            self._ensure_opt(trainable)
+            step = self._get_step(posed="intrinsics" in scene)
+            new_tr, self._tr_opt, _, metrics = step(trainable, self._tr_opt,
+                                                    init_state(self.cfg.fields, self.device), batch)
+            self.params["fields"] = new_tr["fields"]
+            self.params["render"] = new_tr["render"]
+            profiling.count("sync", len(metrics) - 1)      # "skipped" is a host value
+            m = {k: float(v) for k, v in metrics.items()}
+            t2 = self._sync()
         self.timings.append({"load_s": t0 - t_load, "build_s": t1 - t0, "step_s": t2 - t1})
         return m

@@ -32,6 +32,7 @@ from dynam3d_torch.models.policy_3dff import perceive_panorama
 from dynam3d_torch.models.render.nerf import render_view, render_view_posed
 from dynam3d_torch.ops.knn import knn_brute
 from dynam3d_torch.parallel.comm import dp_mean_
+from dynam3d_torch.runtime import profiling
 from dynam3d_torch.runtime.losses_3dff import (
     balanced_merge_ce, contrastive_loss, cosine_loss, focal_loss, l2n, subspace_cosine_loss,
 )
@@ -74,7 +75,9 @@ def pretrain_step_loss(params: Params, cfg: Dynam3DConfig, state: FieldState,
                        batch: PretrainBatch, max_gt_label: int = 512, posed: bool = False,
                        ) -> Tuple[torch.Tensor, FieldState, Dict[str, torch.Tensor]]:
     """Fold the views in order, then the loss family; returns ``(loss,
-    new_state, metrics)``."""
+    new_state, metrics)``.  The spans ``pretrain.fold`` (the forward loop
+    over the views: the backward's recompute of each view runs outside it)
+    and ``pretrain.losses``."""
     f = cfg.fields
 
     def step(st, d, g, sg, pos, hd, pp, pd, ps):
@@ -83,17 +86,20 @@ def pretrain_step_loss(params: Params, cfg: Dynam3DConfig, state: FieldState,
                                     geometry=(pp, pd, ps))
 
     auxes = []
-    for v in range(batch.depth.shape[0]):
-        xs = (batch.depth[v], batch.grid_fts[v], batch.segm[v], batch.position[v],
-              batch.heading[v], batch.ppos[v], batch.pdir[v], batch.pscale[v])
-        if torch.is_grad_enabled():
-            # keep only the view's inputs; the backward pass recomputes the
-            # update (its re-aggregation activations would not fit for 16 views)
-            state, aux = checkpoint(step, state, *xs, use_reentrant=False)
-        else:
-            state, aux = step(state, *xs)
-        auxes.append(aux)
-    loss, metrics = losses_after_update(params, cfg, state, stack_aux(auxes), batch, posed=posed)
+    with profiling.span("pretrain.fold"):
+        for v in range(batch.depth.shape[0]):
+            xs = (batch.depth[v], batch.grid_fts[v], batch.segm[v], batch.position[v],
+                  batch.heading[v], batch.ppos[v], batch.pdir[v], batch.pscale[v])
+            if torch.is_grad_enabled():
+                # keep only the view's inputs; the backward pass recomputes the
+                # update (its re-aggregation activations would not fit for 16 views)
+                state, aux = checkpoint(step, state, *xs, use_reentrant=False)
+            else:
+                state, aux = step(state, *xs)
+            auxes.append(aux)
+    with profiling.span("pretrain.losses"):
+        loss, metrics = losses_after_update(params, cfg, state, stack_aux(auxes), batch,
+                                            posed=posed)
     return loss, state, metrics
 
 
@@ -127,14 +133,17 @@ def losses_after_update(params: Params, cfg: Dynam3DConfig, state: FieldState, a
                                   aux.merge_target.reshape(-1),
                                   aux.merge_valid.reshape(-1) & batch.use_labels)
 
-    # novel-view rendering
+    # novel-view rendering, a span ``pretrain.render`` each
     outs = []
     if posed:
         for rot, trans in zip(batch.novel_rot, batch.novel_trans):
-            outs.append(render_view_posed(params["render"], f, state, batch.novel_k, rot, trans))
+            with profiling.span("pretrain.render"):
+                outs.append(render_view_posed(params["render"], f, state, batch.novel_k, rot,
+                                              trans))
     else:
         for pos, hd in zip(batch.novel_position, batch.novel_heading):
-            outs.append(render_view(params["render"], f, state, pos, hd))
+            with profiling.span("pretrain.render"):
+                outs.append(render_view(params["render"], f, state, pos, hd))
     nv_fts = torch.stack([o.features.reshape(-1, D) for o in outs])       # [Nv, R, D]
     nv_pos = torch.stack([o.positions.reshape(-1, 3) for o in outs])
     pred = nv_fts.reshape(-1, D).to(torch.float32)
@@ -237,28 +246,35 @@ def make_pretrain_step(cfg: Dynam3DConfig, optimizer: PretrainOptimizer, posed: 
     ``_dryrun_pretrain_dp``, the reference's DDP): the gradients are
     averaged over the group in float32 buckets before the NaN scrub, and
     ``metrics["loss"]`` is the mean, so a NaN on any rank skips the update
-    on every rank.  The other metrics stay this rank's."""
+    on every rank.  The other metrics stay this rank's.
+
+    Spans: ``pretrain.backward`` (the gradient, and with it the views'
+    recomputed folds) and ``pretrain.update`` (the NaN scrub, AdamW and the
+    skip read)."""
 
     def step(trainable, opt_state, field_state, batch: PretrainBatch):
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(trainable)]
         tr = tree_unflatten(trainable, leaves)
         loss, new_state, metrics = pretrain_step_loss(tr, cfg, field_state, batch, posed=posed)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
-        loss = loss.detach()
-        if dp is not None:
-            loss = dp_mean_(grads, loss, 1.0, dp)
-        grads = [torch.where(torch.isnan(g), torch.zeros_like(g), g) for g in grads]
-        updates, new_opt = optimizer.update(grads, opt_state, trainable)
-        skip = bool(torch.isnan(loss))
-        if skip:
-            new_tr = trainable
-        else:
-            new_tr = tree_unflatten(trainable, [p.detach() + u for p, u in
-                                                zip(tree_leaves(trainable), updates)])
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["loss"] = loss
-        metrics["skipped"] = torch.tensor(skip)
+        with profiling.span("pretrain.backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with profiling.span("pretrain.update"):
+            grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
+            loss = loss.detach()
+            if dp is not None:
+                loss = dp_mean_(grads, loss, 1.0, dp)
+            grads = [torch.where(torch.isnan(g), torch.zeros_like(g), g) for g in grads]
+            updates, new_opt = optimizer.update(grads, opt_state, trainable)
+            profiling.count("sync")
+            skip = bool(torch.isnan(loss))
+            if skip:
+                new_tr = trainable
+            else:
+                new_tr = tree_unflatten(trainable, [p.detach() + u for p, u in
+                                                    zip(tree_leaves(trainable), updates)])
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            metrics["loss"] = loss
+            metrics["skipped"] = torch.tensor(skip)
         new_state = FieldState(*(t.detach() for t in new_state))
         return new_tr, new_opt, new_state, metrics
 
