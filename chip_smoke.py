@@ -15,6 +15,7 @@
     python3 chip_smoke.py --phases build,bench
     python3 chip_smoke.py --phases build,graph
     python3 chip_smoke.py --phases build,nerf_grad
+    python3 chip_smoke.py --phases build,wide
 
 Phases, each printed as it finishes:
 
@@ -267,7 +268,18 @@ Phases, each printed as it finishes:
    1,152 rows: the gradient of the input and of each weight against the
    same MLP's in float32 (relative L2 under ``NERF_GRAD_TOL``), and against
    the autograd of the plain version; the chain's gap (the reference
-   package's VJP) printed beside it.
+   package's VJP) printed beside it;
+29. ``wide``: the B = 9..16 decode route (``phi3._decode_forward_wide``) at
+   Phi-3-mini widths: kernel B in plain mode at 12 and 16 rows against its
+   plain version (ragged masks, a scan length that is no multiple of 64),
+   with its time, plan and bytes bound; one B = 12 pass of the wide route
+   against the unfused ``decode_forward`` pass from the same prefilled
+   cache (logits within ``LOGITS_TOL`` of their scale, ids equal wherever
+   the unfused top-2 margin is ``TIE_TOL`` or more); the host and device ms
+   of a pass on either route; then a 20-token ``greedy_decode`` at B = 12
+   with the program's counters on: ``decode.wide_passes`` equals
+   ``decode.passes``, and kernels A (2L + 1), B (L) and F (L) launch per
+   pass, with no plain version.
 
 Any failure exits non-zero.  The line before the last is the kernels' JSON
 record; the last line is ``{"ok": true, "device": {...}}``.
@@ -287,7 +299,8 @@ import time
 
 PHASES = ("build", "matvec", "ring", "parity", "episode", "nerf", "knn", "render", "pretrain",
           "walk", "matvec2d", "mlp", "attn", "routes", "batched", "tools", "bench", "yolo",
-          "stream", "vln", "cli", "convert", "data", "dist", "soak", "graph", "nerf_grad")
+          "stream", "vln", "cli", "convert", "data", "dist", "soak", "graph", "nerf_grad",
+          "wide")
 
 # the dense bf16 tensor-core peak and the float32 peak outside the tensor
 # cores (H100 SXM); memory rates are dynam3d_torch.device.MEM_RATES
@@ -470,6 +483,22 @@ def phase_matvec(ctx):
     ctx["matvec"] = dict(layer, max_abs_err=max_err, rows=rows_out)
 
 
+def _attn_errors(label, got, ref):
+    """Kernel B's ``(ctx, k_new, v_new)`` against its plain version, each
+    output held to a few bf16 steps (1.6e-2) of its own largest value: a
+    softmax average over ~1000 randn rows is ~20x smaller than the roped
+    k/v, so a shared scale would pass a kernel that drops a tile.  Returns
+    ``{name: (err, tol)}``; raises on the first output out of its limit."""
+    out = {}
+    for nm, a, b in zip(("ctx", "k_new", "v_new"), got, ref):
+        err = (a.float() - b.float()).abs().max().item()
+        tol = 1.6e-2 * b.float().abs().max().item()
+        out[nm] = (err, tol)
+        if not err <= tol:
+            raise AssertionError(f"{label} {nm}: err {err} > {tol}")
+    return out
+
+
 def _ring_case(torch, gen, weights, B, group, pos_rows, holes=(100, 120)):
     """Inputs of one decode layer at Phi-3-mini widths."""
     D, hd, tmax = 3072, 96, 1024
@@ -537,11 +566,8 @@ def phase_ring(ctx):
         ak = decode_attn_cuda(*aargs, heads=H, hd=hd)
         ap = decode_attn_plain(*aargs, heads=H, hd=hd)
         torch.cuda.synchronize()
-        a_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(ak, ap))
-        # bf16 outputs of f32 softmax sums in another order: one bf16 step
-        a_tol = 1.6e-2 * max(max(1.0, b.float().abs().max().item()) for b in ap)
-        if not a_err <= a_tol:
-            raise AssertionError(f"decode_attn {mode}: err {a_err} > {a_tol}")
+        a_errs = _attn_errors(f"decode_attn {mode}", ak, ap)
+        a_err = max(e for e, _ in a_errs.values())
         a_ms = timer(lambda: decode_attn_cuda(*aargs, heads=H, hd=hd))
         a_plain_ms = timer(lambda: decode_attn_plain(*aargs, heads=H, hd=hd), iters=3, warmup=1)
         # yardstick: SDPA over the same cache rows and mask (no RoPE, no fold)
@@ -567,7 +593,7 @@ def phase_ring(ctx):
                    layer_err=max(errs), layer_tol=min(tols), layer_ms=layer_ms,
                    layer_plain_ms=layer_plain_ms, layer_library_ms=layer_lib_ms,
                    layer_bound_ms=l_b_ms, layer_bytes=w_bytes + a_bytes, attn_err=a_err,
-                   attn_tol=a_tol, attn_ms=a_ms, attn_plain_ms=a_plain_ms,
+                   attn_errs=a_errs, attn_ms=a_ms, attn_plain_ms=a_plain_ms,
                    attn_library_ms=lib_ms, attn_bound_ms=a_b_ms, attn_bound_by=a_b_by,
                    attn_bytes=a_bytes, items=pl.items, splits=pl.nsplit, tiles_per_split=pl.tps,
                    blocks_per_sm=pl.blocks_per_sm, waves=pl.waves)
@@ -999,7 +1025,7 @@ ROUTES = [
     ("unfused_spec_grid2d", 1, {"DYNAM3D_FUSED_RING": "0", "DYNAM3D_INT4_GRID2D": "1"},
      ("int4_mlp", "int4_matvec2d")),
     ("grouped_spec", 3, {}, ("decode_attn", "int4_matvec")),
-    ("unfused_b12", 12, {}, ("int4_mlp", "int4_matvec")),
+    ("wide_b12", 12, {}, ("int4_mlp", "int4_matvec", "decode_attn")),
 ]
 
 
@@ -1235,8 +1261,182 @@ def phase_graph(ctx):
     torch.cuda.empty_cache()
 
 
+def _pass_times(torch, fn, reps=10):
+    """Median host ms of a decode pass (``fn`` enqueued, and enqueued then
+    synchronized) over ``reps`` after two warm calls, and the device's busy
+    ms in one more pass under ``torch.profiler`` (None if it saw no
+    kernels)."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    enq, wall = [], []
+    for i in range(reps + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if i >= 2:
+            enq.append((t1 - t0) * 1e3)
+            wall.append((t2 - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+               for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    return dict(host_enqueue_ms=float(np.median(enq)), host_sync_ms=float(np.median(wall)),
+                device_busy_ms=busy / 1e3 if busy > 0 else None)
+
+
+def phase_wide(ctx):
+    """Kernel B at 12 and 16 plain rows, one B=12 pass of the wide route
+    against the unfused pass, the passes' host and device ms, and the
+    counters of a B=12 ``greedy_decode``."""
+    torch = ctx["torch"]
+    from dynam3d_torch.config import Phi3Config
+    from dynam3d_torch.models.vlm import phi3
+    from dynam3d_torch.ops import kernels
+    from dynam3d_torch.ops.decode import attn_plan, decode_attn_cuda, decode_attn_plain
+    from dynam3d_torch.runtime import profiling
+
+    gen, timer, dev = ctx["gen"], ctx["timer"], torch.device("cuda")
+    cfg = Phi3Config()
+    D, H, hd, L = cfg.hidden_size, cfg.num_heads, cfg.head_dim, cfg.num_layers
+    out = {"attn": []}
+
+    # (1) kernel B, plain mode, 12 and 16 rows, a ragged scan of 1003 rows
+    tmax, t_scan = 1044, 1003
+    for rows in (12, 16):
+        qkv = torch.randn(rows, 3 * D, generator=gen, device=dev)
+        ck = torch.randn(1, rows, tmax, D, generator=gen, device=dev).to(torch.bfloat16)
+        cv = torch.randn(1, rows, tmax, D, generator=gen, device=dev).to(torch.bfloat16)
+        t = torch.arange(tmax, device=dev)
+        mask = torch.stack([(t < t_scan - 3 * r) & ~((t >= 40 + r) & (t < 45 + r))
+                            for r in range(rows)])
+        ang = torch.rand(rows, hd // 2, generator=gen, device=dev) * 3.0
+        args = (qkv, torch.cos(ang), torch.sin(ang), ck, cv, 0, mask, t_scan, 1)
+        got = decode_attn_cuda(*args, heads=H, hd=hd)
+        ref = decode_attn_plain(*args, heads=H, hd=hd)
+        torch.cuda.synchronize()
+        errs = _attn_errors(f"[wide] decode_attn plain {rows} rows", got, ref)
+        ms = timer(lambda: decode_attn_cuda(*args, heads=H, hd=hd))
+        live = int(mask[:, :t_scan].sum().item())
+        nbytes = (live * D * 2 * 2 + qkv.numel() * 4 + 3 * rows * D * 2 + mask.numel()
+                  + 2 * ang.numel() * 4)
+        b_ms, b_by = bound(nbytes, 4.0 * live * D, ctx["card"])
+        pl = attn_plan(dev, hd, H, rows, t_scan)
+        row = dict(rows=rows, t_scan=t_scan, live_rows=live, errs=errs, ms=ms,
+                   bound_ms=b_ms, bound_by=b_by, bytes=nbytes, items=pl.items,
+                   splits=pl.nsplit, waves=pl.waves)
+        out["attn"].append(row)
+        log(f"[wide] decode_attn {json.dumps(row)}")
+        del qkv, ck, cv, got, ref
+
+    # (2) one B=12 pass of the wide route against the unfused pass
+    wgen = torch.Generator(device="cuda").manual_seed(24)
+    params = phi3.quantize_phi3(phi3.init_phi3_params(wgen, cfg, device="cuda"), bits=4,
+                                consume=True)
+    B, T, n = 12, 900, 20
+    if not phi3._wide_decode_eligible(params, cfg, B):
+        raise AssertionError("[wide] the served weights are not eligible for the wide route")
+    embeds = (torch.randn(B, T, D, generator=wgen, device=dev) * 0.5).to(torch.bfloat16)
+    valid = torch.ones(B, T, dtype=torch.bool, device=dev)
+    for b in range(B):
+        valid[b, T - 17 * b:] = False
+        valid[b, 30 + b: 34 + b] = False
+    tok, cache = phi3._prefill(params, cfg, embeds, valid, T + n)
+    v = torch.cat([valid, torch.zeros(B, n, dtype=torch.bool, device=dev)], 1)
+    v[:, T] = True
+    x = phi3.embed(params, tok)[:, None].to(torch.bfloat16)
+    pos = (v.sum(1) - 1)[:, None]
+    wide_c = phi3.KVCache(cache.k.clone(), cache.v.clone())
+    unf_c = phi3.KVCache(cache.k.clone(), cache.v.clone())
+    del cache
+    flat = phi3._flat(wide_c, cfg)
+    kernels.reset_counts()
+    lw, _ = phi3._decode_forward_wide(params, cfg, x, pos, flat, T, v)
+    torch.cuda.synchronize()
+    one_pass = {k: c for k, c in kernels.launches.items() if c}
+    lu, _ = phi3.decode_forward(params, cfg, x, pos, unf_c, T, v[:, None, :])
+    lw, lu = lw[:, 0].float(), lu[:, 0].float()
+    scale = lu.abs().max().item()
+    diff = (lw - lu).abs().max().item()
+    top2 = lu.topk(2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]).tolist()
+    ids_w, ids_u = lw.argmax(-1).tolist(), lu.argmax(-1).tolist()
+    k_diff = (wide_c.k[:, :, T].float() - unf_c.k[:, :, T].float()).abs().max().item()
+    v_diff = (wide_c.v[:, :, T].float() - unf_c.v[:, :, T].float()).abs().max().item()
+    cmp = dict(max_abs_logit=diff, scale=scale, tol=LOGITS_TOL * scale, ids_wide=ids_w,
+               ids_unfused=ids_u, unfused_margins=margin, k_new_max_abs=k_diff,
+               v_new_max_abs=v_diff, launches_one_pass=one_pass)
+    log(f"[wide] B=12 pass wide vs unfused {json.dumps(cmp)}")
+    if not diff <= LOGITS_TOL * scale:
+        raise AssertionError(f"[wide] logits differ by {diff} > {LOGITS_TOL * scale}")
+    bad = [b for b in range(B) if ids_w[b] != ids_u[b] and margin[b] >= TIE_TOL * scale]
+    if bad:
+        raise AssertionError(f"[wide] ids differ beyond a near-tie in rows {bad}")
+    want_pass = {"int4_matvec": 2 * L + 1, "decode_attn": L, "int4_mlp": L}
+    if one_pass != want_pass or any(kernels.plain_calls.values()):
+        raise AssertionError(f"[wide] one pass launched {one_pass}, want {want_pass}")
+    out["pass"] = cmp
+
+    # (3) host and device ms of a pass on either route
+    times = {
+        "wide": _pass_times(torch, lambda: phi3._decode_forward_wide(params, cfg, x, pos, flat,
+                                                                     T, v)[0].argmax(-1)),
+        "unfused": _pass_times(torch, lambda: phi3.decode_forward(
+            params, cfg, x, pos, unf_c, T, v[:, None, :])[0].argmax(-1)),
+    }
+    log(f"[wide] B=12 pass ms {json.dumps(times)}")
+    out["pass_ms"] = times
+    # where a wide pass's host time goes: cProfile over 5 passes, by own time
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(5):
+        phi3._decode_forward_wide(params, cfg, x, pos, flat, T, v)[0].argmax(-1)
+    torch.cuda.synchronize()
+    prof.disable()
+    st = pstats.Stats(prof)
+    top = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:15]
+    for (fname, line, func), (_, ncalls, tt, ct, _) in top:
+        log(f"[wide] host {tt / 5 * 1e3:8.3f} ms a pass own, {ct / 5 * 1e3:8.3f} cumulative, "
+            f"{ncalls // 5:5d} calls  {os.path.basename(fname)}:{line} {func}")
+    del wide_c, unf_c, flat
+
+    # (4) a 20-token greedy_decode at B=12: the route's counter and launches
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    profiling.reset()
+    profiling.enable()
+    try:
+        ids = phi3.greedy_decode(params, cfg, embeds, valid, n, stop_token=-1)
+        torch.cuda.synchronize()
+        c, launches = profiling.counts(), {k: v for k, v in kernels.launches.items() if v}
+    finally:
+        profiling.disable()
+        profiling.reset()
+    passes, wide = c.get("decode.passes", 0), c.get("decode.wide_passes", 0)
+    want = {k: m * passes for k, m in want_pass.items()}
+    want["int4_matvec"] += 1                       # the prefill's head
+    log(f"[wide] greedy_decode B=12: passes {passes}, wide passes {wide}, launches "
+        f"{json.dumps(launches)} (want {json.dumps(want)}), ids[0] {ids[0].tolist()}")
+    if passes != n or wide != passes:
+        raise AssertionError(f"[wide] passes {passes}, wide passes {wide}")
+    if launches != want or any(kernels.plain_calls.values()):
+        raise AssertionError(f"[wide] launches {launches} != {want}")
+    out["greedy"] = dict(passes=passes, wide_passes=wide, launches=launches)
+    ctx["wide"] = out
+    del params, embeds
+    torch.cuda.empty_cache()
+
+
 BATCHED = [
-    ("b12_default", 12, {}, ("int4_mlp", "int4_matvec")),
+    ("b12_default", 12, {}, ("int4_mlp", "int4_matvec", "decode_attn")),
     ("b1_split", 1, {"DYNAM3D_FUSED_RING": "0", "DYNAM3D_SPEC_DECODE": "0"},
      ("decode_attn_layer", "int4_mlp_block")),
     ("b1_unfused_grid2d", 1, {"DYNAM3D_FUSED_RING": "0", "DYNAM3D_INT4_GRID2D": "1"},

@@ -15,8 +15,11 @@
 // r / group and folds the new k/v of rows g0..r (g0 = first row of its group)
 // after the cache: group = 1 is the plain mode (each row folds only itself),
 // group = rows is the shared-cache verify mode (k drafts of one sequence),
-// anything between is the grouped mode.  Outputs: ctx [rows, D] bf16 and the
-// roped k_new / v_new [rows, D] bf16 for the caller's cache write.
+// anything between is the grouped mode.  A call takes up to kMaxBatch = 16
+// rows and a group up to da::kMaxRows = 8 of them, so the plain mode serves
+// the decode pass of up to 16 sequences (the wide route, B = 9..16) and the
+// other two modes at most 8 rows.  Outputs: ctx [rows, D] bf16 and the roped
+// k_new / v_new [rows, D] bf16 for the caller's cache write.
 //
 // Bound: the live cache rows of each (head, group) are read once (2 *
 // t_scan * hd * 2 bytes per head and group), about 4 * group operations per
@@ -38,6 +41,8 @@
 namespace da = d3attn;
 
 namespace {
+
+constexpr int kMaxBatch = 16;   // query rows of a call, in groups of at most da::kMaxRows
 
 struct Params {
   da::Args a;
@@ -118,9 +123,10 @@ extern "C" int decode_attn(const float* qkv, int rows, int D, int heads, int hd,
                            void* k_new, void* v_new, int nsplit, int tps, float* ws,
                            unsigned int* tickets, void* stream) {
   const int ntiles = (t_scan + da::kTile - 1) / da::kTile;
-  if (rows < 1 || rows > da::kMaxRows || group < 1 || rows % group != 0 ||
-      rows / group > n_cache || heads * hd != D || nsplit < 1 || nsplit > da::kMaxSplits ||
-      t_scan < 0 || t_scan > tmax || (long)nsplit * tps < ntiles || D % 8 != 0)
+  if (rows < 1 || rows > kMaxBatch || group < 1 || group > da::kMaxRows ||
+      rows % group != 0 || rows / group > n_cache || heads * hd != D || nsplit < 1 ||
+      nsplit > da::kMaxSplits || t_scan < 0 || t_scan > tmax || (long)nsplit * tps < ntiles ||
+      D % 8 != 0)
     return 1;
   int smem = 0;
   void* k = kernel_for_hd(hd, &smem);

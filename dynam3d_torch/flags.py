@@ -47,14 +47,14 @@ def spec_force_accept() -> bool:
 
 def fused_attn() -> bool:
     """Int4 decode through the fused decode-layer kernels (the ring, or the
-    split attention + MLP-block pair at B=1); off runs the unfused
-    ``decode_forward``."""
+    split attention + MLP-block pair at B=1) and, at B=9..16, through kernel
+    B's attention (the wide route); off runs the unfused ``decode_forward``."""
     return _on("DYNAM3D_FUSED_ATTN", "1")
 
 
 def fused_ring() -> bool:
     """The whole-layer ring (kernels A and B) for B <= 8 rows; off leaves
-    B=1 on the split route and larger batches unfused."""
+    B=1 on the split route and B=2..8 unfused."""
     return _on("DYNAM3D_FUSED_RING", "1")
 
 

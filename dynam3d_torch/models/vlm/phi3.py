@@ -6,7 +6,8 @@ Port of ``models/vlm/phi3.py``: ``rms_norm``, ``_rope``,
 ``_mm`` (dense, int8 W8A8 prefill, int4 matvec) and ``_mlp`` (fused int4
 MLP), ``_lm_head``, ``decode_forward``, the route checks
 ``_fused_decode_eligible`` / ``_ring_eligible`` / ``_fused_layer_eligible``,
-``_decode_forward_fused`` (ring and split), the B=1 speculative ring pass
+``_decode_forward_fused`` (ring and split), the wide route
+``_decode_forward_wide`` (B=9..16), the B=1 speculative ring pass
 ``_ring_pass``, ``_verify_forward_grouped``, ``_last_valid_idx``, ``_ngram_draft``,
 ``greedy_decode``, ``greedy_decode_spec``, ``greedy_decode_spec_batched``,
 ``init_phi3_params`` and ``quantize_phi3``.
@@ -18,6 +19,9 @@ decode flags (read at call time), the same on either device:
   rows, B=1 speculative verify and the grouped B=2..4 verify;
 * the split route at B=1 with ``DYNAM3D_FUSED_RING=0``: kernel H
   (``decode_attn_layer``) then kernel G (``int4_mlp_block``) per layer;
+* the wide route for greedy B = 9..16 (``_decode_forward_wide``): kernel A
+  for qkv and o, kernel B in plain mode over the bf16 cache, and the MLP of
+  ``_mlp`` (kernel F);
 * otherwise the unfused ``decode_forward``: ``int4_matmul`` (kernel A, or
   E under ``DYNAM3D_INT4_GRID2D``) and ``int4_mlp`` (kernel F).
 
@@ -35,7 +39,8 @@ over long-lived buffers (``_ring_pass``), so that on the card each pass is
 the replay of a CUDA graph captured once per ``(rows, Tmax, t_scan)``.  Each greedy route records the spans
 ``generate.prefill`` (closing at the first read of the prefill's token)
 and ``generate.pass`` (one a pass, closing at its argmax read), and counts
-``decode.passes`` and its reads as ``sync`` (``runtime/profiling.py``).
+``decode.passes`` and its reads as ``sync`` (``runtime/profiling.py``); the
+wide route's passes also count ``decode.wide_passes``.
 """
 
 from __future__ import annotations
@@ -54,9 +59,9 @@ from dynam3d_torch.config import Phi3Config
 from dynam3d_torch.device import resolve_device
 from dynam3d_torch.ops import int4, kernels
 from dynam3d_torch.ops.decode import (
-    MAX_ROWS, ROWS, decode_attn_layer, decode_layer_ring, scan_length,
+    ATTN_ROWS, MAX_ROWS, ROWS, decode_attn, decode_attn_layer, decode_layer_ring, scan_length,
 )
-from dynam3d_torch.ops.int4 import int4_matmul, int4_mlp, int4_mlp_block, pack_int4
+from dynam3d_torch.ops.int4 import int4_matmul, int4_matvec, int4_mlp, int4_mlp_block, pack_int4
 from dynam3d_torch.ops.transformer import dot_f32
 from dynam3d_torch.parallel.comm import (
     copy_to_tp, gather_from_tp, group_rank, group_size, reduce_from_tp,
@@ -311,26 +316,37 @@ def _q4(w):
     return w["q4"] if isinstance(w, dict) and "q4" in w else None
 
 
+def _fused_attn_eligible(params: Params, cfg: Phi3Config) -> bool:
+    """The decode kernels' attention takes packed int4 qkv/o at unpadded
+    widths and MHA, under ``flags.fused_attn()``."""
+    if not (flags.fused_attn() and cfg.num_heads == cfg.num_kv_heads
+            and cfg.num_heads * cfg.head_dim == cfg.hidden_size):
+        return False
+    p0 = params["layers"][0]
+    qkv, o = _q4(p0.get("qkv")), _q4(p0.get("o"))
+    D = cfg.hidden_size
+    return (qkv is not None and o is not None
+            and qkv.d == D and qkv.n == 3 * D == 2 * qkv.n2
+            and o.d == D and o.n == D == 2 * o.n2
+            and qkv.dblk == o.dblk)
+
+
 def _fused_decode_eligible(params: Params, cfg: Phi3Config, batch: int) -> bool:
     """The fused decode kernels take low-batch decode over packed int4
     qkv/o at unpadded widths and MHA: B = 1 on either fused route, B <= 8
     on the ring.  (The reference also requires a TPU backend; the port
     takes the same route on either device.)"""
     max_b = MAX_ROWS if flags.fused_ring() else 1
-    if not (flags.fused_attn() and 1 <= batch <= max_b
-            and cfg.num_heads == cfg.num_kv_heads
-            and cfg.num_heads * cfg.head_dim == cfg.hidden_size):
+    if not (1 <= batch <= max_b and _fused_attn_eligible(params, cfg)):
         return False
-    p0 = params["layers"][0]
-    qkv, o = _q4(p0.get("qkv")), _q4(p0.get("o"))
-    D = cfg.hidden_size
-    base = (qkv is not None and o is not None
-            and qkv.d == D and qkv.n == 3 * D == 2 * qkv.n2
-            and o.d == D and o.n == D == 2 * o.n2
-            and qkv.dblk == o.dblk)
-    if base and batch > 1:
-        return _ring_eligible(params, cfg)
-    return base
+    return batch == 1 or _ring_eligible(params, cfg)
+
+
+def _wide_decode_eligible(params: Params, cfg: Phi3Config, batch: int) -> bool:
+    """Greedy B = 9..16 takes the wide route (kernel B in plain mode beside
+    A and F): the fused checks without the ring's batch limit.  Kernels A
+    and B take at most 16 rows, so larger batches stay unfused."""
+    return MAX_ROWS < batch <= ATTN_ROWS and _fused_attn_eligible(params, cfg)
 
 
 def _ring_eligible(params: Params, cfg: Phi3Config) -> bool:
@@ -407,6 +423,36 @@ def _decode_forward_fused(params: Params, cfg: Phi3Config, embeds: torch.Tensor,
                                cfg.rms_eps)
     x = rms_norm(params["final_ln"], x, cfg.rms_eps)
     return _lm_head(params, x), cache
+
+
+def _decode_forward_wide(params: Params, cfg: Phi3Config, embeds: torch.Tensor,
+                         positions: torch.Tensor, cache: KVCache, write_at: int,
+                         valid: torch.Tensor):
+    """One token per row (``embeds [B, 1, D]``, B = 9..16) over the flat
+    ``[L, B, Tmax, D]`` cache; ``valid [B, Tmax]`` includes the current slot.
+
+    Each layer: kernel A on qkv (RMSNorm prologue, f32 out), kernel B in
+    plain mode over the bf16 cache rows before ``write_at`` (each row folds
+    its own new k/v), the new k/v written at ``write_at``, kernel A on o
+    with the residual added in f32 and rounded to bf16, then the post-norm,
+    ``_mlp`` (kernel F) and the residual.  The head is ``_lm_head``'s."""
+    B, _, D = embeds.shape
+    cos, sin = _rope_table(cfg, positions[:, 0])
+    mask_rows = valid.clone()
+    mask_rows[:, write_at] = False          # kernel B folds the current token itself
+    x = embeds.reshape(B, D)
+    for li in range(cfg.num_layers):
+        p = params["layers"][li]
+        y = int4_matvec(x, p["qkv"]["q4"], ln_w=p["input_ln"], eps=cfg.rms_eps,
+                        out_dtype=torch.float32)
+        ctx, k_new, v_new = decode_attn(y, cos, sin, cache.k, cache.v, li, mask_rows, write_at,
+                                        1, heads=cfg.num_heads, hd=cfg.head_dim)
+        cache.k[li, :, write_at] = k_new
+        cache.v[li, :, write_at] = v_new
+        x = int4_matvec(ctx, p["o"]["q4"], residual=x, epilogue="residual", out_dtype=x.dtype)
+        x = x + _mlp(p, rms_norm(p["post_ln"], x, cfg.rms_eps))
+    x = rms_norm(params["final_ln"], x, cfg.rms_eps)
+    return _lm_head(params, x[:, None]), cache
 
 
 def _ring_layers(params: Params, cfg: Phi3Config, x: torch.Tensor, cos: torch.Tensor,
@@ -631,6 +677,7 @@ def greedy_decode(params: Params, cfg: Phi3Config, embeds: torch.Tensor,
     fused kernels never run there."""
     B, T, D = embeds.shape
     fused = tp is None and _fused_decode_eligible(params, cfg, B)
+    wide = tp is None and _wide_decode_eligible(params, cfg, B)
     total = T + max_new_tokens
     if fused:
         total = -(-total // ROWS) * ROWS
@@ -645,7 +692,7 @@ def greedy_decode(params: Params, cfg: Phi3Config, embeds: torch.Tensor,
 
     with profiling.span("generate.prefill"):
         tok, cache = _prefill(params, cfg, embeds, attn_valid, total, tp)
-        if fused:
+        if fused or wide:
             cache = _flat(cache, cfg)
         out = torch.full((B, max_new_tokens), cfg.pad_token_id, dtype=torch.int64, device=dev)
         done = tok == stop
@@ -661,6 +708,9 @@ def greedy_decode(params: Params, cfg: Phi3Config, embeds: torch.Tensor,
             pos = (valid.sum(1) - 1)[:, None]
             if fused:
                 logits, cache = _decode_forward_fused(params, cfg, e, pos, cache, T + i, valid)
+            elif wide:
+                logits, cache = _decode_forward_wide(params, cfg, e, pos, cache, T + i, valid)
+                profiling.count("decode.wide_passes")
             else:
                 logits, cache = decode_forward(params, cfg, e, pos, cache, T + i,
                                                valid[:, None, :], tp=tp)

@@ -16,7 +16,10 @@ The three modes of the TPU kernel are one ``group`` parameter of kernel B:
 plain (``group=1``: row b attends its own cache row and folds its own new
 k/v), ``shared_cache`` (``group=B``: every row attends cache row 0, row r
 folds draft rows 0..r) and ``group_size=g`` (row b attends cache row b//g and
-folds the rows of its group up to itself).
+folds the rows of its group up to itself).  Kernel B takes up to
+``ATTN_ROWS`` = 16 rows a call in groups of at most ``GROUP_ROWS`` = 8: the
+ring layer runs at most ``MAX_ROWS`` = 8, and ``phi3``'s wide route calls
+kernel B alone in plain mode at B = 9..16.
 
 Numerics (kernels B and H): all attention arithmetic is f32 (the TPU
 kernels' bf16 roundings of ``k*q`` products and of the rescale lanes are not
@@ -50,6 +53,8 @@ from dynam3d_torch.ops.int4 import (
 
 ROWS = 512        # cache rows per scan block (Tmax must be a multiple)
 MAX_ROWS = 8      # batch rows per decode layer
+ATTN_ROWS = 16    # query rows per kernel B call (csrc/decode_attn.cu: kMaxBatch)
+GROUP_ROWS = 8    # query rows of one cache group (csrc/decode_attn.cuh: kMaxRows)
 TILE = 64         # cache rows per tile of the attention body (csrc/decode_attn.cuh)
 MAX_SPLITS = 32   # sequence splits per (head, group) the body merges
 
@@ -131,8 +136,9 @@ def _check_attn(qkv, cache_k, cache_v, group, heads, hd):
     rows, w3 = qkv.shape
     D = heads * hd
     kernels.require(w3 == 3 * D, "decode_attn: qkv must be [rows, 3*heads*hd]")
-    kernels.require(1 <= rows <= MAX_ROWS, f"decode_attn: rows must be 1..{MAX_ROWS}")
-    kernels.require(group >= 1 and rows % group == 0, "decode_attn: rows % group != 0")
+    kernels.require(1 <= rows <= ATTN_ROWS, f"decode_attn: rows must be 1..{ATTN_ROWS}")
+    kernels.require(1 <= group <= GROUP_ROWS, f"decode_attn: group must be 1..{GROUP_ROWS}")
+    kernels.require(rows % group == 0, "decode_attn: rows % group != 0")
     kernels.require(cache_k.shape == cache_v.shape and cache_k.shape[-1] == D,
                     "decode_attn: caches must be [L, Bc, Tmax, D]")
     kernels.require(cache_k.shape[1] >= rows // group,
@@ -233,7 +239,7 @@ def decode_attn_cuda(
     ctx = torch.empty((B, D), dtype=torch.bfloat16, device=dev)
     k_new = torch.empty_like(ctx)
     v_new = torch.empty_like(ctx)
-    ws = torch.empty(pl.items * MAX_ROWS * (2 + hd), dtype=torch.float32, device=dev)
+    ws = torch.empty(pl.items * GROUP_ROWS * (2 + hd), dtype=torch.float32, device=dev)
     tickets = _ticket_buffer(dev, heads * (B // group))
     rc = lib.decode_attn(
         qkv.data_ptr(), B, D, heads, hd, cos2.data_ptr(), sin2.data_ptr(),

@@ -28,7 +28,7 @@ carries ``card``: ``nvidia-smi``'s name and power limit of the card (or
   full 32-layer config only.
 - ``serve``: ``EpisodeRunner.run`` over B feeds (default 4, grouped
   speculation), ``run_interleaved`` over ``_GROUPS``, one feed, and the
-  B feeds with every upload synchronized; B = 12 takes the unfused route.
+  B feeds with every upload synchronized; B = 12 takes the wide route.
 - ``render``: one novel view over a 35-frame walk table (20,160 live
   patches of 32,768) with the k-NN gates as ``flags`` resolves them.
 - ``train``: the IL step (``trainer_vln.make_train_step``, Adafactor) at

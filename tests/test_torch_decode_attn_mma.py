@@ -42,7 +42,7 @@ NEG = -math.inf
 
 def test_constants_are_the_kernels():
     for name, v in (("kTile", TILE), ("kBoxCols", BOX_COLS), ("kWarps", WARPS),
-                    ("kMaxRows", T.MAX_ROWS), ("kMaxSplits", T.MAX_SPLITS), ("kStages", 2)):
+                    ("kMaxRows", T.GROUP_ROWS), ("kMaxSplits", T.MAX_SPLITS), ("kStages", 2)):
         assert re.search(rf"constexpr int {name} = {v};", HEADER), name
     assert T.TILE == TILE
     assert "CU_TENSOR_MAP_SWIZZLE_64B" in HEADER
@@ -123,7 +123,7 @@ def test_shared_memory_leaves_the_card_its_blocks():
     slice beside the attention region): its cooperative grid of 264
     blocks.  An H100 SM has 233472 bytes, 1 KB reserved per block."""
     sm = 233472
-    b96 = 1024 + _smem_bytes(96, T.MAX_ROWS)
+    b96 = 1024 + _smem_bytes(96, T.GROUP_ROWS)
     assert sm // (b96 + 1024) == 3
     kernel_b = (CSRC / "decode_attn.cu").read_text()
     assert "__launch_bounds__(da::kThreads, 1) decode_attn_kernel(" in kernel_b

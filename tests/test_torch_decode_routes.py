@@ -1,7 +1,8 @@
 """Greedy ids through ``llava.generate`` on every int4 decode route the
 decode flags and the batch select (ring, split, unfused, 2-D matvec,
-grouped speculation; B = 1, 3, 6 and 12), each shown by the plain versions
-it ran, identical to the JAX package's ids (its CPU path,
+grouped speculation, the wide route's kernel B at B = 12; B = 1, 3, 6 and
+12), each shown by the plain versions it ran, identical to the JAX
+package's ids (its CPU path,
 ``decode_forward`` over dequantized weights).  The routes' kernels are
 tested in test_torch_int4_mlp.py and test_torch_attn_layer.py.
 
@@ -45,8 +46,8 @@ ROUTES = [
     ("fused_attn_off", 1, {"DYNAM3D_FUSED_ATTN": "0"}, {"F"}, {"ring", "H", "G", "E"}),
     ("grouped_spec", 3, {}, {"ring_group"}, {"H", "G", "F", "E"}),
     ("ring_greedy", 6, {}, {"ring"}, {"H", "G", "F", "E"}),
-    ("unfused", 12, {}, {"F"}, {"ring", "H", "G", "E"}),
-    ("unfused_split_mlp", 12, {"DYNAM3D_INT4_FUSED_MLP": "0"}, set(),
+    ("unfused", 12, {}, {"B", "F"}, {"ring", "H", "G", "E"}),
+    ("unfused_split_mlp", 12, {"DYNAM3D_INT4_FUSED_MLP": "0"}, {"B"},
      {"ring", "H", "G", "F", "E"}),
 ]
 
@@ -84,6 +85,7 @@ def test_route_ids_match_reference(monkeypatch, route, B, env, must, never):
     cfg, qparams, embeds, valid, n, ref = _reference(B)
     seen = set()
     _spy(monkeypatch, tphi3, "decode_layer_ring", "ring", seen)
+    _spy(monkeypatch, tdecode, "decode_attn_plain", "B", seen)
     _spy(monkeypatch, tdecode, "decode_attn_layer_plain", "H", seen)
     _spy(monkeypatch, tint4, "int4_mlp_block_plain", "G", seen)
     _spy(monkeypatch, tint4, "int4_mlp_plain", "F", seen)
