@@ -252,7 +252,7 @@ Phases, each printed as it finishes:
 27. ``graph``: the B=1 ring pass at Phi-3-mini widths replayed as a CUDA
    graph (``phi3._ring_pass``) against the same pass run eagerly: logits,
    argmax and the written cache rows bit for bit at 8 and 1 rows and
-   t_scan 1024 and 1536 (at 1 row also against ``_decode_forward_fused``),
+   t_scan 1024 and 1536 (at 1 row also against greedy's ``_decode_forward_ring``),
    and again after a larger request replaced the shared ticket buffer;
    then two ``greedy_decode_spec`` calls of one Tmax (plain passes, then
    verify passes) with the program's counters on: ``decode.graph_captures`` equals the keys captured,
@@ -535,15 +535,16 @@ def phase_ring(ctx):
         "ln1_w": 1.0 + 0.1 * torch.randn(D, generator=gen, device=dev),
         "ln2_w": 1.0 + 0.1 * torch.randn(D, generator=gen, device=dev),
     }
-    modes = [("plain", 1, dict(), 1, [900]),
-             ("shared_cache", 8, dict(shared_cache=True), 8, [900] * 8),
-             ("group_size", 4, dict(group_size=2), 2, [900, 900, 905, 905])]
+    modes = [("plain", 1, 1, [900]), ("shared_cache", 8, 8, [900] * 8),
+             ("group_size", 4, 2, [900, 900, 905, 905])]
     dense = {k: _dequant_bf16(torch, weights[k]) for k in ("qkv", "o", "gate_up", "down")}
     max_err, attn_entry, out = 0.0, None, []
-    for mode, B, kw, group, pos_rows in modes:
+    for mode, B, group, pos_rows in modes:
         c = _ring_case(torch, gen, weights, B, group, pos_rows)
+        t_scan = scan_length(max(c["pos"]), 1024)
+        kw = dict(group=group)
         args = (c["x"], c["ln1_w"], c["qkv"], c["o"], c["ln2_w"], c["gate_up"],
-                c["down"], c["cache_k"], c["cache_v"], 0, c["pos"], c["mask"],
+                c["down"], c["cache_k"], c["cache_v"], 0, t_scan, c["mask"],
                 c["cos"], c["sin"])
         lk = decode_layer_ring_cuda(*args, eps=1e-5, heads=H, hd=hd, **kw)
         lp = decode_layer_ring_plain(*args, eps=1e-5, heads=H, hd=hd, **kw)
@@ -561,7 +562,6 @@ def phase_ring(ctx):
             iters=3, warmup=1)
         # kernel B alone, on the qkv matvec's output
         y = int4_matvec_plain(c["x"].view(B, D), c["qkv"], ln_w=c["ln1_w"], eps=1e-5)
-        t_scan = scan_length(c["pos"], 1024)
         aargs = (y, c["cos"], c["sin"], c["cache_k"], c["cache_v"], 0, c["mask"], t_scan, group)
         ak = decode_attn_cuda(*aargs, heads=H, hd=hd)
         ap = decode_attn_plain(*aargs, heads=H, hd=hd)
@@ -1142,12 +1142,12 @@ def phase_graph(ctx):
             old = None
             if rows == 1:
                 e = phi3.embed(params, torch.as_tensor(ids, device=dev))[None]
-                lg_o, _ = phi3._decode_forward_fused(
+                lg_o, _ = phi3._decode_forward_ring(
                     params, cfg, e, torch.full((1, 1), pos0, device=dev), flat, wslot,
                     buf.valid)
                 old = torch.equal(lg_o, lg_g)
             log(f"[graph] rows {rows} wslot {wslot} t_scan {t_scan}: replay == eager {same} "
-                f"(max |dlogit| {diff}), == _decode_forward_fused {old}")
+                f"(max |dlogit| {diff}), == _decode_forward_ring {old}")
             if not same or old is False:
                 raise AssertionError(f"[graph] rows {rows} t_scan {t_scan}: replay differs")
 
@@ -1339,7 +1339,7 @@ def phase_wide(ctx):
     params = phi3.quantize_phi3(phi3.init_phi3_params(wgen, cfg, device="cuda"), bits=4,
                                 consume=True)
     B, T, n = 12, 900, 20
-    if not phi3._wide_decode_eligible(params, cfg, B):
+    if phi3.decode_route(params, cfg, B) != "wide":
         raise AssertionError("[wide] the served weights are not eligible for the wide route")
     embeds = (torch.randn(B, T, D, generator=wgen, device=dev) * 0.5).to(torch.bfloat16)
     valid = torch.ones(B, T, dtype=torch.bool, device=dev)
@@ -3952,7 +3952,7 @@ def _dist_tp(torch, dev):
     ms = (time.perf_counter() - t0) * 1e3
     return dict(ids=out[0].tolist(), ms=ms, counts=dict(comm.counts),
                 launches={k: v for k, v in kernels.launches.items() if v},
-                fused=phi3._fused_decode_eligible(sh, cfg, 1),
+                fused=phi3.decode_route(sh, cfg, 1) in ("ring", "split"),
                 peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30, layers=cfg.num_layers)
 
 

@@ -30,9 +30,8 @@ W8A8_PREFILL: bool = _on("DYNAM3D_W8A8_PREFILL", "1")
 
 
 def spec_decode() -> bool:
-    """Speculative greedy decode with n-gram prompt-lookup drafts: B=1
-    through ``greedy_decode_spec``, B=2..4 through the grouped
-    ``greedy_decode_spec_batched``."""
+    """Speculative greedy decode with n-gram prompt-lookup drafts at B=1..4
+    (``greedy_decode_spec``, where ``llava.speculates``)."""
     return _on("DYNAM3D_SPEC_DECODE", "1")
 
 
@@ -40,8 +39,7 @@ def spec_force_accept() -> bool:
     """Timing only: speculative decode accepts every draft, on the same
     compute path (a pass without a draft verifies all the same), so a run
     times full acceptance; the emitted ids are then not greedy.  Read by
-    ``greedy_decode_spec`` and ``greedy_decode_spec_batched`` alone, never
-    on by default (``tools/ab_spec_decode``, ``ab_spec_batched``)."""
+    ``greedy_decode_spec`` alone, never on by default (``tools/ab_spec_decode``, ``ab_spec_batched``)."""
     return _on("DYNAM3D_SPEC_FORCE_ACCEPT")
 
 
@@ -56,12 +54,6 @@ def fused_ring() -> bool:
     """The whole-layer ring (kernels A and B) for B <= 8 rows; off leaves
     B=1 on the split route and B=2..8 unfused."""
     return _on("DYNAM3D_FUSED_RING", "1")
-
-
-def int4_fused_mlp() -> bool:
-    """The unfused route's int4 MLP as one fused kernel (gate_up, SwiGLU,
-    down); off runs it as two int4 matmuls with bf16 SwiGLU between."""
-    return _on("DYNAM3D_INT4_FUSED_MLP", "1")
 
 
 def int4_grid2d() -> bool:

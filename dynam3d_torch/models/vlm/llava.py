@@ -75,23 +75,25 @@ def teacher_forced_loss(params: Params, cfg: LLaVAConfig, embeds: torch.Tensor,
     return TrainOutput(torch.mean(per_row + turn_nll), sel)
 
 
+def speculates(batch: int, max_new_tokens: int) -> bool:
+    """Whether :func:`generate` decodes speculatively: under
+    ``DYNAM3D_SPEC_DECODE`` (on by default), at B=1 and at B=2..4 for at
+    least two new tokens (B episodes x 8//B drafts share one weight stream
+    per verify pass)."""
+    return flags.spec_decode() and (batch == 1 or (2 <= batch <= 4 and max_new_tokens >= 2))
+
+
 def generate(params: Params, cfg: LLaVAConfig, embeds: torch.Tensor,
              attn_valid: torch.Tensor, max_new_tokens: Optional[int] = None,
              lookup_ids: Optional[torch.Tensor] = None,
              stats: Optional[dict] = None) -> torch.Tensor:
-    """Greedy generation.  With ``DYNAM3D_SPEC_DECODE`` (on by default):
-    speculative at B=1, grouped speculation at B=2..4 (B episodes x 8//B
-    drafts share one weight stream per verify pass); plain greedy
-    otherwise.  Speculation is greedy-exact, so every route gives the same
-    ids."""
+    """Greedy generation: speculative where :func:`speculates`, plain
+    greedy otherwise.  Speculation is greedy-exact, so every route gives
+    the same ids."""
     n = max_new_tokens or cfg.max_new_tokens
-    B = embeds.shape[0]
-    if flags.spec_decode() and B == 1:
+    if speculates(embeds.shape[0], n):
         return phi3.greedy_decode_spec(params["phi3"], cfg.phi3, embeds, attn_valid, n,
                                        lookup_ids=lookup_ids, stats=stats)
-    if flags.spec_decode() and 2 <= B <= 4 and n >= 2:
-        return phi3.greedy_decode_spec_batched(params["phi3"], cfg.phi3, embeds, attn_valid,
-                                               n, lookup_ids=lookup_ids, stats=stats)
     return phi3.greedy_decode(params["phi3"], cfg.phi3, embeds, attn_valid, n)
 
 

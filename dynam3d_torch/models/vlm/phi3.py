@@ -1,28 +1,31 @@
 """Phi-3-mini decoder with KV-cache prefill and (speculative) greedy decode.
 
 Port of ``models/vlm/phi3.py``: ``rms_norm``, ``_rope``,
-``init_cache``, ``forward`` (with ``lm_at``), the training forward
-``forward_train``, the weight-format dispatch
+``init_cache``, ``forward`` (with ``lm_at`` and per-row write slots), the
+training forward ``forward_train``, the weight-format dispatch
 ``_mm`` (dense, int8 W8A8 prefill, int4 matvec) and ``_mlp`` (fused int4
-MLP), ``_lm_head``, ``decode_forward``, the route checks
-``_fused_decode_eligible`` / ``_ring_eligible`` / ``_fused_layer_eligible``,
-``_decode_forward_fused`` (ring and split), the wide route
-``_decode_forward_wide`` (B=9..16), the B=1 speculative ring pass
-``_ring_pass``, ``_verify_forward_grouped``, ``_last_valid_idx``, ``_ngram_draft``,
-``greedy_decode``, ``greedy_decode_spec``, ``greedy_decode_spec_batched``,
-``init_phi3_params`` and ``quantize_phi3``.
+MLP), ``_lm_head``, ``decode_forward``, the route decision
+``decode_route``, the ring stack ``_ring_stack``, greedy's fused passes
+(``_decode_forward_ring``, ``_decode_forward_split`` and the wide route
+``_decode_forward_wide``), the B=1 speculative ring pass ``_ring_pass``,
+``_last_valid_idx``, ``_ngram_draft``, ``greedy_decode``,
+``greedy_decode_spec`` (B = 1..4), ``init_phi3_params`` and
+``quantize_phi3``.
 
-Int4 decode takes the reference's routes, chosen by batch, packing and the
-decode flags (read at call time), the same on either device:
+Int4 decode takes the reference's routes, which :func:`decode_route`
+chooses from the pass's rows, the packing and the decode flags (read at
+call time), the same on either device:
 
-* the ring (``ops.decode.decode_layer_ring``, kernels B + 4 x A) for B <= 8
-  rows, B=1 speculative verify and the grouped B=2..4 verify;
-* the split route at B=1 with ``DYNAM3D_FUSED_RING=0``: kernel H
+* ``"ring"`` (``_ring_stack`` over ``ops.decode.decode_layer_ring``,
+  kernels B + 4 x A) for B <= 8 rows: greedy in plain mode, the B=1
+  speculative verify with the rows sharing cache row 0, and the grouped
+  B=2..4 verify;
+* ``"split"`` at B=1 with ``DYNAM3D_FUSED_RING=0``: kernel H
   (``decode_attn_layer``) then kernel G (``int4_mlp_block``) per layer;
-* the wide route for greedy B = 9..16 (``_decode_forward_wide``): kernel A
+* ``"wide"`` for greedy B = 9..16 (``_decode_forward_wide``): kernel A
   for qkv and o, kernel B in plain mode over the bf16 cache, and the MLP of
   ``_mlp`` (kernel F);
-* otherwise the unfused ``decode_forward``: ``int4_matmul`` (kernel A, or
+* otherwise ``"unfused"``, ``forward``: ``int4_matmul`` (kernel A, or
   E under ``DYNAM3D_INT4_GRID2D``) and ``int4_mlp`` (kernel F).
 
 Tensor parallelism (``tp``: a process group, ``None`` by default) takes
@@ -34,9 +37,10 @@ collectives).  Under TP decode takes the unfused dense route.
 
 Kernels run on CUDA tensors, their plain versions on CPU tensors.  The
 decode loops run on the host (Python control flow), reading the argmax of
-each pass back from the device.  ``greedy_decode_spec``'s ring passes run
-over long-lived buffers (``_ring_pass``), so that on the card each pass is
-the replay of a CUDA graph captured once per ``(rows, Tmax, t_scan)``.  Each greedy route records the spans
+each pass back from the device.  ``greedy_decode_spec``'s B=1 ring passes
+run over long-lived buffers (``_ring_pass``), so that on the card each
+pass is the replay of a CUDA graph captured once per ``(rows, Tmax,
+t_scan)``.  Each greedy route records the spans
 ``generate.prefill`` (closing at the first read of the prefill's token)
 and ``generate.pass`` (one a pass, closing at its argmax read), and counts
 ``decode.passes`` and its reads as ``sync`` (``runtime/profiling.py``); the
@@ -45,6 +49,7 @@ wide route's passes also count ``decode.wide_passes``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import threading
@@ -152,8 +157,7 @@ def _mlp(p: Params, h: torch.Tensor, out_dtype=None) -> torch.Tensor:
         act = torch.nn.functional.silu(_mm(p["wgate"], h)) * _mm(p["wup"], h)
         return _mm(p["down"], act, out_dtype=out_dtype)
     gu, dn = p["gate_up"], p["down"]
-    if (isinstance(gu, dict) and "q4" in gu and isinstance(dn, dict) and "q4" in dn
-            and _rows(h) <= 16 and flags.int4_fused_mlp()):
+    if _q4(gu) is not None and _q4(dn) is not None and _rows(h) <= 16:
         return int4_mlp(h, gu["q4"], dn["q4"], out_dtype=h.dtype)
     gate_up = _mm(gu, h)
     gate, up = gate_up.chunk(2, dim=-1)
@@ -225,18 +229,25 @@ def _lm_head(params: Params, x: torch.Tensor, tp=None) -> torch.Tensor:
 def forward(params: Params, cfg: Phi3Config, embeds: torch.Tensor,
             positions: torch.Tensor, cache: KVCache, write_at: int,
             attn_mask: torch.Tensor, lm_at: Optional[torch.Tensor] = None, tp=None):
-    """Decoder stack over ``embeds [B, T, D]``; writes k/v into ``cache`` at
-    ``write_at`` (in place) and returns ``(logits, cache)``; ``lm_at [B]``
-    restricts the lm_head to one position per row (``[B, 1, V]``).  Under
-    ``tp`` the params and the cache are this rank's heads (a cache from
-    :func:`init_cache` of ``local_config(cfg, tp)``)."""
+    """Decoder stack over ``embeds [B, T, D]``; writes k/v into ``cache`` in
+    place at ``write_at`` (an int: slots ``write_at..`` of every row; a
+    ``[B]`` long tensor: row b's own slots from ``write_at[b]``) and
+    returns ``(logits, cache)``; ``lm_at [B]`` restricts the lm_head to one
+    position per row (``[B, 1, V]``).  Under ``tp`` the params and the
+    cache are this rank's heads (a cache from :func:`init_cache` of
+    ``local_config(cfg, tp)``)."""
     x = embeds
-    T = x.shape[1]
+    B, T = x.shape[:2]
+    if isinstance(write_at, torch.Tensor):
+        at = (torch.arange(B, device=x.device)[:, None],
+              write_at[:, None] + torch.arange(T, device=x.device))
+    else:
+        at = (slice(None), slice(write_at, write_at + T))
     for li in range(cfg.num_layers):
         p = params["layers"][li]
         q, k, v = _qkv(p, cfg, x, positions, tp)
-        cache.k[li][:, write_at: write_at + T] = k
-        cache.v[li][:, write_at: write_at + T] = v
+        cache.k[li][at] = k.to(cache.k.dtype)
+        cache.v[li][at] = v.to(cache.v.dtype)
         x = _attn_mlp(p, cfg, x, q, cache.k[li], cache.v[li], attn_mask, tp)
     x = rms_norm(params["final_ln"], x, cfg.rms_eps)
     if lm_at is not None:
@@ -316,62 +327,51 @@ def _q4(w):
     return w["q4"] if isinstance(w, dict) and "q4" in w else None
 
 
-def _fused_attn_eligible(params: Params, cfg: Phi3Config) -> bool:
-    """The decode kernels' attention takes packed int4 qkv/o at unpadded
-    widths and MHA, under ``flags.fused_attn()``."""
-    if not (flags.fused_attn() and cfg.num_heads == cfg.num_kv_heads
-            and cfg.num_heads * cfg.head_dim == cfg.hidden_size):
-        return False
-    p0 = params["layers"][0]
-    qkv, o = _q4(p0.get("qkv")), _q4(p0.get("o"))
+def _pack_route(params: Params, cfg: Phi3Config) -> Optional[str]:
+    """What layer 0's packs allow, flags aside: ``"attn"`` where the decode
+    kernels' attention takes them (packed int4 qkv / o at unpadded widths,
+    MHA), ``"ring"`` where the whole-layer ring does too (int4 MLP packs
+    with the attention's block sizes, and the reference ring's prime
+    points: >= 3 gate_up and >= 2 qkv column blocks), else ``None``."""
     D = cfg.hidden_size
-    return (qkv is not None and o is not None
+    if not (cfg.num_heads == cfg.num_kv_heads and cfg.num_heads * cfg.head_dim == D):
+        return None
+    qkv, o, gu, dn = (_q4(params["layers"][0].get(n)) for n in ("qkv", "o", "gate_up", "down"))
+    if not (qkv is not None and o is not None
             and qkv.d == D and qkv.n == 3 * D == 2 * qkv.n2
-            and o.d == D and o.n == D == 2 * o.n2
-            and qkv.dblk == o.dblk)
+            and o.d == D and o.n == D == 2 * o.n2 and qkv.dblk == o.dblk):
+        return None
+    ring = (gu is not None and dn is not None
+            and gu.d == D and gu.n == 2 * gu.n2 and dn.n == D == 2 * dn.n2 and gu.n2 == dn.dp
+            and gu.dblk == qkv.dblk == dn.dblk and qkv.nblk == o.nblk == gu.nblk == dn.nblk
+            and gu.n2 >= 3 * gu.nblk and qkv.n2 >= 2 * qkv.nblk)
+    return "ring" if ring else "attn"
 
 
-def _fused_decode_eligible(params: Params, cfg: Phi3Config, batch: int) -> bool:
-    """The fused decode kernels take low-batch decode over packed int4
-    qkv/o at unpadded widths and MHA: B = 1 on either fused route, B <= 8
-    on the ring.  (The reference also requires a TPU backend; the port
-    takes the same route on either device.)"""
-    max_b = MAX_ROWS if flags.fused_ring() else 1
-    if not (1 <= batch <= max_b and _fused_attn_eligible(params, cfg)):
-        return False
-    return batch == 1 or _ring_eligible(params, cfg)
+def decode_route(params: Params, cfg: Phi3Config, rows: int, tp=None) -> str:
+    """How a decode pass of ``rows`` rows runs through the layers, from the
+    packs and the decode flags (read at call time):
 
+    * ``"ring"``: ``_ring_stack`` (kernels A and B), at most 8 rows over
+      ring packs under ``DYNAM3D_FUSED_RING``;
+    * ``"split"``: one row over attention packs, kernel H then G
+      (``_decode_forward_split``);
+    * ``"wide"``: 9..16 rows over attention packs, A, B in plain mode and F
+      (``_decode_forward_wide``);
+    * ``"unfused"``: ``forward`` (``int4_matmul`` and ``int4_mlp``):
+      ``DYNAM3D_FUSED_ATTN=0``, other weights, more than 16 rows, any
+      ``tp``.
 
-def _wide_decode_eligible(params: Params, cfg: Phi3Config, batch: int) -> bool:
-    """Greedy B = 9..16 takes the wide route (kernel B in plain mode beside
-    A and F): the fused checks without the ring's batch limit.  Kernels A
-    and B take at most 16 rows, so larger batches stay unfused."""
-    return MAX_ROWS < batch <= ATTN_ROWS and _fused_attn_eligible(params, cfg)
-
-
-def _ring_eligible(params: Params, cfg: Phi3Config) -> bool:
-    """The ring flag, the structural check, and the reference ring's
-    prime points (>= 3 gate_up and >= 2 qkv column blocks)."""
-    if not (flags.fused_ring() and _fused_layer_eligible(params, cfg)):
-        return False
-    p0 = params["layers"][0]
-    qkv, gu = p0["qkv"]["q4"], p0["gate_up"]["q4"]
-    return gu.n2 >= 3 * gu.nblk and qkv.n2 >= 2 * qkv.nblk
-
-
-def _fused_layer_eligible(params: Params, cfg: Phi3Config) -> bool:
-    """Structural eligibility of the whole-layer ring: the MLP weights are
-    packed int4 with the attention weights' block sizes."""
-    p0 = params["layers"][0]
-    qkv, o = _q4(p0.get("qkv")), _q4(p0.get("o"))
-    gu, dn = _q4(p0.get("gate_up")), _q4(p0.get("down"))
-    D = cfg.hidden_size
-    return (qkv is not None and o is not None and gu is not None and dn is not None
-            and gu.d == D and gu.n == 2 * gu.n2
-            and dn.n == D == 2 * dn.n2
-            and gu.n2 == dn.dp
-            and gu.dblk == qkv.dblk == dn.dblk
-            and qkv.nblk == o.nblk == gu.nblk == dn.nblk)
+    The reference also requires a TPU backend; the port takes the same
+    route on either device."""
+    packs = _pack_route(params, cfg) if tp is None and flags.fused_attn() else None
+    if packs is None:
+        return "unfused"
+    if rows <= MAX_ROWS and packs == "ring" and flags.fused_ring():
+        return "ring"
+    if rows == 1:
+        return "split"
+    return "wide" if MAX_ROWS < rows <= ATTN_ROWS else "unfused"
 
 
 def _flat(cache: KVCache, cfg: Phi3Config) -> KVCache:
@@ -384,43 +384,69 @@ def _rope_table(cfg: Phi3Config, pos: torch.Tensor):
     return torch.cos(ang), torch.sin(ang)
 
 
-def _decode_forward_fused(params: Params, cfg: Phi3Config, embeds: torch.Tensor,
+def _ring_stack(params: Params, cfg: Phi3Config, x: torch.Tensor, cos: torch.Tensor,
+                sin: torch.Tensor, cache: KVCache, t_scan: int, mask: torch.Tensor, group: int,
+                rows_of_cache: Optional[torch.Tensor], slots) -> torch.Tensor:
+    """The ring's layers, final norm and head over ``x [R, 1, D]`` (R <= 8)
+    and the flat ``[L, Bc, Tmax, D]`` cache.  Each layer is
+    ``decode_layer_ring`` in mode ``group`` over the first ``t_scan`` cache
+    rows under ``mask`` (``[1 or R, Tmax]``, the current slots excluded),
+    then row r's new k/v written at slot ``slots[r]`` (or the int
+    ``slots``) of cache row ``rows_of_cache[r]`` (``None``: row 0).  No
+    host read, so a CUDA graph can capture it.  Returns logits ``[R, 1, V]``."""
+    D = x.shape[-1]
+    at = slots if rows_of_cache is None else rows_of_cache * cache.k.shape[2] + slots
+    for li in range(cfg.num_layers):
+        p = params["layers"][li]
+        x, k_new, v_new = decode_layer_ring(
+            x, p["input_ln"], p["qkv"]["q4"], p["o"]["q4"], p["post_ln"],
+            p["gate_up"]["q4"], p["down"]["q4"], cache.k, cache.v, li, t_scan,
+            mask, cos, sin, eps=cfg.rms_eps, heads=cfg.num_heads, hd=cfg.head_dim, group=group,
+        )
+        cache.k[li].view(-1, D).index_copy_(0, at, k_new.to(cache.k.dtype))
+        cache.v[li].view(-1, D).index_copy_(0, at, v_new.to(cache.v.dtype))
+    return _lm_head(params, rms_norm(params["final_ln"], x, cfg.rms_eps))
+
+
+# greedy_decode's passes on the ring, split and wide routes (_FUSED_PASS)
+# share the wide route's signature: one token per row (``embeds [B, 1, D]``)
+# over the flat ``[L, B, Tmax, D]`` cache, written at ``write_at``;
+# ``valid [B, Tmax]`` includes the current slot, which the kernels fold
+# themselves.
+
+def _decode_forward_ring(params: Params, cfg: Phi3Config, embeds: torch.Tensor,
+                         positions: torch.Tensor, cache: KVCache, write_at: int,
+                         valid: torch.Tensor):
+    """B <= 8 rows on the ring in plain mode (each row its own cache row)."""
+    cos, sin = _rope_table(cfg, positions[:, 0])
+    mask = valid.clone()
+    mask[:, write_at] = False
+    rows = torch.arange(embeds.shape[0], device=embeds.device)
+    return _ring_stack(params, cfg, embeds, cos, sin, cache,
+                       scan_length(write_at, cache.k.shape[2]), mask, 1, rows, write_at), cache
+
+
+def _decode_forward_split(params: Params, cfg: Phi3Config, embeds: torch.Tensor,
                           positions: torch.Tensor, cache: KVCache, write_at: int,
                           valid: torch.Tensor):
-    """One token per row (``embeds [B, 1, D]``) over the flat
-    ``[L, B, Tmax, D]`` cache; ``valid [B, Tmax]`` includes the current slot.
-
-    Ring-eligible weights run ``decode_layer_ring`` in plain mode (B <= 8).
-    Otherwise (B = 1) the split route: ``decode_attn_layer`` then
-    ``int4_mlp_block``, with the residual between the halves in bf16."""
-    B = embeds.shape[0]
+    """B = 1 on the split route: ``decode_attn_layer`` then
+    ``int4_mlp_block`` per layer, with the residual between the halves in
+    bf16."""
     D = cfg.hidden_size
     cos, sin = _rope_table(cfg, positions[:, 0])
-    mask_rows = valid.clone()
-    mask_rows[:, write_at] = False          # the kernels fold the current token themselves
-    use_ring = _ring_eligible(params, cfg)
-    if not use_ring and B != 1:
-        raise ValueError("B > 1 fused decode requires the ring")
+    mask = valid.clone()
+    mask[:, write_at] = False
     x = embeds
     for li in range(cfg.num_layers):
         p = params["layers"][li]
-        if use_ring:
-            x, k_new, v_new = decode_layer_ring(
-                x, p["input_ln"], p["qkv"]["q4"], p["o"]["q4"], p["post_ln"],
-                p["gate_up"]["q4"], p["down"]["q4"], cache.k, cache.v, li, write_at,
-                mask_rows, cos, sin, eps=cfg.rms_eps, heads=cfg.num_heads, hd=cfg.head_dim,
-            )
-        else:
-            x, k_new, v_new = decode_attn_layer(
-                x, p["input_ln"], p["qkv"]["q4"], p["o"]["q4"], cache.k, cache.v, li,
-                write_at, mask_rows[0], cos[0], sin[0], eps=cfg.rms_eps,
-                heads=cfg.num_heads, hd=cfg.head_dim,
-            )
-        cache.k[li, :, write_at] = k_new.view(B, D)
-        cache.v[li, :, write_at] = v_new.view(B, D)
-        if not use_ring:
-            x = int4_mlp_block(x, p["post_ln"], p["gate_up"]["q4"], p["down"]["q4"],
-                               cfg.rms_eps)
+        x, k_new, v_new = decode_attn_layer(
+            x, p["input_ln"], p["qkv"]["q4"], p["o"]["q4"], cache.k, cache.v, li,
+            write_at, mask[0], cos[0], sin[0], eps=cfg.rms_eps,
+            heads=cfg.num_heads, hd=cfg.head_dim,
+        )
+        cache.k[li, :, write_at] = k_new.view(1, D)
+        cache.v[li, :, write_at] = v_new.view(1, D)
+        x = int4_mlp_block(x, p["post_ln"], p["gate_up"]["q4"], p["down"]["q4"], cfg.rms_eps)
     x = rms_norm(params["final_ln"], x, cfg.rms_eps)
     return _lm_head(params, x), cache
 
@@ -455,35 +481,13 @@ def _decode_forward_wide(params: Params, cfg: Phi3Config, embeds: torch.Tensor,
     return _lm_head(params, x[:, None]), cache
 
 
-def _ring_layers(params: Params, cfg: Phi3Config, x: torch.Tensor, cos: torch.Tensor,
-                 sin: torch.Tensor, slots: torch.Tensor, t_scan: int, cache: KVCache,
-                 valid: torch.Tensor) -> torch.Tensor:
-    """The B=1 ring's layers, final norm and head over ``x [r, 1, D]``: the
-    r rows share one weight stream and cache row 0 (shared-cache mode, row j
-    folds rows 0..j; at r = 1 the plain one-row pass).  ``valid [1, Tmax]``
-    holds the accepted slots; each layer reads the first ``t_scan`` cache
-    rows and writes its new k/v at ``slots [r]`` (a long tensor on the
-    cache's device).  Returns logits ``[1, r, V]``."""
-    r, _, D = x.shape
-    for li in range(cfg.num_layers):
-        p = params["layers"][li]
-        # the layer reads the slot only for its scan length, which t_scan,
-        # a multiple of ROWS, is its own
-        x, k_new, v_new = decode_layer_ring(
-            x, p["input_ln"], p["qkv"]["q4"], p["o"]["q4"], p["post_ln"],
-            p["gate_up"]["q4"], p["down"]["q4"], cache.k, cache.v, li, t_scan,
-            valid, cos, sin, eps=cfg.rms_eps, heads=cfg.num_heads, hd=cfg.head_dim,
-            shared_cache=True,
-        )
-        cache.k[li, 0].index_copy_(0, slots, k_new.to(cache.k.dtype))
-        cache.v[li, 0].index_copy_(0, slots, v_new.to(cache.v.dtype))
-    x = rms_norm(params["final_ln"], x.reshape(1, r, D), cfg.rms_eps)
-    return _lm_head(params, x)
+_FUSED_PASS = {"ring": _decode_forward_ring, "split": _decode_forward_split,
+               "wide": _decode_forward_wide}
 
 
 # --------------------------------------------- the B=1 ring pass as a CUDA graph
 #
-# greedy_decode_spec's ring passes read everything that changes from pass
+# greedy_decode_spec's B=1 ring passes read everything that changes from pass
 # to pass from long-lived tensors: the cache and the accepted-slot mask of
 # the call's Tmax, and three rows of MAX_ROWS longs on the device (ids,
 # positions, write slots) filled from a host copy before the pass.  On the
@@ -579,12 +583,13 @@ def _graph_owner(params: Params, cfg: Phi3Config, dtype: torch.dtype) -> tuple:
 
 def _ring_body(params: Params, cfg: Phi3Config, buf: _RingBuffers, rows: int, t_scan: int):
     """One pass over the buffers: ``rows`` ids at their positions, written
-    at their slots.  Returns ``(logits [1, rows, V], argmax [rows])``."""
+    at their slots of cache row 0, the rows sharing it (``group = rows``:
+    row j folds rows 0..j).  Returns ``(logits [1, rows, V], argmax [rows])``."""
     ids, pos, slots = buf.inputs[:, :rows]
     x = embed(params, ids).to(buf.cache.k.dtype)[:, None, :]
     cos, sin = _rope_table(cfg, pos)
-    logits = _ring_layers(params, cfg, x, cos, sin, slots, t_scan, _flat(buf.cache, cfg),
-                          buf.valid)
+    logits = _ring_stack(params, cfg, x, cos, sin, _flat(buf.cache, cfg), t_scan, buf.valid,
+                         rows, None, slots).view(1, rows, -1)
     return logits, logits[0].argmax(-1)
 
 
@@ -669,17 +674,17 @@ def _prefill(params, cfg, embeds, attn_valid, total, tp=None, cache=None):
 def greedy_decode(params: Params, cfg: Phi3Config, embeds: torch.Tensor,
                   attn_valid: torch.Tensor, max_new_tokens: int,
                   stop_token: Optional[int] = None, tp=None) -> torch.Tensor:
-    """Greedy generation over right-padded prompts; returns ``[B, max_new]``
-    ids (stop token included, pad after it).  Under ``tp`` (params sharded
-    by ``parallel.shard_tree``, ``embeds`` whole on every rank) each pass
+    """Greedy generation over right-padded prompts on the batch's
+    :func:`decode_route`; returns ``[B, max_new]`` ids (stop token
+    included, pad after it).  Under ``tp`` (params sharded by
+    ``parallel.shard_tree``, ``embeds`` whole on every rank) each pass
     makes two all-reduces a layer, one for the next token's embedding and
     one gather of the logits, and every rank returns the same ids; the
     fused kernels never run there."""
     B, T, D = embeds.shape
-    fused = tp is None and _fused_decode_eligible(params, cfg, B)
-    wide = tp is None and _wide_decode_eligible(params, cfg, B)
+    route = decode_route(params, cfg, B, tp)
     total = T + max_new_tokens
-    if fused:
+    if route in ("ring", "split"):
         total = -(-total // ROWS) * ROWS
     stop = cfg.end_token_id if stop_token is None else stop_token
     dev = embeds.device
@@ -692,7 +697,7 @@ def greedy_decode(params: Params, cfg: Phi3Config, embeds: torch.Tensor,
 
     with profiling.span("generate.prefill"):
         tok, cache = _prefill(params, cfg, embeds, attn_valid, total, tp)
-        if fused or wide:
+        if route != "unfused":
             cache = _flat(cache, cfg)
         out = torch.full((B, max_new_tokens), cfg.pad_token_id, dtype=torch.int64, device=dev)
         done = tok == stop
@@ -706,14 +711,13 @@ def greedy_decode(params: Params, cfg: Phi3Config, embeds: torch.Tensor,
             out[:, i] = torch.where(done, cfg.pad_token_id, tok)
             e = embed(params, tok, tp)[:, None, :].to(embeds.dtype)
             pos = (valid.sum(1) - 1)[:, None]
-            if fused:
-                logits, cache = _decode_forward_fused(params, cfg, e, pos, cache, T + i, valid)
-            elif wide:
-                logits, cache = _decode_forward_wide(params, cfg, e, pos, cache, T + i, valid)
-                profiling.count("decode.wide_passes")
-            else:
+            if route == "unfused":
                 logits, cache = decode_forward(params, cfg, e, pos, cache, T + i,
                                                valid[:, None, :], tp=tp)
+            else:
+                logits, cache = _FUSED_PASS[route](params, cfg, e, pos, cache, T + i, valid)
+            if route == "wide":
+                profiling.count("decode.wide_passes")
             nxt = logits[:, 0].argmax(-1)
             done = done | (tok == stop)
             nxt = torch.where(done, stop, nxt)
@@ -760,21 +764,32 @@ def greedy_decode_spec(params: Params, cfg: Phi3Config, embeds: torch.Tensor,
                        lookup_ids: Optional[torch.Tensor] = None,
                        draft_len: Optional[int] = None,
                        stats: Optional[dict] = None) -> torch.Tensor:
-    """Speculative greedy decode at B=1 with n-gram prompt-lookup drafts.
+    """Speculative greedy decode of B = 1..4 episodes with n-gram
+    prompt-lookup drafts seeded by ``lookup_ids [B, S]`` (-1 never matches).
 
-    Greedy-exact: a draft token is accepted only when the pass's own argmax
-    at the previous position equals it, so the ids equal
-    :func:`greedy_decode`'s.  A pass without a draft runs a plain one-token
-    step.  ``stats`` (if given) receives ``tokens`` and ``passes``.  Under
-    ``flags.spec_force_accept()`` every pass verifies and accepts all ``k``
+    A pass verifies ``g`` rows an episode, the carried token and its draft:
+    ``g = min(draft_len, 8 // B)`` (``draft_len`` defaults to
+    ``flags.SPEC_DRAFT_LEN``), so one weight stream verifies up to ``g``
+    tokens for every episode; at B=1 a pass without a draft runs one row.
+    Greedy-exact row by row: a draft token is accepted only when the pass's
+    own argmax at the previous position equals it, so the ids equal
+    :func:`greedy_decode`'s; rows accept and stop independently and
+    finished rows coast.  ``stats`` (if given) receives ``tokens`` (an int
+    at B=1, per row otherwise) and ``passes``.  Under
+    ``flags.spec_force_accept()`` every pass verifies and accepts all ``g``
     rows (timing only).
 
-    On the ring every pass runs over long-lived buffers of the call's
-    cache length (``_ring_pass``): replayed as a CUDA graph on the card,
-    counted as ``decode.graph_replays`` and ``decode.graph_captures``."""
-    if embeds.shape[0] != 1:
-        raise ValueError("speculative decode is a B=1 serving path")
-    with _ring_lock:
+    Where :func:`decode_route` gives ``"ring"`` for ``B * g`` rows, B=1 runs
+    every pass over long-lived buffers of the call's cache length
+    (``_ring_pass``: replayed as a CUDA graph on the card, counted as
+    ``decode.graph_replays`` and ``decode.graph_captures``) and B >= 2 runs
+    ``_ring_stack`` in grouped mode; otherwise each pass is ``forward``
+    writing every episode's rows at its own slots."""
+    B = embeds.shape[0]
+    if not 1 <= B <= MAX_ROWS // 2:
+        raise ValueError(f"speculative decode takes 1..{MAX_ROWS // 2} episodes, not {B}")
+    # only B=1 runs on the ring's shared buffers; B >= 2 calls run concurrently
+    with _ring_lock if B == 1 else contextlib.nullcontext():
         return _greedy_decode_spec(params, cfg, embeds, attn_valid, max_new_tokens, stop_token,
                                    lookup_ids, draft_len, stats)
 
@@ -782,180 +797,23 @@ def greedy_decode_spec(params: Params, cfg: Phi3Config, embeds: torch.Tensor,
 def _greedy_decode_spec(params, cfg, embeds, attn_valid, max_new_tokens, stop_token,
                         lookup_ids, draft_len, stats):
     B, T, D = embeds.shape
-    k = int(draft_len or flags.SPEC_DRAFT_LEN)
-    k = max(2, min(k, max_new_tokens, 8))
-    fused = _fused_decode_eligible(params, cfg, 1) and _ring_eligible(params, cfg)
-    total = T + max_new_tokens + k
+    g = max(2, min(int(draft_len or flags.SPEC_DRAFT_LEN), max_new_tokens, MAX_ROWS // B))
+    ring = decode_route(params, cfg, B * g) == "ring"
+    total = T + max_new_tokens + g
     dev = embeds.device
     buf = None
-    if fused:
+    if ring:
         total = -(-total // ROWS) * ROWS
+    if ring and B == 1:
         buf = _buffers(cfg, total, embeds.dtype, dev)
         if dev.type == "cuda":
             _claim_graphs(params, cfg, embeds.dtype)
     with profiling.span("generate.prefill"):
         first, cache = _prefill(params, cfg, embeds, attn_valid, total,
-                                cache=buf.cache if fused else None)
-        stop = cfg.end_token_id if stop_token is None else stop_token
-        profiling.count("sync")
-        next_tok = int(first[0])
-
-        if lookup_ids is None:
-            lk = np.zeros(0, np.int64)
-        else:
-            profiling.count("sync")
-            lk = lookup_ids.reshape(-1).to("cpu", torch.int64).numpy()
-        S = lk.shape[0]
-        hist = np.full(S + max_new_tokens + k + 2, -1, np.int64)
-        hist[:S] = lk
-        hist[S] = next_tok
-        profiling.count("sync")
-        n_pos0 = int(attn_valid.sum())
-    out = np.full(max_new_tokens, cfg.pad_token_id, np.int64)
-    out[0] = next_tok
-    done = next_tok == stop
-    if fused:
-        valid = buf.valid
-        valid.zero_()
-        valid[:, :T] = attn_valid
-    else:
-        valid = torch.cat([attn_valid, torch.zeros(1, total - T, dtype=torch.bool, device=dev)],
-                          1)
-    t_iota = torch.arange(total, device=dev)
-    kk = torch.arange(k, device=dev)
-    n_em, last, prev, prev2, npass = 1, next_tok, -1, -1, 0
-    force = flags.spec_force_accept()
-    while n_em < max_new_tokens and not done:
-        with profiling.span("generate.pass"):
-            b3 = S + n_em - 4
-            prev3 = int(hist[b3]) if b3 >= 0 else -1
-            drf = _ngram_draft(hist, S + n_em, prev3, prev2, prev, last, k)
-            d = np.concatenate([[last], drf])
-            pos0 = n_pos0 + n_em - 1
-            wslot = T + n_em - 1
-            verify = force or bool((drf >= 0).any())
-            if fused:
-                ids = np.clip(d if verify else d[:1], 0, None)
-                top = _ring_pass(params, cfg, buf, ids, pos0, wslot)[1]
-                profiling.count("sync")
-                a = top.tolist()
-            elif verify:
-                e = embed(params, torch.as_tensor(np.clip(d, 0, None), device=dev))[None]
-                e = e.to(embeds.dtype)
-                row_extra = ((t_iota[None, :] >= wslot)
-                             & (t_iota[None, :] <= wslot + kk[:, None]))
-                m = valid[:, None, :] | row_extra[None]
-                lg, cache = decode_forward(params, cfg, e, (pos0 + kk)[None], cache, wslot, m)
-                profiling.count("sync")
-                a = lg[0].argmax(-1).tolist()
-            else:
-                e1 = embed(params, torch.as_tensor([max(last, 0)], device=dev))[None]
-                e1 = e1.to(embeds.dtype)
-                pos = torch.full((1, 1), pos0, device=dev)
-                m1 = (valid | (t_iota == wslot)[None])[:, None, :]
-                lg, cache = decode_forward(params, cfg, e1, pos, cache, wslot, m1)
-                profiling.count("sync")
-                a = [int(lg[0].argmax(-1)[0])]
-            a += [-2] * (k - len(a))
-            acc = k if force else 1
-            while acc < k and d[acc] == a[acc - 1]:
-                acc += 1
-            stop_pos = next((j for j in range(acc) if a[j] == stop), k)
-            acc = min(acc, stop_pos + 1, max_new_tokens - n_em)
-            out[n_em: n_em + acc] = a[:acc]
-            hist[S + n_em: S + n_em + acc] = a[:acc]
-            valid[:, wslot: wslot + acc] = True
-            new_last = a[acc - 1]
-            new_prev = a[acc - 2] if acc >= 2 else last
-            new_prev2 = a[acc - 3] if acc >= 3 else (last if acc == 2 else prev)
-            done = stop_pos < acc
-            last, prev, prev2 = new_last, new_prev, new_prev2
-            n_em += acc
-            npass += 1
-            profiling.count("decode.passes")
-    if stats is not None:
-        stats.update(tokens=n_em, passes=npass)
-    return torch.as_tensor(out, device=dev)[None]
-
-
-def _verify_forward_grouped(params: Params, cfg: Phi3Config, e: torch.Tensor,
-                            pos0: torch.Tensor, cache: KVCache, wslot: torch.Tensor,
-                            valid: torch.Tensor, use_fused: bool):
-    """Grouped verify pass: ``e [B, g, D]`` = B episodes x g draft rows.
-
-    ``use_fused``: the ``B*g`` rows share one weight stream per layer
-    (``decode_layer_ring(group_size=g)``, each episode's cache row streamed
-    once, per-row ``pos``) over the flat cache; otherwise ``decode_forward``'s
-    layers.  Either way each episode's k/v are scattered at its own slots
-    ``wslot[b]..wslot[b]+g-1``.  Returns logits ``[B, g, V]``."""
-    B, g, D = e.shape
-    dev = e.device
-    gg = torch.arange(g, device=dev)
-    bidx = torch.arange(B, device=dev)[:, None]
-    slots = wslot[:, None] + gg[None, :]                  # [B, g]
-    if use_fused:
-        cos, sin = _rope_table(cfg, (pos0[:, None] + gg[None]).reshape(-1))
-        x = e.reshape(B * g, 1, D)
-        mask_rows = valid.repeat_interleave(g, dim=0)     # [B*g, Tmax]
-        profiling.count("sync")
-        posr = wslot.repeat_interleave(g).tolist()
-        for li in range(cfg.num_layers):
-            p = params["layers"][li]
-            x, k_new, v_new = decode_layer_ring(
-                x, p["input_ln"], p["qkv"]["q4"], p["o"]["q4"], p["post_ln"],
-                p["gate_up"]["q4"], p["down"]["q4"], cache.k, cache.v, li, posr,
-                mask_rows, cos, sin, eps=cfg.rms_eps, heads=cfg.num_heads, hd=cfg.head_dim,
-                group_size=g,
-            )
-            cache.k[li, bidx, slots] = k_new.view(B, g, D).to(cache.k.dtype)
-            cache.v[li, bidx, slots] = v_new.view(B, g, D).to(cache.v.dtype)
-        x = rms_norm(params["final_ln"], x.reshape(B, g, D), cfg.rms_eps)
-        return _lm_head(params, x), cache
-    t_iota = torch.arange(valid.shape[1], device=dev)
-    row_extra = ((t_iota[None, None] >= wslot[:, None, None])
-                 & (t_iota[None, None] <= wslot[:, None, None] + gg[None, :, None]))
-    m = valid[:, None, :] | row_extra
-    pos = pos0[:, None] + gg[None, :]
-    x = e
-    for li in range(cfg.num_layers):
-        p = params["layers"][li]
-        q, k, v = _qkv(p, cfg, x, pos)
-        cache.k[li][bidx, slots] = k.to(cache.k.dtype)
-        cache.v[li][bidx, slots] = v.to(cache.v.dtype)
-        x = _attn_mlp(p, cfg, x, q, cache.k[li], cache.v[li], m)
-    x = rms_norm(params["final_ln"], x, cfg.rms_eps)
-    return _lm_head(params, x), cache
-
-
-def greedy_decode_spec_batched(params: Params, cfg: Phi3Config, embeds: torch.Tensor,
-                               attn_valid: torch.Tensor, max_new_tokens: int,
-                               stop_token: Optional[int] = None,
-                               lookup_ids: Optional[torch.Tensor] = None,
-                               draft_len: Optional[int] = None,
-                               stats: Optional[dict] = None) -> torch.Tensor:
-    """Batched speculative greedy decode: B >= 2 episodes each verify ``g``
-    draft tokens per pass (``B*g <= 8`` ring rows), so one weight stream
-    verifies up to ``g`` tokens for every episode.  Row-wise greedy-exact:
-    each row's ids equal :func:`greedy_decode`'s; rows accept independently
-    and finished rows coast.  ``lookup_ids [B, S]`` (-1 never matches) seed
-    the drafts.  ``stats`` (if given) receives ``tokens`` (per row) and
-    ``passes``.  Under ``flags.spec_force_accept()`` every row accepts all
-    ``g`` rows of each pass (timing only)."""
-    B, T, D = embeds.shape
-    if B < 2:
-        raise ValueError("use greedy_decode_spec at B == 1")
-    g = int(draft_len or min(MAX_ROWS // B, flags.SPEC_DRAFT_LEN))
-    g = max(2, min(g, max_new_tokens, MAX_ROWS // B))
-    fused = _fused_decode_eligible(params, cfg, B * g) and _ring_eligible(params, cfg)
-    total = T + max_new_tokens + g
-    if fused:
-        total = -(-total // ROWS) * ROWS
-    with profiling.span("generate.prefill"):
-        first, cache = _prefill(params, cfg, embeds, attn_valid, total)
-        if fused:
+                                cache=None if buf is None else buf.cache)
+        if ring:
             cache = _flat(cache, cfg)
         stop = cfg.end_token_id if stop_token is None else stop_token
-        dev = embeds.device
         profiling.count("sync")
         first = first.cpu().numpy().astype(np.int64)
 
@@ -969,55 +827,74 @@ def greedy_decode_spec_batched(params: Params, cfg: Phi3Config, embeds: torch.Te
         n_pos0 = attn_valid.sum(1).cpu().numpy().astype(np.int64)
     out = np.full((B, max_new_tokens), cfg.pad_token_id, np.int64)
     out[:, 0] = first
-    done = first == stop
-    valid = torch.cat([attn_valid, torch.zeros(B, total - T, dtype=torch.bool, device=dev)], 1)
-    rows, gg = np.arange(B), np.arange(g)
+    if buf is None:
+        valid = torch.cat([attn_valid, torch.zeros(B, total - T, dtype=torch.bool, device=dev)],
+                          1)
+    else:
+        valid = buf.valid
+        valid.zero_()
+        valid[:, :T] = attn_valid
+    t_iota = torch.arange(total, device=dev)
+    gg = np.arange(g)
     n_em = np.ones(B, np.int64)
-    last, prev, prev2 = first.copy(), np.full(B, -1, np.int64), np.full(B, -1, np.int64)
+    done = (first == stop).tolist()
+    last, prev, prev2 = first.tolist(), [-1] * B, [-1] * B
     npass = 0
-    while bool(np.any(~done & (n_em < max_new_tokens))):
+    force = flags.spec_force_accept()
+    while any(not done[b] and n_em[b] < max_new_tokens for b in range(B)):
         with profiling.span("generate.pass"):
-            b3 = S + n_em - 4
-            prev3 = np.where(b3 >= 0, hist[rows, np.maximum(b3, 0)], -1)
-            drf = np.stack([_ngram_draft(hist[b], int(S + n_em[b]), int(prev3[b]),
-                                         int(prev2[b]), int(prev[b]), int(last[b]), g)
-                            for b in range(B)])
-            d = np.concatenate([last[:, None], drf], axis=1)             # [B, g]
-            e = embed(params, torch.as_tensor(np.clip(d, 0, None), device=dev)).to(embeds.dtype)
-            wslot = T + n_em - 1
-            lg, cache = _verify_forward_grouped(
-                params, cfg, e, torch.as_tensor(n_pos0 + n_em - 1, device=dev), cache,
-                torch.as_tensor(wslot, device=dev), valid, fused)
-            profiling.count("sync")
-            a = lg.argmax(-1).cpu().numpy().astype(np.int64)            # [B, g]
-            if flags.spec_force_accept():
-                match = np.ones((B, g - 1), np.int64)
-            else:
-                match = (d[:, 1:] == a[:, :-1]).astype(np.int64)
-            acc = 1 + np.cumprod(match, axis=1).sum(axis=1)
-            stop_pos = np.where((a == stop) & (gg[None] < acc[:, None]), gg[None], g).min(axis=1)
-            acc = np.minimum(np.minimum(acc, stop_pos + 1), max_new_tokens - n_em)
-            acc = np.where(done, 0, acc)
+            d = np.empty((B, g), np.int64)                     # the carried token, its draft
             for b in range(B):
-                n, w, c = int(n_em[b]), int(wslot[b]), int(acc[b])
-                out[b, n: n + c] = a[b, :c]
-                hist[b, S + n: S + n + c] = a[b, :c]
-                valid[b, w: w + c] = True
-
-            def a_at(off):
-                return a[rows, np.clip(acc - off, 0, g - 1)]
-
-            new_last = np.where(acc > 0, a_at(1), last)
-            new_prev = np.where(acc >= 2, a_at(2), np.where(acc == 1, last, prev))
-            new_prev2 = np.where(acc >= 3, a_at(3),
-                                 np.where(acc == 2, last, np.where(acc == 1, prev, prev2)))
-            done = done | (stop_pos < acc)
-            last, prev, prev2 = new_last, new_prev, new_prev2
-            n_em = n_em + acc
+                b3 = S + n_em[b] - 4
+                prev3 = int(hist[b, b3]) if b3 >= 0 else -1
+                d[b, 0] = last[b]
+                d[b, 1:] = _ngram_draft(hist[b], int(S + n_em[b]), prev3, prev2[b], prev[b],
+                                        last[b], g)
+            r = g if B > 1 or force or (d[:, 1:] >= 0).any() else 1      # rows an episode
+            ids = np.clip(d[:, :r], 0, None)
+            pos0, wslot = n_pos0 + n_em - 1, T + n_em - 1
+            if buf is not None:
+                top = _ring_pass(params, cfg, buf, ids[0], int(pos0[0]), int(wslot[0]))[1]
+            else:
+                e = embed(params, torch.as_tensor(ids, device=dev)).to(embeds.dtype)
+                pos = torch.as_tensor(pos0[:, None] + gg[:r], device=dev)       # [B, r]
+                if ring:
+                    cos, sin = _rope_table(cfg, pos.reshape(-1))
+                    slots = torch.as_tensor((wslot[:, None] + gg).reshape(-1), device=dev)
+                    rows = torch.arange(B, device=dev).repeat_interleave(g)
+                    lg = _ring_stack(params, cfg, e.reshape(B * g, 1, D), cos, sin, cache,
+                                     scan_length(wslot.max(), total),
+                                     valid.repeat_interleave(g, dim=0), g, rows, slots)
+                else:
+                    ws = torch.as_tensor(wslot, device=dev)
+                    w3 = ws[:, None, None]
+                    extra = (t_iota >= w3) & (t_iota <= w3 + torch.arange(r, device=dev)[:, None])
+                    lg, cache = forward(params, cfg, e, pos, cache, ws, valid[:, None, :] | extra)
+                top = lg.argmax(-1)
+            profiling.count("sync")
+            a = top.reshape(B, r).tolist()
+            for b in range(B):
+                n, w = int(n_em[b]), int(wslot[b])
+                if done[b] or n >= max_new_tokens:
+                    continue                                   # a finished row coasts
+                ab = a[b] + [-2] * (g - r)                     # -2 never matches
+                acc = g if force else 1
+                while acc < g and d[b, acc] == ab[acc - 1]:
+                    acc += 1
+                stop_pos = next((j for j in range(acc) if ab[j] == stop), g)
+                acc = min(acc, stop_pos + 1, max_new_tokens - n)
+                out[b, n: n + acc] = ab[:acc]
+                hist[b, S + n: S + n + acc] = ab[:acc]
+                valid[b, w: w + acc] = True
+                prev2[b] = ab[acc - 3] if acc >= 3 else (last[b] if acc == 2 else prev[b])
+                prev[b] = ab[acc - 2] if acc >= 2 else last[b]
+                last[b] = ab[acc - 1]
+                done[b] = stop_pos < acc
+                n_em[b] += acc
             npass += 1
             profiling.count("decode.passes")
     if stats is not None:
-        stats.update(tokens=n_em.tolist(), passes=npass)
+        stats.update(tokens=int(n_em[0]) if B == 1 else n_em.tolist(), passes=npass)
     return torch.as_tensor(out, device=dev)
 
 

@@ -12,11 +12,13 @@ between:
   4. int4_matvec  (rmsnorm prologue, gate_up, SwiGLU)   -> h bf16 [B, I]
   5. int4_matvec  (down, residual epilogue)             -> x_out bf16 [B, D]
 
-The three modes of the TPU kernel are one ``group`` parameter of kernel B:
-plain (``group=1``: row b attends its own cache row and folds its own new
-k/v), ``shared_cache`` (``group=B``: every row attends cache row 0, row r
-folds draft rows 0..r) and ``group_size=g`` (row b attends cache row b//g and
-folds the rows of its group up to itself).  Kernel B takes up to
+The three modes of the TPU kernel (plain, ``shared_cache`` and
+``group_size``) are one ``group`` parameter of kernel B and of the layer:
+row b attends cache row b//group and folds the new k/v of its group's rows
+up to itself.  ``group=1`` is plain (each row its own cache row),
+``group=B`` the shared cache (every row attends cache row 0, row r folds
+draft rows 0..r) and ``1 < group < B`` the grouped verify (B/group
+episodes of ``group`` draft rows).  Kernel B takes up to
 ``ATTN_ROWS`` = 16 rows a call in groups of at most ``GROUP_ROWS`` = 8: the
 ring layer runs at most ``MAX_ROWS`` = 8, and ``phi3``'s wide route calls
 kernel B alone in plain mode at B = 9..16.
@@ -41,7 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, NamedTuple, Sequence, Tuple, Union
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -59,12 +61,11 @@ TILE = 64         # cache rows per tile of the attention body (csrc/decode_attn.
 MAX_SPLITS = 32   # sequence splits per (head, group) the body merges
 
 
-def scan_length(pos: Union[int, Sequence[int]], tmax: int) -> int:
+def scan_length(pos: int, tmax: int) -> int:
     """Cache rows a layer reads: up to the 512-row block holding the last
-    write slot (the TPU kernel streams ``ceil(pos/512)`` blocks); the mask
-    must be False beyond the write slots."""
-    p = max(pos) if isinstance(pos, (list, tuple)) else int(pos)
-    return min(tmax, -(-p // ROWS) * ROWS)
+    write slot ``pos`` (the TPU kernel streams ``ceil(pos/512)`` blocks);
+    the mask must be False beyond the write slots."""
+    return min(tmax, -(-int(pos) // ROWS) * ROWS)
 
 
 def attn_splits(slots: int, pairs: int, t_scan: int) -> Tuple[int, int]:
@@ -262,22 +263,17 @@ def decode_attn(qkv, cos, sin, cache_k, cache_v, li, mask, t_scan, group, *,
 
 
 def _layer(matvec, attn, x, ln1_w, qkv, o, ln2_w, gate_up, down, cache_k,
-           cache_v, li, pos, mask, cos, sin, eps, heads, hd, shared_cache,
-           group_size):
+           cache_v, li, t_scan, mask, cos, sin, eps, heads, hd, group):
     B = x.shape[0]
     D = x.shape[-1]
     kernels.require(1 <= B <= MAX_ROWS, f"decode_layer_ring: B must be 1..{MAX_ROWS}")
-    kernels.require(not (shared_cache and group_size),
-                    "decode_layer_ring: modes are mutually exclusive")
     kernels.require(cache_k.shape[2] % ROWS == 0,
                     f"decode_layer_ring: Tmax must be a multiple of {ROWS}")
     kernels.require(qkv.n == 3 * D and qkv.d == D and o.d == D and o.n == D,
                     "decode_layer_ring: qkv/o shapes")
     kernels.require(gate_up.d == D and down.n == D and gate_up.n == 2 * gate_up.n2,
                     "decode_layer_ring: gate_up/down shapes")
-    group = B if shared_cache else (group_size or 1)
     x2 = x.reshape(B, D)
-    t_scan = scan_length(pos, cache_k.shape[2])
     y = matvec(x2, qkv, ln_w=ln1_w, eps=eps, out_dtype=torch.float32)
     ctx, k_new, v_new = attn(y, cos, sin, cache_k, cache_v, li, mask, t_scan,
                              group, heads=heads, hd=hd)
@@ -299,41 +295,40 @@ def decode_layer_ring(
     cache_k: torch.Tensor,      # [L, Bc, Tmax, D] bf16
     cache_v: torch.Tensor,
     li: int,
-    pos,                        # int or per-row ints: the write slot(s)
-    mask: torch.Tensor,         # [Tmax] or [B, Tmax] bool, current slot excluded
+    t_scan: int,                # cache rows read (scan_length of the last write slot)
+    mask: torch.Tensor,         # [Tmax] or [B, Tmax] bool, current slots excluded
     cos: torch.Tensor,          # [hd/2] or [B, hd/2] f32
     sin: torch.Tensor,
     *,
     eps: float,
     heads: int,
     hd: int,
-    shared_cache: bool = False,
-    group_size: int = 0,
+    group: int = 1,             # rows per cache row (B % group == 0)
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decode layer; returns ``(x_out [B,1,D], k_new [B,D], v_new [B,D])``
     in bf16 for the caller's cache write.  Five kernel launches on CUDA
     tensors, the plain versions on CPU tensors."""
     return _layer(int4_matvec, decode_attn, x, ln1_w, qkv, o, ln2_w, gate_up,
-                  down, cache_k, cache_v, li, pos, mask, cos, sin, eps, heads,
-                  hd, shared_cache, group_size)
+                  down, cache_k, cache_v, li, t_scan, mask, cos, sin, eps, heads,
+                  hd, group)
 
 
 def decode_layer_ring_plain(x, ln1_w, qkv, o, ln2_w, gate_up, down, cache_k,
-                            cache_v, li, pos, mask, cos, sin, *, eps, heads,
-                            hd, shared_cache=False, group_size=0):
+                            cache_v, li, t_scan, mask, cos, sin, *, eps, heads,
+                            hd, group=1):
     """The layer through the plain versions only, on any device."""
     return _layer(int4_matvec_plain, decode_attn_plain, x, ln1_w, qkv, o,
-                  ln2_w, gate_up, down, cache_k, cache_v, li, pos, mask, cos,
-                  sin, eps, heads, hd, shared_cache, group_size)
+                  ln2_w, gate_up, down, cache_k, cache_v, li, t_scan, mask, cos,
+                  sin, eps, heads, hd, group)
 
 
 def decode_layer_ring_cuda(x, ln1_w, qkv, o, ln2_w, gate_up, down, cache_k,
-                           cache_v, li, pos, mask, cos, sin, *, eps, heads,
-                           hd, shared_cache=False, group_size=0):
+                           cache_v, li, t_scan, mask, cos, sin, *, eps, heads,
+                           hd, group=1):
     """The layer through the kernels only (CUDA tensors)."""
     return _layer(int4_matvec_cuda, decode_attn_cuda, x, ln1_w, qkv, o,
-                  ln2_w, gate_up, down, cache_k, cache_v, li, pos, mask, cos,
-                  sin, eps, heads, hd, shared_cache, group_size)
+                  ln2_w, gate_up, down, cache_k, cache_v, li, t_scan, mask, cos,
+                  sin, eps, heads, hd, group)
 
 
 # ---------------------------------------------------------------- kernel H

@@ -130,7 +130,7 @@ def _decode(cfg, trainable, mesh, dev, rng) -> List[str]:
     gen = phi3.greedy_decode(p3, p3cfg, emb, valid, 4, tp=mesh.tp_group).cpu()
     if tuple(gen.shape) != (mesh.dp, 4):
         raise AssertionError(f"decode shape {tuple(gen.shape)}")
-    if phi3._fused_decode_eligible(p3, p3cfg, 1):
+    if phi3.decode_route(p3, p3cfg, 1) != "unfused":
         raise AssertionError("fused decode must be ineligible for split, sharded params")
     return [f"dryrun generate OK: tp-sharded greedy tokens {gen[0].tolist()}",
             "dryrun decode-fallback OK: fused kernels ineligible -> dense path"]

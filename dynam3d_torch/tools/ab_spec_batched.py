@@ -1,4 +1,4 @@
-"""A/B of batched speculative decode (``greedy_decode_spec_batched``) on
+"""A/B of batched speculative decode (``greedy_decode_spec`` at B >= 2) on
 Phi-3-mini with int4 weights: B episodes each verify g = 8 // B drafts a
 pass, B x g ring rows sharing one weight stream.
 
@@ -49,8 +49,8 @@ def run(params, cfg, dev, batches: Sequence[int] = (2, 4), tokens: Sequence[int]
             return phi3.greedy_decode(params, cfg, embeds, valid, n, stop_token=-1)
 
         def spec(n, stats=None):
-            return phi3.greedy_decode_spec_batched(params, cfg, embeds, valid, n,
-                                                   stop_token=-1, stats=stats)
+            return phi3.greedy_decode_spec(params, cfg, embeds, valid, n, stop_token=-1,
+                                           stats=stats)
 
         runs = {}
         for n in tokens:

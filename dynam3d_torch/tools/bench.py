@@ -587,7 +587,7 @@ def _phase_breakdown(runner, params, cfg, state, obs, hist, frame, B, dev, reps=
     peak = card.INT8_PEAK if w8a8 else card.BF16_PEAK
     pf_net = max(prefill_ms - rtt, 1e-3)
     dec_per_tok = decode_ms / max(n_tok, 1)
-    spec = flags.spec_decode() and (B == 1 or (2 <= B <= 4 and new_tok >= 2))
+    spec = llava.speculates(B, new_tok)
     fields = {
         "rtt_ms": round(rtt, 3),
         "perceive_ms": round(perceive_ms, 2),

@@ -161,7 +161,7 @@ def measure(name: str) -> dict:
                           dtype=torch.float32)
         ang = rp[:, None] * freqs
         y = int4_matvec_plain(randn(B, D).to(torch.bfloat16), qkv, ln_w=ln_w, eps=1e-5)
-        a = (y, torch.cos(ang), torch.sin(ang), ck, cv, 0, mask, scan_length(pos_rows, tmax),
+        a = (y, torch.cos(ang), torch.sin(ang), ck, cv, 0, mask, scan_length(max(pos_rows), tmax),
              group)
         out[f"B {mode}"] = _time_ms(lambda: decode_attn_cuda(*a, heads=H, hd=hd), flush)
         if name.endswith(":asis") and hasattr(decode, "attn_splits"):

@@ -20,7 +20,7 @@ of ``--tmax`` rows with ``--pos`` live rows:
 Each time is the mean device ms of one call after an L2 read flush (CUDA
 events, ``decompose_int4_mma``'s timer), beside the bytes it must move
 (the packed weights, the live K/V rows) over the card's memory rate.  Then
-one decode step (``decode_forward`` against ``_decode_forward_fused``) from
+one decode step (``decode_forward`` against the one-row fused pass) from
 the same cache: max abs and relative logit difference, argmax agreement
 and the unfused top-1 gap (a random-weight near-tie flips ids without a
 fault).  One JSON line a part, then the parity line, each with the card's
@@ -68,7 +68,7 @@ def layer_inputs(cfg, dev, tmax: int, pos: int, seed: int = 0):
 def parts(params, cfg, inp, pos: int) -> Dict[str, tuple]:
     """name -> (call, bytes it must move) for the parts of layer 0."""
     from dynam3d_torch.models.vlm import phi3
-    from dynam3d_torch.ops.decode import decode_attn_layer, decode_layer_ring
+    from dynam3d_torch.ops.decode import decode_attn_layer, decode_layer_ring, scan_length
     from dynam3d_torch.ops.int4 import int4_matmul, int4_mlp_block
 
     lp = params["layers"][0]
@@ -110,7 +110,8 @@ def parts(params, cfg, inp, pos: int) -> Dict[str, tuple]:
     return {
         "fused_ring": (lambda: decode_layer_ring(
             x, lp["input_ln"], lp["qkv"]["q4"], lp["o"]["q4"], lp["post_ln"],
-            lp["gate_up"]["q4"], lp["down"]["q4"], ck, cv, 0, pos, mask, cos, sin, **kw),
+            lp["gate_up"]["q4"], lp["down"]["q4"], ck, cv, 0, scan_length(pos, ck.shape[2]),
+            mask, cos, sin, **kw),
             attn_w + mlp_w + kv_bytes),
         "fused_attn": (lambda: decode_attn_layer(
             x, lp["input_ln"], lp["qkv"]["q4"], lp["o"]["q4"], ck, cv, 0, pos, mask, cos, sin,
@@ -141,8 +142,8 @@ def measure(params, cfg, dev, tmax: int = 1024, pos: int = 830, iters: int = 20)
 
 def step_logits(params, cfg, inp, pos: int, fused: bool) -> torch.Tensor:
     """One decode step's logits ``[V]`` (float32) on the unfused route
-    (``decode_forward``) or the fused one (``_decode_forward_fused``), from
-    copies of the caches."""
+    (``decode_forward``) or the fused one of one row (``decode_route``: the
+    ring or the split route), from copies of the caches."""
     from dynam3d_torch.models.vlm import phi3
 
     tmax = inp["mask"].shape[0]
@@ -152,7 +153,8 @@ def step_logits(params, cfg, inp, pos: int, fused: bool) -> torch.Tensor:
     L, H, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
     if fused:
         cache = phi3.KVCache(inp["ck"].clone(), inp["cv"].clone())
-        lg, _ = phi3._decode_forward_fused(params, cfg, inp["e"], pp, cache, pos, valid)
+        step = phi3._FUSED_PASS[phi3.decode_route(params, cfg, 1)]
+        lg, _ = step(params, cfg, inp["e"], pp, cache, pos, valid)
     else:
         cache = phi3.KVCache(inp["ck"].clone().view(L, 1, tmax, H, hd),
                              inp["cv"].clone().view(L, 1, tmax, H, hd))
@@ -170,7 +172,7 @@ def parity(params, cfg, dev, tmax: int = 1024, pos: int = 830) -> Dict:
     top = lu.topk(2).values
     out = {"unfused_argmax": int(lu.argmax()), "top1_gap_unfused": float(top[0] - top[1]),
            "scale": float(lu.abs().max()), "logits_unfused": lu.cpu().numpy()}
-    if not phi3._fused_decode_eligible(params, cfg, 1):
+    if phi3.decode_route(params, cfg, 1) not in ("ring", "split"):
         return dict(out, fused=False)
     lf = step_logits(params, cfg, inp, pos, fused=True)
     diff = (lf - lu).abs()

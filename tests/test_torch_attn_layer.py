@@ -4,7 +4,7 @@ route it serves, against the JAX package:
 * the plain version against the TPU kernel run in interpret mode, at write
   slots 70 and 600 with mask holes (D=256, 4 heads of 64, dblk=nblk=128,
   Tmax=1024);
-* the split ``_decode_forward_fused`` (kernel H then kernel G per layer,
+* the split ``_decode_forward_split`` (kernel H then kernel G per layer,
   ``DYNAM3D_FUSED_RING=0``) against the JAX one with its ring flag off and
   its attention kernel in interpret mode: logits and the new cache rows.
 
@@ -89,8 +89,7 @@ def test_split_route_matches_reference(monkeypatch):
     monkeypatch.setenv("DYNAM3D_FUSED_RING", "0")
     tcfg = port_config(Dynam3DConfig(llava=LLaVAConfig(phi3=cfg))).llava.phi3
     tparams = to_torch(qparams)
-    assert not tphi3._ring_eligible(tparams, tcfg)
-    assert tphi3._fused_decode_eligible(tparams, tcfg, 1)
+    assert tphi3.decode_route(tparams, tcfg, 1) == "split"
 
     rng = np.random.default_rng(5)
     T, total = 40, 512
@@ -111,7 +110,7 @@ def test_split_route_matches_reference(monkeypatch):
     lg_ref, c_ref = jphi3._decode_forward_fused(qparams, cfg, jnp.asarray(e, jnp.bfloat16),
                                                 jnp.asarray(pos), flat, T, jnp.asarray(valid))
     tflat = tphi3.KVCache(_bf(np32(flat.k)), _bf(np32(flat.v)))
-    lg, c = tphi3._decode_forward_fused(tparams, tcfg, _bf(e), torch.from_numpy(pos), tflat, T,
+    lg, c = tphi3._decode_forward_split(tparams, tcfg, _bf(e), torch.from_numpy(pos), tflat, T,
                                         torch.from_numpy(valid))
     np.testing.assert_allclose(np32(lg), np32(lg_ref), rtol=5e-2, atol=5e-2)
     assert int(np32(lg).argmax()) == int(np32(lg_ref).argmax())

@@ -1,15 +1,16 @@
-"""Port parity of the decode layer (``ops/decode.py::decode_layer_ring``,
-plain versions of kernels A and B) against the JAX package's oracles, in
-the three modes of the TPU kernel:
+"""Port parity of the ring stack (``phi3._ring_stack`` over
+``ops/decode.py::decode_layer_ring``, plain versions of kernels A and B)
+against the JAX package's oracles, in the three modes of the TPU kernel,
+each a ``group`` of the port's layer:
 
-* shared_cache (speculative verify): the port's ring layers as its B=1
-  speculative pass runs them (``_ring_layers``, the body of ``_ring_pass``)
-  vs ``decode_forward`` with the row-causal mask, including a prompt whose
+* shared cache (``group`` = rows, speculative verify): the stack as the
+  port's B=1 speculative pass runs it (the body of ``_ring_pass``) vs
+  ``decode_forward`` with the row-causal mask, including a prompt whose
   draft rows cross the 512-row block boundary;
-* plain (B rows, own caches): ``_decode_forward_fused`` vs
+* plain (``group=1``, B rows, own caches): ``_decode_forward_ring`` vs
   ``decode_forward`` with per-row validity;
-* group_size (B episodes x g drafts): a grouped pass over the port's layer
-  vs the XLA branch of ``_verify_forward_grouped``;
+* grouped (``group=g``, B episodes x g drafts): the stack as the grouped
+  speculative pass runs it vs the XLA branch of ``_verify_forward_grouped``;
 * plus one small interpret-mode run of the Pallas ring kernel itself.
 
 Tolerances: logits 5e-2 and new k/v 3e-2 (the JAX package's own bound for
@@ -51,10 +52,12 @@ def _prefilled(cfg, qparams, embeds, av, total):
 def _verify(params, cfg, e, pos0, flat, wslot, valid):
     """The ring's verify pass over draft rows ``e [1, k, D]`` at positions
     ``pos0..`` written at slots ``wslot..`` of ``flat``: logits ``[1, k, V]``."""
-    iota = torch.arange(e.shape[1])
+    k = e.shape[1]
+    iota = torch.arange(k)
     cos, sin = tphi3._rope_table(cfg, pos0 + iota)
-    return tphi3._ring_layers(params, cfg, e[0][:, None, :], cos, sin, wslot + iota,
-                              scan_length(wslot, flat.k.shape[2]), flat, valid)
+    return tphi3._ring_stack(params, cfg, e[0][:, None, :], cos, sin, flat,
+                             scan_length(wslot, flat.k.shape[2]), valid, k, None,
+                             wslot + iota).view(1, k, -1)
 
 
 def _close(got, ref, tol):
@@ -118,9 +121,9 @@ def test_plain_rows_match_oracle():
     decode = jax.jit(lambda p, x, ps, c, mm: jphi3.decode_forward(p, cfg, x, ps, c, T, mm))
     lg_ref, c_ref = decode(qparams, jnp.asarray(e, jnp.bfloat16), jnp.asarray(pos), cache,
                            jnp.asarray(valid)[:, None, :])
-    lg, c = tphi3._decode_forward_fused(tparams, tcfg, torch.from_numpy(e).to(torch.bfloat16),
-                                        torch.from_numpy(pos), flat, T,
-                                        torch.from_numpy(valid))
+    lg, c = tphi3._decode_forward_ring(tparams, tcfg, torch.from_numpy(e).to(torch.bfloat16),
+                                       torch.from_numpy(pos), flat, T,
+                                       torch.from_numpy(valid))
     _close(lg, lg_ref, 5e-2)
     np.testing.assert_array_equal(np32(lg).argmax(-1), np32(lg_ref).argmax(-1))
     _close(c.k[:, :, T], np32(c_ref.k[:, :, T]).reshape(cfg.num_layers, B, D), 3e-2)
@@ -149,23 +152,14 @@ def test_group_mode_matches_oracle():
     lg_ref = grouped(qparams, jnp.asarray(e, jnp.bfloat16), jnp.asarray(n_pos0), cache,
                      jnp.asarray(wslot), jnp.asarray(valid))
 
-    # the grouped pass over the port's layer: rows (b, j) = episode b, draft j
-    pos = torch.from_numpy((n_pos0[:, None] + np.arange(g)[None]).reshape(-1)).float()
-    ang = pos[:, None] * tphi3._freqs(tcfg, "cpu")
-    cos, sin = torch.cos(ang), torch.sin(ang)
+    # the grouped pass on the ring stack: rows (b, j) = episode b, draft j
+    pos = torch.from_numpy((n_pos0[:, None] + np.arange(g)[None]).reshape(-1))
+    cos, sin = tphi3._rope_table(tcfg, pos)
     mask = torch.from_numpy(np.repeat(valid, g, axis=0))
-    posr = np.repeat(wslot, g).tolist()
     x = torch.from_numpy(e).to(torch.bfloat16).reshape(B * g, 1, D)
-    for li, p in enumerate(tparams["layers"]):
-        x, k_new, v_new = decode_layer_ring(
-            x, p["input_ln"], p["qkv"]["q4"], p["o"]["q4"], p["post_ln"],
-            p["gate_up"]["q4"], p["down"]["q4"], flat.k, flat.v, li, posr, mask, cos, sin,
-            eps=tcfg.rms_eps, heads=tcfg.num_heads, hd=tcfg.head_dim, group_size=g)
-        for b in range(B):
-            flat.k[li, b, wslot[b]: wslot[b] + g] = k_new[b * g: (b + 1) * g]
-            flat.v[li, b, wslot[b]: wslot[b] + g] = v_new[b * g: (b + 1) * g]
-    x = tphi3.rms_norm(tparams["final_ln"], x.reshape(B, g, D), tcfg.rms_eps)
-    lg = tphi3._lm_head(tparams, x)
+    slots = torch.from_numpy((wslot[:, None] + np.arange(g)[None]).reshape(-1))
+    lg = tphi3._ring_stack(tparams, tcfg, x, cos, sin, flat, scan_length(wslot.max(), total),
+                           mask, g, torch.arange(B).repeat_interleave(g), slots).view(B, g, -1)
     _close(lg, lg_ref, 5e-2)
     np.testing.assert_array_equal(np32(lg).argmax(-1), np32(lg_ref).argmax(-1))
 
@@ -196,7 +190,7 @@ def test_layer_matches_pallas_ring_in_interpret_mode():
     bf = lambda a: torch.from_numpy(a).to(torch.bfloat16)
     got = decode_layer_ring(
         bf(x), tp["input_ln"], tp["qkv"]["q4"], tp["o"]["q4"], tp["post_ln"],
-        tp["gate_up"]["q4"], tp["down"]["q4"], bf(ck), bf(cv), 0, T,
+        tp["gate_up"]["q4"], tp["down"]["q4"], bf(ck), bf(cv), 0, scan_length(T, total),
         torch.from_numpy(mask), torch.from_numpy(cos), torch.from_numpy(sin),
         eps=cfg.rms_eps, heads=cfg.num_heads, hd=cfg.head_dim)
     for a, b in zip(got, ref):

@@ -87,9 +87,9 @@ def card(monkeypatch):
     return cpu
 
 
-@pytest.mark.parametrize("mode,B,group,nsplit,tps", [
-    ("plain", 1, 1, 4, 4), ("shared_cache", 8, 8, 4, 4), ("group_size", 4, 2, 2, 8)])
-def test_plan_at_the_ring_shapes(card, mode, B, group, nsplit, tps):
+@pytest.mark.parametrize("B,group,nsplit,tps", [(1, 1, 4, 4), (8, 8, 4, 4), (4, 2, 2, 8)],
+                         ids=["plain", "shared_cache", "group_size"])
+def test_plan_at_the_ring_shapes(card, B, group, nsplit, tps):
     """Phi-3-mini (32 heads of 96) at t_scan 1024: at most a work item per
     SM, every item resident at once (under one wave of the card's blocks)."""
     p = T.attn_plan(card, 96, 32, B // group, 1024)

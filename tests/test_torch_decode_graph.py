@@ -2,11 +2,12 @@
 that the card captures once per ``(rows, Tmax, t_scan)`` and replays.
 
 On the CPU the same body runs eagerly through the plain versions.  Held
-bit for bit against the pass as the eager route runs it with host ints
-(slice writes of the new k/v at the write slot, a mask cloned with the
-current slot cleared, ids uploaded for the embedding): logits, argmax and
-the whole cache after the pass, for a verify pass of 8 rows and a plain
-one-row pass, with write slots inside the first 512-row block, across its
+bit for bit against the pass run eagerly with host ints: a verify pass of
+8 rows as a layer loop with slice writes of the new k/v at the write
+slots, and a plain one-row pass as greedy decode runs it
+(``_decode_forward_ring``: a mask cloned with the current slot cleared,
+ids uploaded for the embedding): logits, argmax and the whole cache after
+the pass, with write slots inside the first 512-row block, across its
 edge and past it.  Two ``greedy_decode_spec`` calls at different prompt
 lengths share one buffer, and the second equals the same call on fresh
 buffers; the graph key and the CPU's counters (no replay, no capture)."""
@@ -17,7 +18,7 @@ import torch
 
 from dynam3d_torch.config import Phi3Config
 from dynam3d_torch.models.vlm import phi3
-from dynam3d_torch.ops.decode import decode_layer_ring
+from dynam3d_torch.ops.decode import decode_layer_ring, scan_length
 from dynam3d_torch.ops.int4 import pack_int4
 from dynam3d_torch.runtime import profiling
 
@@ -33,7 +34,7 @@ def _params(seed):
     for lq, ld in zip(q["layers"], dense["layers"]):
         for name in ("qkv", "o", "gate_up", "down"):
             lq[name]["q4"] = pack_int4(ld[name].float(), dblk=64, nblk=64)
-    assert phi3._fused_decode_eligible(q, CFG, 1) and phi3._ring_eligible(q, CFG)
+    assert phi3.decode_route(q, CFG, 1) == "ring"
     return q
 
 
@@ -54,9 +55,9 @@ def _verify_as_eager(params, cfg, embeds, pos0, cache, wslot, valid):
         p = params["layers"][li]
         x, k_new, v_new = decode_layer_ring(
             x, p["input_ln"], p["qkv"]["q4"], p["o"]["q4"], p["post_ln"],
-            p["gate_up"]["q4"], p["down"]["q4"], cache.k, cache.v, li, wslot,
-            valid, cos, sin, eps=cfg.rms_eps, heads=cfg.num_heads, hd=cfg.head_dim,
-            shared_cache=True,
+            p["gate_up"]["q4"], p["down"]["q4"], cache.k, cache.v, li,
+            scan_length(wslot, cache.k.shape[2]), valid, cos, sin, eps=cfg.rms_eps,
+            heads=cfg.num_heads, hd=cfg.head_dim, group=k,
         )
         cache.k[li, 0, wslot: wslot + k] = k_new
         cache.v[li, 0, wslot: wslot + k] = v_new
@@ -86,8 +87,9 @@ def test_ring_pass_equals_eager_pass(monkeypatch, rows, T, total):
     if rows > 1:
         ref = _verify_as_eager(params, CFG, e, pos0, ref_cache, wslot, ref_valid)
     else:
-        ref, _ = phi3._decode_forward_fused(params, CFG, e, torch.full((1, 1), pos0), ref_cache,
-                                            wslot, ref_valid)
+        ref, _ = phi3._decode_forward_ring(params, CFG, e, torch.full((1, 1), pos0), ref_cache,
+                                           wslot, ref_valid)
+        ref = ref.view(1, rows, -1)
     lg, top = phi3._ring_pass(params, CFG, buf, ids, pos0, wslot)
     assert lg.shape == ref.shape == (1, rows, CFG.vocab_size)
     assert torch.equal(lg, ref)

@@ -1,10 +1,11 @@
 """Greedy ids through ``llava.generate`` on every int4 decode route the
 decode flags and the batch select (ring, split, unfused, 2-D matvec,
-grouped speculation, the wide route's kernel B at B = 12; B = 1, 3, 6 and
-12), each shown by the plain versions it ran, identical to the JAX
-package's ids (its CPU path,
-``decode_forward`` over dequantized weights).  The routes' kernels are
-tested in test_torch_int4_mlp.py and test_torch_attn_layer.py.
+grouped speculation, the wide route's kernel B at B = 12 and the unfused
+attention with kernel F there; B = 1, 3, 6 and 12), each shown by the
+plain versions it ran, identical to the JAX package's ids (its CPU path,
+``decode_forward`` over dequantized weights); and ``decode_route``'s
+answer table.  The routes' kernels are tested in test_torch_int4_mlp.py
+and test_torch_attn_layer.py.
 
 The tiny random model's logits are nearly flat, and the JAX CPU path
 rounds the dequantized weights to bf16 where the port's int4 arithmetic is
@@ -14,6 +15,7 @@ the two candidates; jitting the reference's call moves such steps too).
 The seeds below have no such step for the reference called as its own
 tests call it (not jitted)."""
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -24,6 +26,7 @@ import torch
 from dynam3d_tpu.config import Dynam3DConfig, LLaVAConfig
 from dynam3d_tpu.models.vlm import phi3 as jphi3
 from dynam3d_torch.models.vlm import llava as tllava
+from dynam3d_torch.config import Phi3Config
 from dynam3d_torch.models.vlm import phi3 as tphi3
 from dynam3d_torch.ops import decode as tdecode
 from dynam3d_torch.ops import int4 as tint4
@@ -47,8 +50,7 @@ ROUTES = [
     ("grouped_spec", 3, {}, {"ring_group"}, {"H", "G", "F", "E"}),
     ("ring_greedy", 6, {}, {"ring"}, {"H", "G", "F", "E"}),
     ("unfused", 12, {}, {"B", "F"}, {"ring", "H", "G", "E"}),
-    ("unfused_split_mlp", 12, {"DYNAM3D_INT4_FUSED_MLP": "0"}, {"B"},
-     {"ring", "H", "G", "F", "E"}),
+    ("unfused_b12", 12, {"DYNAM3D_FUSED_ATTN": "0"}, {"F"}, {"ring", "B", "H", "G", "E"}),
 ]
 
 
@@ -56,7 +58,8 @@ def _spy(monkeypatch, mod, name, tag, seen):
     real = getattr(mod, name)
 
     def spy(*a, **k):
-        seen.add(tag + ("_group" if k.get("group_size") else ""))
+        grouped = 1 < k.get("group", 1) < a[0].shape[0]     # B episodes x g drafts
+        seen.add(tag + ("_group" if grouped else ""))
         return real(*a, **k)
 
     monkeypatch.setattr(mod, name, spy)
@@ -97,3 +100,49 @@ def test_route_ids_match_reference(monkeypatch, route, B, env, must, never):
                           torch.from_numpy(valid))
     assert must <= seen and not (never & seen), (route, seen)
     np.testing.assert_array_equal(got.numpy(), ref)
+
+
+# decode_route's answers, as the parent's five predicates gave them at
+# their greedy call site: rows 1, 3, 6, 12, 17 under DYNAM3D_FUSED_RING on
+# and off, and rows 1 and 12 under tp
+ROUTE_TABLE = {
+    "int4_ring": {"1": ["ring", "ring", "ring", "wide", "unfused"],
+                  "0": ["split", "unfused", "unfused", "wide", "unfused"]},
+    "int4_few_blocks": {"1": ["split", "unfused", "unfused", "wide", "unfused"],
+                        "0": ["split", "unfused", "unfused", "wide", "unfused"]},
+    "int8": {f: ["unfused"] * 5 for f in "10"},
+    "dense": {f: ["unfused"] * 5 for f in "10"},
+}
+ROUTE_CASES = ([(w, f, rows, False, want) for w, by in ROUTE_TABLE.items()
+                for f, answers in by.items() for rows, want in zip((1, 3, 6, 12, 17), answers)]
+               + [(w, "1", rows, True, "unfused") for w in ROUTE_TABLE for rows in (1, 12)])
+ROUTE_CFG = Phi3Config(vocab_size=512, hidden_size=128, intermediate_size=256, num_layers=2,
+                       num_heads=4, num_kv_heads=4, head_dim=32)
+
+
+@functools.lru_cache(maxsize=None)
+def _route_params(weights):
+    """Ring packs (64-row groups, 64-wide blocks); the same packs at an
+    MLP of 128, whose gate_up has 2 column blocks, too few for the ring;
+    int8 only; dense."""
+    cfg = (dataclasses.replace(ROUTE_CFG, intermediate_size=128)
+           if weights == "int4_few_blocks" else ROUTE_CFG)
+    dense = tphi3.init_phi3_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    if weights == "dense":
+        return dense
+    q = tphi3.quantize_phi3(dense, bits=8 if weights == "int8" else 4)
+    if weights != "int8":
+        for lq, ld in zip(q["layers"], dense["layers"]):
+            for name in ("qkv", "o", "gate_up", "down"):
+                lq[name]["q4"] = tint4.pack_int4(ld[name].float(), dblk=64, nblk=64)
+    return q
+
+
+@pytest.mark.parametrize("weights,ring,rows,tp,want", ROUTE_CASES,
+                         ids=[f"{w}-ring{f}-rows{r}{'-tp' if t else ''}"
+                              for w, f, r, t, _ in ROUTE_CASES])
+def test_decode_route_table(monkeypatch, weights, ring, rows, tp, want):
+    monkeypatch.setenv("DYNAM3D_FUSED_RING", ring)
+    monkeypatch.delenv("DYNAM3D_FUSED_ATTN", raising=False)
+    tp = object() if tp else None                   # only its presence is read
+    assert tphi3.decode_route(_route_params(weights), ROUTE_CFG, rows, tp) == want

@@ -110,10 +110,10 @@ def test_wide_passes_count_the_route(B, wide):
 
 
 def test_wide_route_is_chosen_by_the_batch(monkeypatch):
-    assert [B for B in range(1, 20) if phi3._wide_decode_eligible(PARAMS, CFG, B)] == list(
+    assert [B for B in range(1, 20) if phi3.decode_route(PARAMS, CFG, B) == "wide"] == list(
         range(9, 17))
     monkeypatch.setenv("DYNAM3D_FUSED_ATTN", "0")
-    assert not phi3._wide_decode_eligible(PARAMS, CFG, 12)
+    assert phi3.decode_route(PARAMS, CFG, 12) == "unfused"
 
 
 def test_wide_route_runs_kernel_b_a_and_f(monkeypatch):

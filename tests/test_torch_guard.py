@@ -239,7 +239,6 @@ def test_decode_gates_are_read_at_call_time(monkeypatch):
     gates = {"DYNAM3D_SPEC_DECODE": (flags.spec_decode, True),
              "DYNAM3D_FUSED_ATTN": (flags.fused_attn, True),
              "DYNAM3D_FUSED_RING": (flags.fused_ring, True),
-             "DYNAM3D_INT4_FUSED_MLP": (flags.int4_fused_mlp, True),
              "DYNAM3D_INT4_GRID2D": (flags.int4_grid2d, False),
              "DYNAM3D_SPEC_FORCE_ACCEPT": (flags.spec_force_accept, False)}
     for name, (gate, default) in gates.items():

@@ -1,11 +1,11 @@
 """Port parity of batched multi-episode serving against the JAX package:
 
-* ``greedy_decode_spec_batched`` at B = 2, 3 and 4 with lookup ids planted
+* ``greedy_decode_spec`` at B = 2, 3 and 4 with lookup ids planted
   from the port's own greedy ids (drafts hit): ids and the ``tokens`` /
   ``passes`` stats equal the JAX package's, and the ids the port's plain
   greedy decode, over int4 weights (the port's grouped ring verify, plain
-  versions) and over dense weights (the grouped ``decode_forward`` verify
-  with per-row cache scatters);
+  versions) and over dense weights (the ``forward`` verify with per-row
+  cache scatters);
 * ``EpisodeRunner.run`` with 3 feeds on the tiny slice config (int4 LLM):
   identical ids and action text for every feed at every step (B >= 9 runs
   through ``llava.generate`` in test_torch_decode_routes.py, where the JAX
@@ -61,8 +61,8 @@ def test_spec_batched_ids_and_stats_match(B, llm):
         p, cfg, e, v, n, stop_token=-1, lookup_ids=lk, return_stats=True))(
         params, embeds, jnp.asarray(valid), jnp.asarray(lookup))
     stats = {}
-    tout = tphi3.greedy_decode_spec_batched(tparams, _tcfg(cfg), te, tv, n, stop_token=-1,
-                                            lookup_ids=torch.from_numpy(lookup), stats=stats)
+    tout = tphi3.greedy_decode_spec(tparams, _tcfg(cfg), te, tv, n, stop_token=-1,
+                                    lookup_ids=torch.from_numpy(lookup), stats=stats)
     np.testing.assert_array_equal(tout.numpy(), np.asarray(jout))
     np.testing.assert_array_equal(tout.numpy(), ref)
     assert stats["tokens"] == np.asarray(jstats["tokens"]).tolist() == [n] * B
@@ -81,7 +81,7 @@ def test_spec_batched_stop_per_row():
     stop = int(free[0, 3])
     ref = np.asarray(jphi3.greedy_decode(params, cfg, embeds, jnp.asarray(valid), n,
                                          stop_token=stop))
-    tout = tphi3.greedy_decode_spec_batched(
+    tout = tphi3.greedy_decode_spec(
         to_torch(params), _tcfg(cfg), torch.from_numpy(np32(embeds)).to(torch.bfloat16),
         torch.from_numpy(valid), n, stop_token=stop)
     np.testing.assert_array_equal(tout.numpy(), ref)

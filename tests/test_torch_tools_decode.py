@@ -3,8 +3,8 @@ tiny int4 Phi-3 (``tests/test_spec_decode.py``'s ring-eligible config and
 packing, made once for the file):
 
 * ``flags.spec_force_accept``: ``greedy_decode_spec`` (no lookup: every
-  pass verifies its missing drafts all the same) and
-  ``greedy_decode_spec_batched`` at B = 2 give the ids of the JAX functions
+  pass verifies its missing drafts all the same) at B = 1 and at B = 2
+  gives the ids of the JAX functions
   under ``dynam3d_tpu.flags.SPEC_FORCE_ACCEPT``, exactly, every pass
   accepting all its rows;
 * ``prof_decode_parts`` on the CPU: the unfused one-step logits against the
@@ -84,7 +84,7 @@ def test_force_accept_spec_batched_matches_jax(monkeypatch, phi3_int4):
     jout = jax.jit(lambda p, e, v: jphi3.greedy_decode_spec_batched(
         p, cfg, e, v, n, stop_token=-1))(params, embeds, jnp.asarray(valid))
     stats = {}
-    tout = tphi3.greedy_decode_spec_batched(
+    tout = tphi3.greedy_decode_spec(
         tparams, _tcfg(cfg), torch.from_numpy(np32(embeds)).to(torch.bfloat16),
         torch.from_numpy(valid), n, stop_token=-1, stats=stats)
     np.testing.assert_array_equal(tout.numpy(), np.asarray(jout))

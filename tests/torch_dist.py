@@ -42,7 +42,7 @@ def tp_phi3(rank, world, dev, phi3_np, cfg, decode_in, train_in, opt_in, ckpt_di
     split = split_qkv_params(_t(phi3_np), cfg)
     specs = phi3_param_specs(split)
     sh = shard_tree(split, specs, mesh)
-    out = {"fused_eligible": phi3._fused_decode_eligible(sh, cfg, 1)}
+    out = {"fused_eligible": phi3.decode_route(sh, cfg, 1) in ("ring", "split")}
 
     ids, valid, n_new = decode_in
     comm.reset_counts()
